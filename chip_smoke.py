@@ -3,28 +3,38 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ (set-up), then runs four phases
-and fails (exit 1, no result line) if any of them fails:
+Builds the port's CUDA kernels from csrc/ (set-up, with ptxas's register,
+shared-memory and stack report), then runs five phases and fails (exit 1,
+no result line) if any of them fails:
 
-1. card: the card's name and power limit, as nvidia-smi reports them;
-2. fused kernel vs its plain version on the card: fused_assign against
+1. fused kernel vs its plain version on the card: fused_assign against
    fused_assign_reference on a small ragged problem, on P=512/T=24 with
    weights in [1000, 5000) and each of the score, forbidden and exclusive
-   operands, and on the main path's own inputs; assigned and hist exact,
-   demand within rtol 1e-5;
-3. shelf kernel vs its plain version on the card, on random histograms and
-   the main path's histogram, exactly;
-4. main path: solve(backend="cuda") on the bench's 100k pods x 300 types x
-   64 taints x 64 labels problem (workloads.build_inputs, seed 0), held
-   exactly against solve(backend="torch") on the card and, at a small size,
-   against the plain program on the CPU; launch counts of both kernels
-   must be > 0; p50/p95 over 20 solves.
+   operands, on wide fleets (T = 4,096 at K = L = 64, T = 2,000 at
+   K = L = 512: both past 1,447 groups, where a per-block [T, B] shared
+   histogram would no longer fit) and on the main path's own inputs;
+   assigned, hist and unschedulable exact, demand within rtol 1e-5 and
+   bitwise equal across two launches;
+2. shelf kernel vs its plain version on the card, on random histograms at
+   B = 1, 8, 16, 32, 33, 64 and the main path's histogram: nodes and
+   assigned_count exact;
+3. main path: solve(backend="cuda") on the bench's 100k pods x 300 types x
+   64 taints x 64 labels problem (workloads.build_inputs, seed 0), once
+   with the launch counts set to 0 just before and read just after (both
+   kernels must have launched); held exactly against
+   solve(backend="torch") on the card, and its totals against the
+   reference bench's (nodes 20262); p50/p95 over 20 more solves;
+4. wide fleet: solve(backend="cuda") == solve(backend="torch") at T = 2,000;
+5. small card vs CPU: binpack_fused on the card == binpack on the CPU.
 
-Then it times each kernel against its plain version at the main path's
-shapes and prints, before the last line, one JSON line of kernel records,
-and as the last line {"ok": true, "device": {...}}. Without a CUDA device,
-or without the rest of the repo beside it, it exits non-zero and prints no
-result. Imports neither jax nor karpenter_tpu.
+Then it profiles 20 main-path solves (torch.profiler: device time by
+kernel) and prints, before the last line, one JSON line of kernel records
+(`ms` is device time per launch from the profiler, and the smoke fails
+without it; `call_ms` is the wrapper's time by CUDA events around 50
+calls), and as the last line
+{"ok": true, "device": {...}}. Without a CUDA device, or without the rest
+of the repo beside it, it exits non-zero and prints no result. Imports
+neither jax nor karpenter_tpu.
 """
 
 from __future__ import annotations
@@ -41,8 +51,15 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 MAIN_SHAPE = dict(pods=100_000, types=300, taints=64, labels=64, seed=0)
+# the main path's node total, as the reference's bench printed it for seed 0
+MAIN_NODES = 20262
 BUCKETS = 32
 ITERS = 20
+# device kernels of each wrapper, by the names the profiler shows
+KERNEL_NAMES = {
+    "fused_assign": ("assign_kernel", "demand_reduce_kernel"),
+    "shelf_bfd": ("shelf_bfd_warp_kernel", "shelf_bfd_wide_kernel"),
+}
 
 
 def need(ok, what: str) -> None:
@@ -98,6 +115,20 @@ def fused_cases():
     return cases
 
 
+def wide_cases(workloads):
+    """(name, numpy fields) past 1,447 groups, where the generic
+    instance reads the group side from global memory (T = 4,096 at
+    K = L = 64; T = 2,000 at K = L = 512)."""
+    cases = []
+    for pods, types, tl, seed in ((20_000, 4096, 64, 4), (5_000, 2000, 512, 5)):
+        f = workloads.build_inputs(pods, types, tl, tl, seed=seed)
+        f["pod_weight"] = np.random.default_rng(seed).integers(
+            1, 5000, f["pod_valid"].shape[0]
+        ).astype(np.int32)
+        cases.append((f"{pods}x{types} K=L={tl} weighted", f))
+    return cases
+
+
 def time_ms(fn, iters):
     """Mean device time of one call, by CUDA events around `iters` calls
     after two warm-up calls."""
@@ -149,21 +180,26 @@ def shelf_ops(hist: np.ndarray, buckets: int) -> int:
     return steps
 
 
-def phase_fused(torch, TB, TF, main_inputs):
-    for name, fields in fused_cases() + [(f"main path {MAIN_SHAPE}", None)]:
+def phase_fused(torch, TB, TF, main_inputs, workloads):
+    cases = fused_cases() + wide_cases(workloads)
+    for name, fields in cases + [(f"main path {MAIN_SHAPE}", None)]:
         inputs = (
             main_inputs if fields is None
             else TB.inputs_from_numpy(fields, "cuda")
         )
-        a, h, d = TF.fused_assign(inputs, BUCKETS)
-        ra, rh, rd = TF.fused_assign_reference(inputs, BUCKETS)
+        a, h, d, u = TF.fused_assign(inputs, BUCKETS)
+        ra, rh, rd, ru = TF.fused_assign_reference(inputs, BUCKETS)
+        again = TF.fused_assign(inputs, BUCKETS)[2]
         torch.cuda.synchronize()
         need(torch.equal(a, ra), f"{name}: assigned differs")
         need(torch.equal(h, rh), f"{name}: hist differs")
+        need(torch.equal(u, ru), f"{name}: unschedulable differs")
         torch.testing.assert_close(d, rd, rtol=1e-5, atol=0.0)
+        need(torch.equal(d.view(torch.int32), again.view(torch.int32)),
+             f"{name}: demand differs between two launches")
         err = float((d.double() - rd.double()).abs().max()) if d.numel() else 0.0
-        print(f"fused_assign vs plain [{name}]: assigned/hist exact, "
-              f"demand max |diff| {err}")
+        print(f"fused_assign vs plain [{name}]: assigned/hist/unschedulable "
+              f"exact, demand max |diff| {err}, bitwise stable")
 
 
 def phase_shelf(torch, TF, main_hist):
@@ -173,15 +209,19 @@ def phase_shelf(torch, TF, main_hist):
          torch.from_numpy(
              rng.integers(0, hi, (300, b)).astype(np.int32)
          ).cuda(), b)
-        for s, (b, hi) in enumerate(((8, 40), (16, 400), (32, 40), (32, 4000)))
+        for s, (b, hi) in enumerate((
+            (8, 40), (16, 400), (32, 40), (32, 4000), (1, 400), (33, 400),
+            (64, 400),
+        ))
     ] + [("main path histogram", main_hist, BUCKETS)]
     for name, hist, b in cases:
-        got = TF.shelf_bfd(hist, b)
-        want = TF.shelf_bfd_reference(hist, b)
+        nodes, count = TF.shelf_bfd(hist, b)
+        want_nodes, want_count = TF.shelf_bfd_reference(hist, b)
         torch.cuda.synchronize()
-        need(torch.equal(got, want), f"shelf_bfd [{name}] differs")
-        print(f"shelf_bfd vs plain [{name}]: exact "
-              f"({int(got.sum())} nodes)")
+        need(torch.equal(nodes, want_nodes), f"shelf_bfd [{name}]: nodes differ")
+        need(torch.equal(count, want_count), f"shelf_bfd [{name}]: count differs")
+        print(f"shelf_bfd vs plain [{name}]: nodes and count exact "
+              f"({int(nodes.sum())} nodes)")
 
 
 def outputs_equal(a, b, what):
@@ -206,7 +246,7 @@ def check_lp(cuda_out, plain_out, inputs):
     diff = (cuda_out.lp_bound != plain_out.lp_bound).nonzero().flatten()
     if diff.numel() == 0:
         return 0
-    _, _, demand = fused_assign_reference(inputs, BUCKETS)
+    demand = fused_assign_reference(inputs, BUCKETS)[2]
     alloc = inputs.group_allocatable
     for t in diff.tolist():
         ratio = (demand[t].double() / alloc[t].double()).tolist()
@@ -224,15 +264,16 @@ def phase_main(torch, TB, TF, inputs):
     out = TB.solve(inputs, buckets=BUCKETS, backend="cuda")
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    times = []
-    for _ in range(ITERS):
-        t0 = time.perf_counter()
-        out = TB.solve(inputs, buckets=BUCKETS, backend="cuda")
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
     launches = dict(TF.LAUNCHES)
     for name, n in launches.items():
         need(n > 0, f"kernel {name} was not launched on the main path")
+    times = []
+    for _ in range(ITERS):
+        t0 = time.perf_counter()
+        again = TB.solve(inputs, buckets=BUCKETS, backend="cuda")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    outputs_equal(again, out, "solve cuda, first vs later call")
 
     plain_times = []
     for _ in range(5):
@@ -253,6 +294,8 @@ def phase_main(torch, TB, TF, inputs):
     need(int(out.assigned_count.sum()) + int(out.unschedulable) == pods,
          "scheduled + unschedulable != pods")
     need(bool((out.nodes_needed >= out.lp_bound).all()), "sandwich broken")
+    need(int(out.nodes_needed.sum()) == MAIN_NODES,
+         f"main path nodes {int(out.nodes_needed.sum())} != {MAIN_NODES}")
     p50, p95 = np.percentile(times, 50), np.percentile(times, 95)
     scheduled = int((assigned >= 0).sum())
     print(f"main path first call {first_ms} ms")
@@ -261,8 +304,21 @@ def phase_main(torch, TB, TF, inputs):
           f"nodes={int(out.nodes_needed.sum())} decisions/sec={1000.0 / p50}")
     print(f"main path solve(backend='torch') p50={np.percentile(plain_times, 50)}ms "
           f"(plain program on the card); lp_bound mismatches: {n_lp}")
-    print(f"main path launches: {launches}")
+    print(f"main path launches (one solve): {launches}")
     return out, launches
+
+
+def phase_wide_solve(torch, TB, workloads):
+    """solve(backend="cuda") == solve(backend="torch") at T = 2,000."""
+    fields = workloads.build_inputs(20_000, 2000, 64, 64, seed=6)
+    inputs = TB.inputs_from_numpy(fields, "cuda")
+    fused = TB.solve(inputs, buckets=BUCKETS, backend="cuda")
+    plain = TB.solve(inputs, buckets=BUCKETS, backend="torch")
+    torch.cuda.synchronize()
+    outputs_equal(fused, plain, "solve cuda vs torch at T=2000")
+    n_lp = check_lp(fused, plain, inputs)
+    print(f"wide fleet 20000x2000: solve cuda == torch on all outputs "
+          f"(lp_bound mismatches {n_lp}), nodes {int(fused.nodes_needed.sum())}")
 
 
 def phase_small_vs_cpu(torch, TB, TF):
@@ -277,11 +333,12 @@ def phase_small_vs_cpu(torch, TB, TF):
     print("binpack_fused (card) == binpack (CPU) on 300x31: all five outputs")
 
 
-def time_breakdown(torch, TB, inputs):
+def profile_solves(torch, TB, inputs, n=ITERS):
     """Where a solve's time goes: the mean of back-to-back solves by CUDA
-    events, then a torch.profiler window of 10 solves (device time by
-    kernel, device busy share of the window). A measurement, not a check:
-    a profiler that cannot trace the card is reported, not fatal."""
+    events, then a torch.profiler window of n solves (device time by
+    kernel, device busy share of the window). Returns {kernel name:
+    (device us per solve, launches per solve)} over the device rows, or
+    None when the profiler cannot trace the card (reported, not fatal)."""
     solve = lambda: TB.solve(inputs, buckets=BUCKETS, backend="cuda")  # noqa: E731
     b2b_ms = time_ms(solve, ITERS)
     print(f"main path solve back-to-back, CUDA events: {b2b_ms} ms")
@@ -290,13 +347,13 @@ def time_breakdown(torch, TB, inputs):
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(10):
+            for _ in range(n):
                 solve()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     except RuntimeError as exc:
         print(f"profiler: not available ({exc})")
-        return
+        return None
     # device-side rows only (kernels, memcpy/memset): an aten op's row
     # repeats the time of the kernels it launched
     rows = []
@@ -308,26 +365,50 @@ def time_breakdown(torch, TB, inputs):
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
         if dev_us > 0:
             rows.append((dev_us, ev.count, ev.key))
+    if not rows:
+        print("profiler: no device rows")
+        return None
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    print(f"profiler, 10 solves: window {wall_us} us (profiler on), device "
-          f"busy {busy_us} us = {busy_us / 10} us/solve "
+    print(f"profiler, {n} solves: window {wall_us} us (profiler on), device "
+          f"busy {busy_us} us = {busy_us / n} us/solve "
           f"({100.0 * busy_us / wall_us if wall_us else 0.0}% of the window; "
-          f"{100.0 * busy_us / 10 / (1e3 * b2b_ms)}% of a back-to-back solve)")
+          f"{100.0 * busy_us / n / (1e3 * b2b_ms)}% of a back-to-back solve)")
     for dev_us, count, key in rows[:12]:
-        print(f"  device {dev_us / 10} us/solve  x{count / 10}/solve  {key[:90]}")
+        print(f"  device {dev_us / n} us/solve  x{count / n}/solve  {key[:90]}")
+    return {key: (dev_us / n, count / n) for dev_us, count, key in rows}
 
 
-def kernel_records(torch, TB, TF, inputs, launches):
-    """Per-kernel JSON records at the main path's shapes."""
+def device_ms(profile, wrapper):
+    """(device ms per solve, device kernels per solve) of a wrapper's own
+    kernels, from profile_solves' rows; (None, None) without them."""
+    if not profile:
+        return None, None
+    hits = [v for key, v in profile.items()
+            if any(name in key for name in KERNEL_NAMES[wrapper])]
+    if not hits:
+        return None, None
+    return sum(us for us, _ in hits) / 1e3, sum(c for _, c in hits)
+
+
+def kernel_records(torch, TB, TF, inputs, launches, profile):
+    """Per-kernel JSON records at the main path's shapes. `ms` is device
+    time per launch from the profiler's rows of the kernel's own names
+    (the fused row sums its two kernels); `call_ms` is the wrapper's time
+    by CUDA events around 50 calls, which the host's enqueue bounds when
+    the kernels are short. `launches` is the wrapper's count from the main
+    path's single solve; `device_kernels_per_solve` counts the device
+    kernels behind it (the fused wrapper launches two). Fails when the
+    profiler shows none of a wrapper's kernels: `ms` never holds a host
+    time."""
     from karpenter_tpu_torch.ops.fused_assign import _packed
 
     pods, n_res = inputs.pod_requests.shape
     groups = inputs.group_allocatable.shape[0]
     intol_w, required_w, taint_w, nolabel_w = _packed(inputs)
     kw, lw = intol_w.shape[1], required_w.shape[1]
-    assigned, hist, demand = TF.fused_assign(inputs, BUCKETS)
-    _, _, plain_demand = TF.fused_assign_reference(inputs, BUCKETS)
+    assigned, hist, demand, _ = TF.fused_assign(inputs, BUCKETS)
+    plain_demand = TF.fused_assign_reference(inputs, BUCKETS)[2]
     a = assigned.cpu().numpy()
     valid = inputs.pod_valid.cpu().numpy()
     # (row, group) pairs the scan visits: up to the first feasible group,
@@ -339,11 +420,11 @@ def kernel_records(torch, TB, TF, inputs, launches):
         + groups * (4 * n_res + 8 * (kw + lw))  # groups in
         + groups * (4 * BUCKETS + 4 * n_res)  # hist, demand out
     )
-    fused_ms = time_ms(lambda: TF.fused_assign(inputs, BUCKETS), 50)
+    fused_call_ms = time_ms(lambda: TF.fused_assign(inputs, BUCKETS), 50)
     fused_plain_ms = time_ms(
         lambda: TF.fused_assign_reference(inputs, BUCKETS), 5
     )
-    shelf_ms = time_ms(lambda: TF.shelf_bfd(hist, BUCKETS), 50)
+    shelf_call_ms = time_ms(lambda: TF.shelf_bfd(hist, BUCKETS), 50)
     shelf_plain_ms = time_ms(lambda: TF.shelf_bfd_reference(hist, BUCKETS), 3)
     shelf_bytes = groups * (4 * BUCKETS + 4)
     shelf_operations = shelf_ops(hist.cpu().numpy(), BUCKETS)
@@ -355,38 +436,40 @@ def kernel_records(torch, TB, TF, inputs, launches):
 
     fb, fby = bound(fused_bytes, fused_ops)
     sb, sby = bound(shelf_bytes, shelf_operations)
-    shelf_err = float(
-        (TF.shelf_bfd(hist, BUCKETS) - TF.shelf_bfd_reference(hist, BUCKETS))
-        .abs().max()
-    )
-    return [
-        {
-            "name": "fused_assign",
+    got_nodes, got_count = TF.shelf_bfd(hist, BUCKETS)
+    want_nodes, want_count = TF.shelf_bfd_reference(hist, BUCKETS)
+    shelf_err = float(max((got_nodes - want_nodes).abs().max(),
+                          (got_count - want_count).abs().max()))
+    records = []
+    for name, source, replaces, err, call_ms, plain_ms, b, by in (
+        ("fused_assign", "karpenter_tpu_torch/csrc/fused_assign.cu",
+         "karpenter_tpu/ops/pallas_binpack.py:46",
+         float((demand.double() - plain_demand.double()).abs().max()),
+         fused_call_ms, fused_plain_ms, fb, fby),
+        ("shelf_bfd", "karpenter_tpu_torch/csrc/shelf_bfd.cu",
+         "karpenter_tpu/ops/binpack.py:342", shelf_err,
+         shelf_call_ms, shelf_plain_ms, sb, sby),
+    ):
+        ms, per_solve = device_ms(profile, name)
+        need(ms is not None,
+             f"{name}: the profiler shows no device time for "
+             f"{KERNEL_NAMES[name]}")
+        records.append({
+            "name": name,
             "route": "cuda",
-            "source": "karpenter_tpu_torch/csrc/fused_assign.cu",
-            "replaces": "karpenter_tpu/ops/pallas_binpack.py:46",
-            "launches": launches["fused_assign"],
-            "max_abs_err": float((demand.double() - plain_demand.double()).abs().max()),
-            "ms": fused_ms,
-            "plain_ms": fused_plain_ms,
-            "bound_ms": fb,
-            "bound_by": fby,
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[name],
+            "device_kernels_per_solve": per_solve,
+            "max_abs_err": err,
+            "ms": ms,
+            "call_ms": call_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b,
+            "bound_by": by,
             "library_ms": None,
-        },
-        {
-            "name": "shelf_bfd",
-            "route": "cuda",
-            "source": "karpenter_tpu_torch/csrc/shelf_bfd.cu",
-            "replaces": "karpenter_tpu/ops/binpack.py:342",
-            "launches": launches["shelf_bfd"],
-            "max_abs_err": shelf_err,
-            "ms": shelf_ms,
-            "plain_ms": shelf_plain_ms,
-            "bound_ms": sb,
-            "bound_by": sby,
-            "library_ms": None,
-        },
-    ]
+        })
+    return records
 
 
 def main() -> int:
@@ -425,10 +508,12 @@ def main() -> int:
     failed = []
     results = {}
     phases = [
-        ("fused kernel vs plain", lambda: phase_fused(torch, TB, TF, inputs)),
+        ("fused kernel vs plain",
+         lambda: phase_fused(torch, TB, TF, inputs, workloads)),
         ("shelf kernel vs plain", lambda: phase_shelf(
             torch, TF, TF.fused_assign(inputs, BUCKETS)[1])),
         ("main path", lambda: phase_main(torch, TB, TF, inputs)),
+        ("wide fleet solve", lambda: phase_wide_solve(torch, TB, workloads)),
         ("small card vs CPU", lambda: phase_small_vs_cpu(torch, TB, TF)),
     ]
     for name, run in phases:
@@ -445,8 +530,8 @@ def main() -> int:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
     _, launches = results["main path"]
-    records = kernel_records(torch, TB, TF, inputs, launches)
-    time_breakdown(torch, TB, inputs)
+    profile = profile_solves(torch, TB, inputs)
+    records = kernel_records(torch, TB, TF, inputs, launches, profile)
     print(f"card: {card_info()['line']}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

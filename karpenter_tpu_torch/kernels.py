@@ -36,15 +36,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> {C function: (argtypes, restype)}
 _SIGNATURES = {
     "fused_assign": {
-        "fused_assign_launch": ([_P] * 11 + [_I] * 6 + [_P] * 5, _I),
-        "fused_assign_shared_bytes": ([_I] * 5, ctypes.c_size_t),
-        "fused_assign_rows_per_block": ([], _I),
-        "fused_assign_max_resources": ([], _I),
-        "fused_assign_max_words": ([], _I),
+        # 11 operands; P, T, R, KW, LW, B; the launch plan (n_blocks,
+        # narrow, shared_bytes, key_bits); 6 outputs and scratch; the stream
+        "fused_assign_launch": ([_P] * 11 + [_I] * 10 + [_P] * 7, _I),
         "fused_assign_error_string": ([_I], ctypes.c_char_p),
     },
     "shelf_bfd": {
-        "shelf_bfd_launch": ([_P, _I, _I, _P, _P], _I),
+        "shelf_bfd_launch": ([_P, _I, _I, _P, _P, _P], _I),
         "shelf_bfd_error_string": ([_I], ctypes.c_char_p),
     },
 }

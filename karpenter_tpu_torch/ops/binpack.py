@@ -279,7 +279,8 @@ def quantize_share(share: torch.Tensor, buckets: int) -> torch.Tensor:
 
 def _shelf_bfd(histogram: torch.Tensor, buckets: int) -> torch.Tensor:
     """Vectorized shelf best-fit-decreasing over bucket histograms; the
-    plain PyTorch version of the shelf kernel (csrc/shelf_bfd.cu).
+    node count of the shelf kernel's plain version (csrc/shelf_bfd.cu runs
+    the same fill passes, a warp per group).
 
     histogram: i32[T, B], items of quantized size (b+1)/B per group.
     Returns i32[T] bins needed. State bins[T, B+1] counts open bins by

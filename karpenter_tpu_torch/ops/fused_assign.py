@@ -4,10 +4,13 @@
 `fused_assign` computes, in one pass over the pod rows, what the reference's
 Pallas kernel computes per tile: feasibility, the assignment, the assigned
 group's quantized bucket and the weighted [T, B] histogram and [T, R]
-demand (csrc/fused_assign.cu). `shelf_bfd` runs the shelf
-best-fit-decreasing node count, one thread per group (csrc/shelf_bfd.cu).
-`binpack_fused` composes them with the lp_bound and unschedulable tail, the
-counterpart of binpack_pallas.
+demand, plus the weighted unschedulable count (csrc/fused_assign.cu: a
+block of 512 rows scans, sorts its rows by group and bucket and reduces
+the runs; a second launch reduces demand across blocks). Its launch plan
+(`fused_assign_plan`) is computed here, from the shapes alone. `shelf_bfd`
+runs the shelf best-fit-decreasing node count, one warp per group, and
+also returns each group's item count (csrc/shelf_bfd.cu). `binpack_fused`
+composes them with the lp_bound tail, the counterpart of binpack_pallas.
 
 Each wrapper launches its kernel for CUDA tensors, counts the launch in
 LAUNCHES, and raises on any failure; for CPU tensors, and only for them, it
@@ -18,6 +21,7 @@ the card.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -102,12 +106,77 @@ def _check_operands(inputs: BinPackInputs) -> None:
         )
 
 
-def fused_assign_reference(
-    inputs: BinPackInputs, buckets: int
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+# csrc/fused_assign.cu's constants (tests pin them against the source)
+ROWS_PER_BLOCK = 512
+THREADS = 256
+MAX_RESOURCES = 8
+MAX_WORDS = 8  # K, L <= 512
+# the narrow kernel instance: R <= 3 resources, K and L in one word each,
+# the group side as 32-byte records in shared memory
+_NARROW = (3, 1)
+_RECORD_BYTES = 32
+# the narrow instance's records take at most this many bytes; past it, and
+# for wider shapes, the scan runs the generic instance, which reads the
+# group side from global memory
+GROUP_SHARED_BUDGET = 64 * 1024
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    """Launch plan of csrc/fused_assign.cu for one problem shape."""
+
+    n_blocks: int  # ceil(P / ROWS_PER_BLOCK): fixed row chunks
+    narrow: bool  # the (3 resources, 1 word) record instance, else (8, 8)
+    shared_bytes: int  # dynamic shared memory per block (the records)
+    key_bits: int  # radix-sort bits of the key group * B + bucket
+    partial_bytes: int  # f64 demand partials [n_blocks, T, R]
+    unsched_bytes: int  # i32 unschedulable partials [n_blocks]
+
+    @property
+    def scratch_bytes(self) -> int:
+        return self.partial_bytes + self.unsched_bytes
+
+
+def fused_assign_plan(
+    n_pods: int, n_groups: int, n_res: int, kw: int, lw: int, buckets: int
+) -> FusedPlan:
+    """The fused kernel's launch plan, from the problem's shape alone (no
+    device property enters it, so the blocks' row chunks, and with them
+    the order of every float sum, are the same on any card). kw and lw
+    are the packed word counts of K and L. Raises ValueError for shapes
+    the kernel does not take."""
+    if n_res > MAX_RESOURCES:
+        raise ValueError(f"fused_assign: at most {MAX_RESOURCES} resources")
+    if max(kw, lw) > MAX_WORDS:
+        raise ValueError(f"fused_assign: at most {64 * MAX_WORDS} "
+                         "taints/labels")
+    if buckets < 1:
+        raise ValueError("fused_assign: buckets must be >= 1")
+    if n_groups * buckets >= 2**31:
+        raise ValueError("fused_assign: groups x buckets must stay below 2^31")
+    n_blocks = -(-n_pods // ROWS_PER_BLOCK)
+    narrow = (
+        n_res <= _NARROW[0] and max(kw, lw) <= _NARROW[1]
+        and n_groups * _RECORD_BYTES <= GROUP_SHARED_BUDGET
+    )
+    return FusedPlan(
+        n_blocks=n_blocks,
+        narrow=narrow,
+        shared_bytes=n_groups * _RECORD_BYTES if narrow else 0,
+        # the sentinel key T * B (rows with no group) must fit as well
+        key_bits=max(1, (n_groups * buckets).bit_length()),
+        partial_bytes=8 * n_blocks * n_groups * n_res,
+        unsched_bytes=4 * n_blocks,
+    )
+
+
+FusedOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def fused_assign_reference(inputs: BinPackInputs, buckets: int) -> FusedOutputs:
     """Plain PyTorch version of the fused stage, on the same packed words
     the kernel reads. Returns (assigned i32[P], hist i32[T, B],
-    demand f32[T, R])."""
+    demand f32[T, R], unschedulable i32 scalar)."""
     _check_operands(inputs)
     req = inputs.pod_requests
     alloc = inputs.group_allocatable
@@ -148,7 +217,8 @@ def fused_assign_reference(
     w_row = _row_weight(inputs, has)
     hist = weighted_histogram(assigned, bucket, w_row, n_groups, buckets)
     demand = weighted_demand(assigned, w_row, req, n_groups)
-    return assigned, hist, demand
+    unsched = unschedulable_of(assigned, inputs.pod_valid, inputs.pod_weight)
+    return assigned, hist, demand, unsched
 
 
 def _ptr(t):
@@ -165,11 +235,10 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: want a contiguous tensor on {device}")
 
 
-def fused_assign(
-    inputs: BinPackInputs, buckets: int
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(assigned i32[P], hist i32[T, B], demand f32[T, R]). CUDA tensors
-    launch csrc/fused_assign.cu; CPU tensors run fused_assign_reference."""
+def fused_assign(inputs: BinPackInputs, buckets: int) -> FusedOutputs:
+    """(assigned i32[P], hist i32[T, B], demand f32[T, R], unschedulable
+    i32 scalar). CUDA tensors launch csrc/fused_assign.cu; CPU tensors run
+    fused_assign_reference."""
     dev = inputs.pod_requests.device
     if dev.type == "cpu":
         return fused_assign_reference(inputs, buckets)
@@ -194,27 +263,16 @@ def fused_assign(
         if getattr(inputs, name) is not None:
             _require(getattr(inputs, name), name, dtype, shape, dev)
 
+    plan = fused_assign_plan(n_pods, n_groups, n_res, kw, lw, buckets)
     lib = kernels.library("fused_assign")
-    if n_res > lib.fused_assign_max_resources():
-        raise ValueError(f"fused_assign: at most "
-                         f"{lib.fused_assign_max_resources()} resources")
-    if max(kw, lw) > lib.fused_assign_max_words():
-        raise ValueError(f"fused_assign: at most "
-                         f"{64 * lib.fused_assign_max_words()} taints/labels")
-    smem = lib.fused_assign_shared_bytes(n_groups, n_res, kw, lw, buckets)
-    if smem > _MAX_SHARED_BYTES:
-        raise ValueError(
-            f"fused_assign: {n_groups} groups x {buckets} buckets need "
-            f"{smem} B of shared memory, over the block's {_MAX_SHARED_BYTES}"
-        )
-    rows = lib.fused_assign_rows_per_block()
-    n_blocks = -(-n_pods // rows)
     assigned = torch.empty(n_pods, dtype=i32, device=dev)
-    hist = torch.zeros((n_groups, buckets), dtype=i32, device=dev)
+    hist = torch.empty((n_groups, buckets), dtype=i32, device=dev)
     partial = torch.empty(
-        max(1, n_blocks * n_groups * n_res), dtype=torch.float64, device=dev
+        max(1, plan.partial_bytes // 8), dtype=torch.float64, device=dev
     )
+    unsched_partial = torch.empty(max(1, plan.n_blocks), dtype=i32, device=dev)
     demand = torch.empty((n_groups, n_res), dtype=f32, device=dev)
+    unsched = torch.empty((), dtype=i32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.fused_assign_launch(
@@ -223,19 +281,36 @@ def fused_assign(
             _ptr(nolabel_w), _ptr(inputs.pod_group_forbidden),
             _ptr(inputs.pod_group_score), _ptr(inputs.pod_exclusive),
             n_pods, n_groups, n_res, kw, lw, buckets,
-            _ptr(assigned), _ptr(hist), _ptr(partial), _ptr(demand), stream,
+            plan.n_blocks, int(plan.narrow), plan.shared_bytes,
+            plan.key_bits,
+            _ptr(assigned), _ptr(hist), _ptr(partial), _ptr(unsched_partial),
+            _ptr(demand), _ptr(unsched), stream,
         )
     kernels.check("fused_assign", err, "fused_assign launch")
     LAUNCHES["fused_assign"] += 1
-    return assigned, hist, demand
+    return assigned, hist, demand, unsched
 
 
-shelf_bfd_reference = _shelf_bfd
+# csrc/shelf_bfd.cu: the largest B whose per-warp row, bins and
+# placements (12 B bytes) fit one block's shared memory
+SHELF_MAX_BUCKETS = _MAX_SHARED_BYTES // 12
 
 
-def shelf_bfd(histogram: torch.Tensor, buckets: int) -> torch.Tensor:
-    """i32[T] shelf-BFD node count of an i32[T, B] histogram. CUDA tensors
-    launch csrc/shelf_bfd.cu; CPU tensors run shelf_bfd_reference."""
+def shelf_bfd_reference(
+    histogram: torch.Tensor, buckets: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the shelf kernel: (nodes i32[T],
+    assigned_count i32[T]), the shelf-BFD node count and the row sum of an
+    i32[T, B] histogram."""
+    return _shelf_bfd(histogram, buckets), histogram.sum(dim=1, dtype=torch.int32)
+
+
+def shelf_bfd(
+    histogram: torch.Tensor, buckets: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nodes i32[T], assigned_count i32[T]) of an i32[T, B] histogram.
+    CUDA tensors launch csrc/shelf_bfd.cu; CPU tensors run
+    shelf_bfd_reference."""
     dev = histogram.device
     if dev.type == "cpu":
         return shelf_bfd_reference(histogram, buckets)
@@ -243,37 +318,43 @@ def shelf_bfd(histogram: torch.Tensor, buckets: int) -> torch.Tensor:
         raise ValueError(f"shelf_bfd: unsupported device {dev}")
     n_groups = histogram.shape[0]
     _require(histogram, "histogram", torch.int32, (n_groups, buckets), dev)
+    if not 1 <= buckets <= SHELF_MAX_BUCKETS:
+        raise ValueError(f"shelf_bfd: buckets must be in [1, {SHELF_MAX_BUCKETS}]")
     lib = kernels.library("shelf_bfd")
-    total = torch.empty(n_groups, dtype=torch.int32, device=dev)
+    nodes = torch.empty(n_groups, dtype=torch.int32, device=dev)
+    count = torch.empty(n_groups, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.shelf_bfd_launch(
-            _ptr(histogram), n_groups, buckets, _ptr(total), stream
+            _ptr(histogram), n_groups, buckets, _ptr(nodes), _ptr(count),
+            stream,
         )
     kernels.check("shelf_bfd", err, "shelf_bfd launch")
     LAUNCHES["shelf_bfd"] += 1
-    return total
+    return nodes, count
 
 
 def binpack_fused(inputs: BinPackInputs, buckets: int = 32) -> BinPackOutputs:
-    """Full bin-pack via the fused stage, the shelf kernel and the shared
-    lp_bound/unschedulable tail; the same contract as ops/binpack.binpack."""
-    assigned, hist, demand = fused_assign(inputs, buckets)
+    """Full bin-pack via the fused stage, the shelf kernel and the
+    lp_bound tail; the same contract as ops/binpack.binpack. The kernels
+    give assigned_count and unschedulable themselves."""
+    assigned, hist, demand, unsched = fused_assign(inputs, buckets)
+    nodes, count = shelf_bfd(hist, buckets)
     return BinPackOutputs(
         assigned=assigned,
-        assigned_count=hist.sum(dim=1, dtype=torch.int32),
-        nodes_needed=shelf_bfd(hist, buckets),
+        assigned_count=count,
+        nodes_needed=nodes,
         lp_bound=lp_bound_of(demand, inputs.group_allocatable),
-        unschedulable=unschedulable_of(
-            assigned, inputs.pod_valid, inputs.pod_weight
-        ),
+        unschedulable=unsched,
     )
 
 
 __all__ = [
     "LAUNCHES",
+    "FusedPlan",
     "binpack_fused",
     "fused_assign",
+    "fused_assign_plan",
     "fused_assign_reference",
     "pack_bits",
     "reset_launch_counts",

@@ -296,6 +296,167 @@ class TestShelfBFD:
         assert TB.oracle_ffd(sizes) == B.oracle_ffd(sizes)
 
 
+LANES = 32
+
+
+def _warp_inclusive_scan(v):
+    """The kernel's five __shfl_up_sync steps: lane l adds lane l - o's
+    value when l >= o, for o = 1, 2, 4, 8, 16."""
+    lane = np.arange(LANES)
+    for o in (1, 2, 4, 8, 16):
+        v = np.where(lane >= o, v + np.roll(v, o), v)
+    return v
+
+
+def _shfl_down(v, k):
+    """__shfl_down_sync(v, k): lane l reads lane l + k, or keeps its own
+    value when l + k is past the warp."""
+    src = np.arange(LANES) + k
+    return np.where(src < LANES, v[np.minimum(src, LANES - 1)], v)
+
+
+def _open_bins(c, k, buckets):
+    """The kernel's bin opening after the fill passes: (new nodes, remnant
+    of the full bins, remnant of the partial bin or 0)."""
+    per_bin = buckets // k
+    full, leftover = divmod(c, per_bin)
+    return (full + (leftover > 0), full, buckets - per_bin * k,
+            buckets - leftover * k if leftover > 0 else 0)
+
+
+def warp_shelf_row(row, buckets):
+    """Lane-by-lane numpy emulation of csrc/shelf_bfd.cu for one group:
+    (nodes, count, fill passes). B <= 32 follows shelf_bfd_warp_kernel (lane
+    j holds the open bins of remnant j + 1); B > 32 follows
+    shelf_bfd_wide_kernel (lane j owns the contiguous slots [j S, j S + S)
+    of remnants s + 1). Early exits as in the kernels."""
+    lane = np.arange(LANES)
+    row = np.asarray(row, np.int64)
+    passes = 0
+    nodes = 0
+    if buckets <= LANES:
+        reg_row = np.zeros(LANES, np.int64)
+        reg_row[:buckets] = row
+        count = int(reg_row.sum())
+        bins = np.zeros(LANES, np.int64)
+        for k in range(buckets, 0, -1):
+            c = int(reg_row[k - 1])  # __shfl_sync(row, k - 1)
+            if c == 0:
+                continue
+            usable = lane + 1 >= k
+            while True:
+                avail = np.where(usable, bins, 0)
+                incl = _warp_inclusive_scan(avail)
+                total = int(incl[LANES - 1])
+                if total == 0:
+                    break
+                passes += 1
+                place = np.minimum(np.maximum(c - (incl - avail), 0), avail)
+                moved = _shfl_down(place, k)
+                bins = bins + np.where(lane + k < LANES, moved, 0) - place
+                c -= min(c, total)
+                if c == 0:
+                    break
+            if c > 0:
+                new, full, full_rem, part_rem = _open_bins(c, k, buckets)
+                nodes += new
+                bins[lane + 1 == full_rem] += full
+                bins[lane + 1 == part_rem] += 1
+        return nodes, count, passes
+
+    per_lane = -(-buckets // LANES)
+    lo = np.minimum(lane * per_lane, buckets)
+    hi = np.minimum(lo + per_lane, buckets)
+    count = int(row.sum())
+    bins = np.zeros(buckets, np.int64)  # slot s: remnant s + 1
+    for k in range(buckets, 0, -1):
+        c = int(row[k - 1])
+        if c == 0:
+            continue
+        while True:
+            mine = np.array([
+                bins[max(lo[j], k - 1):hi[j]].sum() for j in range(LANES)
+            ])
+            incl = _warp_inclusive_scan(mine)
+            total = int(incl[LANES - 1])
+            if total == 0:
+                break
+            passes += 1
+            place = np.zeros(buckets, np.int64)
+            for j in range(LANES):  # each lane walks its own slots
+                before = int(incl[j] - mine[j])
+                for slot in range(lo[j], hi[j]):
+                    avail = bins[slot] if slot + 1 >= k else 0
+                    place[slot] = min(max(c - before, 0), avail)
+                    before += avail
+            # __syncwarp, then each slot takes what moved down k remnants
+            shifted = np.zeros(buckets, np.int64)
+            shifted[: buckets - k] = place[k:]
+            bins = bins + shifted - place
+            c -= min(c, total)
+            if c == 0:
+                break
+        if c > 0:
+            new, full, full_rem, part_rem = _open_bins(c, k, buckets)
+            nodes += new
+            if full_rem >= 1:
+                bins[full_rem - 1] += full
+            if part_rem >= 1:
+                bins[part_rem - 1] += 1
+    return nodes, count, passes
+
+
+def main_path_histogram():
+    """The main path's [300, 32] histogram (build_inputs(100000, 300, 64,
+    64, seed=0)), by the plain fused stage over row chunks: integer sums,
+    so chunking changes nothing and keeps the CPU's memory small."""
+    from karpenter_tpu_torch.ops.fused_assign import fused_assign_reference
+
+    fields = workloads.build_inputs(100_000, 300, 64, 64, seed=0)
+    hist = torch.zeros((300, 32), dtype=torch.int32)
+    for lo in range(0, 100_000, 10_000):
+        chunk = {
+            k: (v[lo: lo + 10_000] if k.startswith("pod_") else v)
+            for k, v in fields.items()
+        }
+        hist += fused_assign_reference(TB.inputs_from_numpy(chunk, "cpu"), 32)[1]
+    return hist.numpy()
+
+
+class TestWarpShelfEmulation:
+    """The warp algorithm of csrc/shelf_bfd.cu, emulated lane by lane,
+    against the reference's scalar oracle."""
+
+    @pytest.mark.parametrize("buckets", [1, 8, 16, 32, 33, 64])
+    def test_matches_oracle(self, buckets):
+        rng = np.random.default_rng(500 + buckets)
+        hist = np.concatenate([
+            rng.integers(0, 40, (6, buckets)),
+            rng.integers(0, 4000, (3, buckets)),
+            (rng.random((3, buckets)) < 0.2) * rng.integers(0, 90, (3, buckets)),
+            np.zeros((1, buckets), np.int64),
+        ]).astype(np.int32)
+        want = B.oracle_shelf_bfd(hist, buckets)
+        for t, row in enumerate(hist):
+            nodes, count, passes = warp_shelf_row(row, buckets)
+            assert nodes == want[t], (t, nodes, want[t])
+            assert count == int(row.sum())
+            # at most floor(B/k) placing passes per size
+            assert passes <= sum(buckets // k for k in range(1, buckets + 1))
+
+    def test_main_path_histogram(self):
+        hist = main_path_histogram()
+        assert int(hist.sum()) == 100_000
+        want = B.oracle_shelf_bfd(hist, 32)
+        assert int(want.sum()) == 20262  # the smoke's node total
+        most = 0
+        for t, row in enumerate(hist):
+            nodes, count, passes = warp_shelf_row(row, 32)
+            assert (nodes, count) == (want[t], int(row.sum())), t
+            most = max(most, passes)
+        assert most <= 47  # the heaviest group's fill passes
+
+
 class TestSolveRouting:
     def test_cpu_torch_and_auto_match_reference(self):
         rng = np.random.default_rng(11)

@@ -10,6 +10,7 @@ shapes).
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ import torch
 from karpenter_tpu.ops import binpack as B
 from karpenter_tpu.ops import pallas_binpack as PB
 from karpenter_tpu_torch import kernels
+from karpenter_tpu_torch.ops import binpack as TB
 from karpenter_tpu_torch.ops import fused_assign as TF
 
 from test_binpack import make_inputs
@@ -27,18 +29,24 @@ from test_torch_binpack import assert_same, to_port, with_fields
 
 def check_fused_stage(inputs, buckets, tile_p=64):
     """Port plain fused_assign vs the Pallas kernel in interpret mode:
-    assigned and hist exact, demand to summation order."""
+    assigned and hist exact, demand to summation order, and the weighted
+    unschedulable count exact against the reference's assignment."""
     a_ref, h_ref, d_ref = PB.fused_assign(
         inputs, buckets=buckets, tile_p=tile_p, interpret=True
     )
-    a, h, d = TF.fused_assign(to_port(inputs), buckets)
+    a, h, d, u = TF.fused_assign(to_port(inputs), buckets)
     assert a.dtype == torch.int32 and h.dtype == torch.int32
     assert d.dtype == torch.float32
+    assert u.dtype == torch.int32 and u.shape == ()
     np.testing.assert_array_equal(a.numpy(), np.asarray(a_ref))
     np.testing.assert_array_equal(h.numpy(), np.asarray(h_ref))
     np.testing.assert_allclose(
         d.numpy(), np.asarray(d_ref), rtol=1e-5, atol=1e-4
     )
+    valid = np.asarray(inputs.pod_valid)
+    w = (np.ones(valid.shape, np.int64) if inputs.pod_weight is None
+         else np.asarray(inputs.pod_weight, np.int64))
+    assert int(u) == int(w[(np.asarray(a_ref) < 0) & valid].sum())
 
 
 def check_full(inputs, buckets, tile_p=64, xla_lp_exact=True):
@@ -201,8 +209,12 @@ class TestFusedMatchesReference:
         rng = np.random.default_rng(7)
         inputs = random_inputs(rng, pods=130, types=9)
         buckets = 12
-        assigned, hist, demand = TF.fused_assign(to_port(inputs), buckets)
+        assigned, hist, demand, unsched = TF.fused_assign(
+            to_port(inputs), buckets
+        )
         assigned = assigned.numpy()
+        valid = np.asarray(inputs.pod_valid)
+        assert int(unsched) == int(((assigned < 0) & valid).sum())
         req = np.asarray(inputs.pod_requests)
         alloc = np.asarray(inputs.group_allocatable)
         want_hist = np.zeros((alloc.shape[0], buckets), np.int64)
@@ -283,10 +295,26 @@ class TestWrappers:
     def test_shelf_wrapper_on_cpu(self, seed, buckets):
         hist = np.random.default_rng(seed).integers(0, 60, (11, buckets))
         hist = hist.astype(np.int32)
-        got = TF.shelf_bfd(torch.from_numpy(hist), buckets)
+        nodes, count = TF.shelf_bfd(torch.from_numpy(hist), buckets)
         np.testing.assert_array_equal(
-            got.numpy(), B.oracle_shelf_bfd(hist, buckets)
+            nodes.numpy(), B.oracle_shelf_bfd(hist, buckets)
         )
+        np.testing.assert_array_equal(count.numpy(), hist.sum(axis=1))
+
+    @pytest.mark.parametrize("buckets", [1, 8, 33])
+    def test_shelf_reference_count_is_row_sum(self, buckets):
+        """The plain shelf version's assigned_count is hist.sum(dim=1) in
+        int32, and its node count is the plain program's _shelf_bfd."""
+        hist = np.random.default_rng(buckets).integers(
+            0, 300, (17, buckets)
+        ).astype(np.int32)
+        hist[3] = 0  # an empty group counts 0 and needs 0 nodes
+        t = torch.from_numpy(hist)
+        nodes, count = TF.shelf_bfd_reference(t, buckets)
+        assert count.dtype == torch.int32 and nodes.dtype == torch.int32
+        assert torch.equal(count, t.sum(dim=1, dtype=torch.int32))
+        assert torch.equal(nodes, TB._shelf_bfd(t, buckets))
+        assert int(count[3]) == 0 and int(nodes[3]) == 0
 
     def test_build_raises_without_nvcc(self, monkeypatch, tmp_path):
         monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
@@ -298,8 +326,95 @@ class TestWrappers:
             kernels.build(["nope"])
 
     def test_sources_and_signatures_agree(self):
-        """Every C entry the loader declares is defined in its source."""
+        """Every C entry the loader declares is defined in its source,
+        with as many parameters as the loader passes."""
         for name in kernels.SOURCES:
             source = (kernels.CSRC / f"{name}.cu").read_text()
-            for fn in kernels._SIGNATURES[name]:
-                assert f" {fn}(" in source, f"{fn} missing from {name}.cu"
+            for fn, (argtypes, _) in kernels._SIGNATURES[name].items():
+                match = re.search(
+                    rf"^\w[\w\s\*]* {fn}\(([^)]*)\)", source, re.MULTILINE
+                )
+                assert match, f"{fn} missing from {name}.cu"
+                params = [p for p in match.group(1).split(",") if p.strip()]
+                assert len(params) == len(argtypes), fn
+
+    def test_plan_constants_match_sources(self):
+        """The Python launch plans use the kernels' own constants."""
+        fused = (kernels.CSRC / "fused_assign.cu").read_text()
+        assert f"kThreads = {TF.THREADS};" in fused
+        assert (f"kItems = {TF.ROWS_PER_BLOCK // TF.THREADS};") in fused
+        assert f"kMaxResources = {TF.MAX_RESOURCES};" in fused
+        assert f"kMaxWords = {TF.MAX_WORDS};" in fused
+        assert "launch_assign<%d, %d, true>" % TF._NARROW in fused
+        assert f"sizeof(GroupRecord) == {TF._RECORD_BYTES}" in fused
+        shelf = (kernels.CSRC / "shelf_bfd.cu").read_text()
+        assert f"kMaxSharedBytes = {TF._MAX_SHARED_BYTES};" in shelf
+        assert TF.SHELF_MAX_BUCKETS * 12 <= TF._MAX_SHARED_BYTES
+
+
+def _raise(*_args, **_kwargs):
+    raise AssertionError("the launch plan read a device property")
+
+
+class TestLaunchPlan:
+    @pytest.mark.parametrize("taints", [64, 512])
+    @pytest.mark.parametrize("groups", [300, 1448, 4096])
+    def test_plan_takes_the_shape(self, monkeypatch, groups, taints):
+        """T past 1,447 groups (where a per-block [T, B] shared histogram
+        would no longer fit) plans without a raise, and the
+        plan reads the shape only: rows per block are fixed, so the blocks'
+        row chunks (and the order of every float sum) are the same on any
+        card."""
+        monkeypatch.setattr(torch.cuda, "get_device_properties", _raise)
+        monkeypatch.setattr(torch.cuda, "device_count", _raise)
+        words = taints // 64
+        plan = TF.fused_assign_plan(100_000, groups, 3, words, words, 32)
+        assert plan.n_blocks == -(-100_000 // TF.ROWS_PER_BLOCK) == 196
+        # one word each and 32-byte records within the budget: the narrow
+        # instance (T = 300, 1,448), its records in shared memory; else the
+        # generic one (T = 4,096 or K = L = 512), which reads the group
+        # side from global memory and takes no dynamic shared memory
+        narrow = taints == 64 and groups <= 2048
+        assert plan.narrow == narrow
+        assert plan.shared_bytes == (32 * groups if narrow else 0)
+        assert plan.shared_bytes <= TF.GROUP_SHARED_BUDGET <= TF._MAX_SHARED_BYTES
+        assert 2 ** plan.key_bits > groups * 32
+        assert plan.partial_bytes == 8 * 196 * groups * 3
+        assert plan == TF.fused_assign_plan(100_000, groups, 3, words, words, 32)
+
+    def test_scratch_bytes_at_main_path_and_wide_fleet(self):
+        """Scratch of the main path (T = 300) and of T = 4,096 at 100k
+        rows, as PERF.md states them."""
+        small = TF.fused_assign_plan(100_000, 300, 3, 1, 1, 32)
+        wide = TF.fused_assign_plan(100_000, 4096, 3, 1, 1, 32)
+        assert small.scratch_bytes == 1_411_200 + 784
+        assert wide.scratch_bytes == 19_267_584 + 784
+        assert small.narrow and small.shared_bytes == 300 * 32
+        assert not wide.narrow and wide.shared_bytes == 0
+
+    @pytest.mark.parametrize(
+        "shape",
+        [(10, 5, 9, 1, 1, 8), (10, 5, 3, 9, 1, 8), (10, 5, 3, 1, 1, 0),
+         (10, 2**26, 3, 1, 1, 32)],
+        ids=["resources", "words", "buckets", "keys"],
+    )
+    def test_plan_refuses_what_the_kernel_cannot_take(self, shape):
+        with pytest.raises(ValueError):
+            TF.fused_assign_plan(*shape)
+
+    def test_empty_problem_plans_no_block(self):
+        plan = TF.fused_assign_plan(0, 7, 3, 1, 1, 8)
+        assert plan.n_blocks == 0 and plan.scratch_bytes == 0
+
+
+class TestWideFleets:
+    def test_plain_matches_pallas_past_the_old_group_limit(self):
+        """The plain fused stage against the Pallas kernel in interpret
+        mode at T = 2,000 (past 1,447 groups, which the CUDA path must take):
+        assigned and hist exact, demand as check_full's stage holds it."""
+        rng = np.random.default_rng(2000)
+        inputs = with_fields(
+            random_inputs(rng, pods=300, types=2000, taints=64, labels=64),
+            pod_weight=rng.integers(1, 50, 300).astype(np.int32),
+        )
+        check_fused_stage(inputs, 32, tile_p=128)

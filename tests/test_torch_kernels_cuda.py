@@ -62,11 +62,17 @@ def test_fused_kernel_matches_plain(operand):
         fields["pod_exclusive"] = rng.random(512) < 0.3
     inputs = TB.inputs_from_numpy(fields, "cuda")
     before = TF.LAUNCHES["fused_assign"]
-    a, h, d = TF.fused_assign(inputs, 16)
+    got = TF.fused_assign(inputs, 16)
     assert TF.LAUNCHES["fused_assign"] == before + 1
-    ra, rh, rd = TF.fused_assign_reference(inputs, 16)
+    assert_stage_equal(got, TF.fused_assign_reference(inputs, 16))
+
+
+def assert_stage_equal(got, want):
+    """Kernel vs plain fused stage: assigned, hist and unschedulable exact,
+    demand within rtol 1e-5 (f64 sums in another order, rounded once)."""
     torch.cuda.synchronize()
-    assert torch.equal(a, ra) and torch.equal(h, rh)
+    (a, h, d, u), (ra, rh, rd, ru) = got, want
+    assert torch.equal(a, ra) and torch.equal(h, rh) and torch.equal(u, ru)
     torch.testing.assert_close(d, rd, rtol=1e-5, atol=0.0)
 
 
@@ -77,20 +83,55 @@ def test_fused_kernel_multi_word_and_ragged():
         np.float32
     )
     inputs = TB.inputs_from_numpy(fields, "cuda")
-    a, h, d = TF.fused_assign(inputs, 32)
-    ra, rh, rd = TF.fused_assign_reference(inputs, 32)
-    assert torch.equal(a, ra) and torch.equal(h, rh)
-    torch.testing.assert_close(d, rd, rtol=1e-5, atol=0.0)
+    assert_stage_equal(
+        TF.fused_assign(inputs, 32), TF.fused_assign_reference(inputs, 32)
+    )
 
 
-def test_shelf_kernel_matches_plain():
+@pytest.mark.parametrize(
+    "groups,taints", [(2000, 64), (2000, 512), (4096, 64)]
+)
+def test_fused_kernel_past_the_old_group_limit(groups, taints):
+    """T = 2,000 and 4,096 run through the kernel (past 1,447 groups):
+    the narrow instance's records in shared memory (2000 x 64) and the
+    generic instance's group side from global memory (2000 x 512,
+    4096 x 64)."""
+    fields = workloads.build_inputs(3000, groups, taints, taints, seed=7)
+    fields["pod_weight"] = np.random.default_rng(7).integers(
+        1, 5000, 3000
+    ).astype(np.int32)
+    inputs = TB.inputs_from_numpy(fields, "cuda")
+    words = -(-taints // 64)
+    plan = TF.fused_assign_plan(3000, groups, 3, words, words, 32)
+    assert plan.narrow == (groups * taints == 2000 * 64)
+    assert_stage_equal(
+        TF.fused_assign(inputs, 32), TF.fused_assign_reference(inputs, 32)
+    )
+
+
+def test_fused_demand_is_bitwise_stable():
+    """No float atomics: two launches on the same inputs give the same
+    demand bits."""
+    fields = workloads.build_inputs(20000, 300, 64, 64, seed=3)
+    fields["pod_weight"] = np.random.default_rng(3).integers(
+        1000, 5000, 20000
+    ).astype(np.int32)
+    inputs = TB.inputs_from_numpy(fields, "cuda")
+    first = TF.fused_assign(inputs, 32)[2].clone()
+    second = TF.fused_assign(inputs, 32)[2]
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.parametrize("buckets", [1, 8, 32, 33, 64])
+def test_shelf_kernel_matches_plain(buckets):
     hist = torch.from_numpy(
-        np.random.default_rng(4).integers(0, 400, (300, 32)).astype(np.int32)
+        np.random.default_rng(4).integers(0, 400, (300, buckets)).astype(np.int32)
     ).cuda()
     before = TF.LAUNCHES["shelf_bfd"]
-    assert torch.equal(
-        TF.shelf_bfd(hist, 32), TF.shelf_bfd_reference(hist, 32)
-    )
+    nodes, count = TF.shelf_bfd(hist, buckets)
+    want_nodes, want_count = TF.shelf_bfd_reference(hist, buckets)
+    assert torch.equal(nodes, want_nodes) and torch.equal(count, want_count)
     assert TF.LAUNCHES["shelf_bfd"] == before + 1
 
 
