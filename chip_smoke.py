@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (set-up, with ptxas's register,
-shared-memory and stack report), then runs five phases and fails (exit 1,
+shared-memory and stack report), then runs eight phases and fails (exit 1,
 no result line) if any of them fails:
 
 1. fused kernel vs its plain version on the card: fused_assign against
@@ -25,16 +25,34 @@ no result line) if any of them fails:
    solve(backend="torch") on the card, and its totals against the
    reference bench's (nodes 20262); p50/p95 over 20 more solves;
 4. wide fleet: solve(backend="cuda") == solve(backend="torch") at T = 2,000;
-5. small card vs CPU: binpack_fused on the card == binpack on the CPU.
+5. small card vs CPU: binpack_fused on the card == binpack on the CPU;
+6. decision at fleet scale: decide on the card == decide on the CPU,
+   bitwise on every output leaf, at N = 4,096 autoscalers x M = 3
+   metrics, without and with forecast operands, the edge rows of
+   workloads.with_edge_rows included (a zero target, a recommendation
+   past 2**31 - 128, a Percent policy at spec 0, min > max);
+7. fleet step: fleet_step on the card (decide + solve) with the launch
+   counts set to 0 just before and read just after (both kernels must
+   have launched); its decision equals phase 6's, its bin-pack equals
+   solve(backend="torch") (nodes 20262); p50/p95 over 20 steps;
+8. fused tick at N = 4,096, M = 3, S = 2,048 series x T = 64 samples,
+   G = 64 pool groups x P = 4 pools, every stage present: the card's
+   eager fused_tick == the CPU's, bitwise on every leaf; the captured
+   CUDA graph (FusedTickProgram) == eager on two operand sets, the second
+   replayed after the first; the eager ticks and the replays run under
+   torch.cuda.set_sync_debug_mode("error"); eager and replay p50/p95,
+   device kernels and busy us per tick (torch.profiler), the forecast
+   stage's share of them, and the peak of allocated device memory.
 
 Then it profiles 20 main-path solves (torch.profiler: device time by
 kernel) and prints, before the last line, one JSON line of kernel records
 (`ms` is device time per launch from the profiler, and the smoke fails
 without it; `call_ms` is the wrapper's time by CUDA events around 50
 calls), and as the last line
-{"ok": true, "device": {...}}. Without a CUDA device, or without the rest
-of the repo beside it, it exits non-zero and prints no result. Imports
-neither jax nor karpenter_tpu.
+{"ok": true, "device": {...}}. Every line with a measured number ends
+with the card's name and power limit. Without a CUDA device, or without
+the rest of the repo beside it, it exits non-zero and prints no result.
+Imports neither jax nor karpenter_tpu.
 """
 
 from __future__ import annotations
@@ -60,12 +78,59 @@ KERNEL_NAMES = {
     "fused_assign": ("assign_kernel", "demand_reduce_kernel"),
     "shelf_bfd": ("shelf_bfd_warp_kernel", "shelf_bfd_wide_kernel"),
 }
+# phases 6-8 at the repo's published sizes (BASELINE.json): 1000 tenants
+# x 4 autoscalers padded to pad_to's 64-row bucket, 3 metrics; 2,048
+# series x 64 samples; 64 pool groups x 4 pools
+FLEET_N, FLEET_M = 4096, 3
+TICK_SHAPE = dict(n=FLEET_N, m=FLEET_M, s=2048, t=64, groups=64, pools=4)
+# the card's `nvidia-smi --query-gpu=name,power.limit` line, set in main()
+CARD = {"line": "not read"}
 
 
 def need(ok, what: str) -> None:
     """A check that holds under python -O too."""
     if not ok:
         raise AssertionError(what)
+
+
+def report(line: str) -> None:
+    """Print a line of measured numbers with the card it was measured on."""
+    print(f"{line} [card: {CARD['line']}]")
+
+
+def host_ms(torch, fn, iters=ITERS):
+    """(p50, p95) ms of `iters` calls on the host clock, each ending in
+    synchronize(), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(times, 50)), float(np.percentile(times, 95))
+
+
+def _leaves(tree, prefix=""):
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, f"{prefix}{name}.")
+        elif value is not None:
+            yield f"{prefix}{name}", value
+
+
+def same_bits(got: dict, want: dict, what: str) -> int:
+    """Two output trees (Operands.to_numpy() dicts) hold the same leaves
+    with the same dtype, shape and bytes; returns the number of leaves."""
+    got, want = dict(_leaves(got)), dict(_leaves(want))
+    need(got.keys() == want.keys(),
+         f"{what}: leaves {sorted(got)} vs {sorted(want)}")
+    for path, x in got.items():
+        y = want[path]
+        need(x.dtype == y.dtype and x.shape == y.shape
+             and x.tobytes() == y.tobytes(), f"{what}: {path} differs bitwise")
+    return len(got)
 
 
 def random_fields(rng, pods, types, taints=8, labels=8, n_resources=3):
@@ -298,12 +363,12 @@ def phase_main(torch, TB, TF, inputs):
          f"main path nodes {int(out.nodes_needed.sum())} != {MAIN_NODES}")
     p50, p95 = np.percentile(times, 50), np.percentile(times, 95)
     scheduled = int((assigned >= 0).sum())
-    print(f"main path first call {first_ms} ms")
-    print(f"main path solve(backend='cuda') p50={p50}ms p95={p95}ms "
+    report(f"main path first call {first_ms} ms")
+    report(f"main path solve(backend='cuda') p50={p50}ms p95={p95}ms "
           f"scheduled={scheduled}/{pods} unschedulable={int(out.unschedulable)} "
-          f"nodes={int(out.nodes_needed.sum())} decisions/sec={1000.0 / p50}")
-    print(f"main path solve(backend='torch') p50={np.percentile(plain_times, 50)}ms "
-          f"(plain program on the card); lp_bound mismatches: {n_lp}")
+           f"nodes={int(out.nodes_needed.sum())} decisions/sec={1000.0 / p50}")
+    report(f"main path solve(backend='torch') p50={np.percentile(plain_times, 50)}ms "
+           f"(plain program on the card); lp_bound mismatches: {n_lp}")
     print(f"main path launches (one solve): {launches}")
     return out, launches
 
@@ -333,6 +398,134 @@ def phase_small_vs_cpu(torch, TB, TF):
     print("binpack_fused (card) == binpack (CPU) on 300x31: all five outputs")
 
 
+def phase_decision(torch, D, workloads):
+    """decide on the card == on the CPU, bitwise, without and with the
+    forecast operands. Returns {forecast: (numpy fields, CPU outputs)}."""
+    out = {}
+    for forecast in (False, True):
+        fields = workloads.build_decision_inputs(
+            0, FLEET_N, FLEET_M, forecast=forecast
+        )
+        cpu = D.decide(D.DecisionInputs.from_numpy(fields, "cpu")).to_numpy()
+        card_in = D.DecisionInputs.from_numpy(fields, "cuda")
+        card = D.decide(card_in).to_numpy()
+        what = f"decide N={FLEET_N} M={FLEET_M} forecast={forecast}"
+        n_leaves = same_bits(card, cpu, f"{what}: card vs CPU")
+        # the edge rows of workloads.with_edge_rows
+        need(card["recommendation"][0] >= 0, "zero target: bad recommendation")
+        need(card["recommendation"][1] == 2**31 - 128
+             and card["desired"][1] == 2**31 - 128,
+             "a recommendation past 2**31 - 128 did not saturate")
+        need(card["desired"][2] in (1, 2) and card["able_to_scale"][2],
+             "Percent policy at spec 0: not floored at one replica")
+        need(card["desired"][3] == 5, "min > max: the clamp did not give max")
+        p50, p95 = host_ms(torch, lambda: D.decide(card_in))
+        counts = profile_per_call(torch, lambda: D.decide(card_in))
+        kernels = "not measured" if counts is None else (
+            f"{counts[1]} kernels and {counts[2]} us device busy per call")
+        report(f"{what}: card == CPU bitwise on {n_leaves} leaves (edge rows "
+               f"included); decide p50={p50}ms p95={p95}ms (host clock, "
+               f"{ITERS} calls); {kernels}")
+        out[forecast] = (fields, cpu)
+    return out
+
+
+def phase_fleet_step(torch, TB, TF, D, MESH, inputs, decision):
+    """fleet_step on the card: both kernels launch, the decision is phase
+    6's, the bin-pack is the plain program's."""
+    fields, cpu_decision = decision[False]
+    dec = D.DecisionInputs.from_numpy(fields, "cuda")
+    TF.reset_launch_counts()
+    dout, bout = MESH.fleet_step(dec, inputs, buckets=BUCKETS)
+    torch.cuda.synchronize()
+    launches = dict(TF.LAUNCHES)
+    for name, n in launches.items():
+        need(n > 0, f"kernel {name} was not launched by fleet_step")
+    same_bits(dout.to_numpy(), cpu_decision, "fleet_step decision vs phase 6")
+    plain = TB.solve(inputs, buckets=BUCKETS, backend="torch")
+    outputs_equal(bout, plain, "fleet_step bin-pack vs solve(backend='torch')")
+    n_lp = check_lp(bout, plain, inputs)
+    nodes = int(bout.nodes_needed.sum())
+    need(nodes == MAIN_NODES, f"fleet_step nodes {nodes} != {MAIN_NODES}")
+    p50, p95 = host_ms(
+        torch, lambda: MESH.fleet_step(dec, inputs, buckets=BUCKETS)
+    )
+    report(f"fleet_step (decide N={FLEET_N} x M={FLEET_M} + solve "
+           f"{MAIN_SHAPE}): p50={p50}ms p95={p95}ms (host clock, {ITERS} "
+           f"steps); nodes={nodes}, lp_bound mismatches {n_lp}; launches "
+           f"(one step): {launches}")
+    return launches
+
+
+def phase_fused_tick(torch, FT, M, workloads):
+    """The fused tick on the card == on the CPU; the CUDA graph == eager;
+    no host sync in either; times, kernels and memory per tick."""
+    torch.cuda.reset_peak_memory_stats()
+    ticks = []
+    for seed in (0, 1):
+        fields = workloads.build_fused_tick_inputs(seed, **TICK_SHAPE)
+        cpu = FT.fused_tick(FT.FusedTickInputs.from_numpy(fields, "cpu"))
+        ticks.append((FT.FusedTickInputs.from_numpy(fields, "cuda"),
+                      cpu.to_numpy()))
+    (a, cpu_a), (b, cpu_b) = ticks
+    FT.fused_tick(a)  # first launches and allocations, outside the checks
+    program = FT.FusedTickProgram()
+    t0 = time.perf_counter()
+    program(a)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager_a = FT.fused_tick(a)
+        replay_a = program(a)
+        replay_b = program(b)
+        eager_b = FT.fused_tick(b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    need(program.captures == 1, f"{program.captures} captures, expected 1")
+    eager_a, eager_b = eager_a.to_numpy(), eager_b.to_numpy()
+    n_leaves = same_bits(eager_a, cpu_a, "eager tick (seed 0): card vs CPU")
+    same_bits(eager_b, cpu_b, "eager tick (seed 1): card vs CPU")
+    same_bits(replay_a.to_numpy(), eager_a, "graph replay (seed 0) vs eager")
+    same_bits(replay_b.to_numpy(), eager_b, "graph replay (seed 1) vs eager")
+    for stage in ("forecast", "cost", "poolgroup"):
+        need(eager_a[stage] is not None, f"stage {stage} missing")
+    repaired = int(eager_a["poolgroup"]["joint_repair"].sum())
+    print(f"fused tick {TICK_SHAPE}: card == CPU bitwise on {n_leaves} "
+          f"leaves (two operand sets); graph replay == eager on both, the "
+          f"second replayed after the first; no host sync under "
+          f"set_sync_debug_mode('error'); pool groups repaired: {repaired}")
+
+    eager = lambda: FT.fused_tick(a)  # noqa: E731
+    replay = lambda: program(a)  # noqa: E731
+    e50, e95 = host_ms(torch, eager)
+    r50, r95 = host_ms(torch, replay)
+    report(f"fused tick eager p50={e50}ms p95={e95}ms; graph replay "
+           f"p50={r50}ms p95={r95}ms (host clock, {ITERS} ticks each); "
+           f"first call of the program (capture) {capture_s} s")
+    counts = {
+        "eager tick": profile_per_call(torch, eager),
+        "graph replay": profile_per_call(torch, replay),
+        "forecast stage alone": profile_per_call(
+            torch, lambda: M.forecast(a.forecast)
+        ),
+    }
+    for name, got in counts.items():
+        if got is None:
+            print(f"profiler, {name}: no device rows (not measured)")
+            continue
+        ops, kernels, busy = got
+        report(f"profiler, {name}: {kernels} kernels, {ops} device ops "
+               f"(kernels + memcpy/memset), {busy} us device busy per call")
+    tick, fc = counts["eager tick"], counts["forecast stage alone"]
+    if tick and fc:
+        report(f"forecast stage's share of the eager tick: "
+               f"{100.0 * fc[1] / tick[1]}% of the kernels, "
+               f"{100.0 * fc[2] / tick[2]}% of the device busy time")
+    report(f"fused tick phase: peak allocated device memory "
+           f"{torch.cuda.max_memory_allocated()} bytes")
+
+
 def profile_solves(torch, TB, inputs, n=ITERS):
     """Where a solve's time goes: the mean of back-to-back solves by CUDA
     events, then a torch.profiler window of n solves (device time by
@@ -341,42 +534,87 @@ def profile_solves(torch, TB, inputs, n=ITERS):
     None when the profiler cannot trace the card (reported, not fatal)."""
     solve = lambda: TB.solve(inputs, buckets=BUCKETS, backend="cuda")  # noqa: E731
     b2b_ms = time_ms(solve, ITERS)
-    print(f"main path solve back-to-back, CUDA events: {b2b_ms} ms")
-    from torch.profiler import ProfilerActivity, profile
-
+    report(f"main path solve back-to-back, CUDA events: {b2b_ms} ms")
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                solve()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        prof, wall_us = profile_window(torch, solve, n)
     except RuntimeError as exc:
         print(f"profiler: not available ({exc})")
         return None
-    # device-side rows only (kernels, memcpy/memset): an aten op's row
-    # repeats the time of the kernels it launched
+    rows = device_rows(torch, prof)
+    if not rows:
+        print("profiler: no device rows")
+        return None
+    busy_us = sum(r[0] for r in rows)
+    report(f"profiler, {n} solves: window {wall_us} us (profiler on), device "
+           f"busy {busy_us} us = {busy_us / n} us/solve "
+           f"({100.0 * busy_us / wall_us if wall_us else 0.0}% of the window; "
+           f"{100.0 * busy_us / n / (1e3 * b2b_ms)}% of a back-to-back solve)")
+    for dev_us, count, key in rows[:12]:
+        print(f"  device {dev_us / n} us/solve  x{count / n}/solve  {key[:90]}")
+    return {key: (dev_us / n, count / n) for dev_us, count, key in rows}
+
+
+def profile_window(torch, fn, n, warmup=2):
+    """(profile, wall us) of n calls of `fn` under torch.profiler. The
+    schedule's warm-up steps run the profiler before the n recorded calls,
+    so none of their device events is lost to its start; each warm-up
+    call is synchronized before its step ends, so none of its kernels
+    lands in the window; the window ends in synchronize()."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        schedule=schedule(wait=0, warmup=warmup, active=n, repeat=1),
+    ) as prof:
+        for _ in range(warmup):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn()
+            if i == n - 1:
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+    return prof, wall_us
+
+
+def device_rows(torch, prof):
+    """[(device us, count, name)] of a profile's device-side rows (kernels,
+    memcpy, memset), largest first: an aten op's row repeats the time of
+    the kernels it launched, so only these are summed, and so does the
+    schedule's `ProfilerStep#` annotation on the device."""
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or ev.key.startswith("ProfilerStep")):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
         if dev_us > 0:
             rows.append((dev_us, ev.count, ev.key))
-    if not rows:
-        print("profiler: no device rows")
+    return sorted(rows, reverse=True)
+
+
+def profile_per_call(torch, fn, n=5):
+    """(device ops per call, kernels per call, device busy us per call) of
+    `fn` from a torch.profiler window of n calls, or None when the
+    profiler cannot trace the card or shows no device rows. Kernels leave
+    out the memcpy and memset rows."""
+    try:
+        prof, _ = profile_window(torch, fn, n)
+    except RuntimeError as exc:
+        print(f"profiler: not available ({exc})")
         return None
-    rows.sort(reverse=True)
-    busy_us = sum(r[0] for r in rows)
-    print(f"profiler, {n} solves: window {wall_us} us (profiler on), device "
-          f"busy {busy_us} us = {busy_us / n} us/solve "
-          f"({100.0 * busy_us / wall_us if wall_us else 0.0}% of the window; "
-          f"{100.0 * busy_us / n / (1e3 * b2b_ms)}% of a back-to-back solve)")
-    for dev_us, count, key in rows[:12]:
-        print(f"  device {dev_us / n} us/solve  x{count / n}/solve  {key[:90]}")
-    return {key: (dev_us / n, count / n) for dev_us, count, key in rows}
+    rows = device_rows(torch, prof)
+    if not rows:
+        return None
+    ops = sum(count for _, count, _ in rows)
+    kernels = sum(count for _, count, key in rows
+                  if not key.startswith(("Memcpy", "Memset")))
+    return ops / n, kernels / n, sum(us for us, _, _ in rows) / n
 
 
 def device_ms(profile, wrapper):
@@ -481,8 +719,12 @@ def main() -> int:
         return 2
     try:
         from karpenter_tpu_torch import kernels, workloads
+        from karpenter_tpu_torch.forecast import models as M
         from karpenter_tpu_torch.ops import binpack as TB
+        from karpenter_tpu_torch.ops import decision as D
         from karpenter_tpu_torch.ops import fused_assign as TF
+        from karpenter_tpu_torch.ops import fusedtick as FT
+        from karpenter_tpu_torch.parallel import mesh as MESH
         from karpenter_tpu_torch.utils.device import card_info
     except ImportError as exc:
         print(f"chip_smoke: the port's package is not importable: {exc}",
@@ -494,10 +736,11 @@ def main() -> int:
 
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
-    print(f"card: {card_info()['line']}")
+    CARD["line"] = card_info()["line"]
+    print(f"card: {CARD['line']}")
     t0 = time.perf_counter()
     kernels.build(verbose=True)
-    print(f"kernel build (nvcc, parallel): {time.perf_counter() - t0} s")
+    report(f"kernel build (nvcc, parallel): {time.perf_counter() - t0} s")
 
     t0 = time.perf_counter()
     fields = workloads.build_inputs(**MAIN_SHAPE)
@@ -515,6 +758,12 @@ def main() -> int:
         ("main path", lambda: phase_main(torch, TB, TF, inputs)),
         ("wide fleet solve", lambda: phase_wide_solve(torch, TB, workloads)),
         ("small card vs CPU", lambda: phase_small_vs_cpu(torch, TB, TF)),
+        ("decision at fleet scale",
+         lambda: phase_decision(torch, D, workloads)),
+        ("fleet step", lambda: phase_fleet_step(
+            torch, TB, TF, D, MESH, inputs,
+            results["decision at fleet scale"])),
+        ("fused tick", lambda: phase_fused_tick(torch, FT, M, workloads)),
     ]
     for name, run in phases:
         try:
@@ -532,7 +781,7 @@ def main() -> int:
     _, launches = results["main path"]
     profile = profile_solves(torch, TB, inputs)
     records = kernel_records(torch, TB, TF, inputs, launches, profile)
-    print(f"card: {card_info()['line']}")
+    print(f"card: {CARD['line']}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({
         "ok": True,
