@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (set-up, with ptxas's register,
-shared-memory and stack report), then runs eight phases and fails (exit 1,
+shared-memory and stack report), then runs nine phases and fails (exit 1,
 no result line) if any of them fails:
 
 1. fused kernel vs its plain version on the card: fused_assign against
@@ -42,7 +42,21 @@ no result line) if any of them fails:
    replayed after the first; the eager ticks and the replays run under
    torch.cuda.set_sync_debug_mode("error"); eager and replay p50/p95,
    device kernels and busy us per tick (torch.profiler), the forecast
-   stage's share of them, and the peak of allocated device memory.
+   stage's share of them, and the peak of allocated device memory;
+9. reconcile tick: bench.py::run_e2e's cluster at 100k pods x 300 groups
+   (workloads.build_reconcile_cluster, seed 0) in the port's Store, solved
+   by the port's solve_pending through its PendingFeed with the default
+   solver (the card): the first tick's totals equal the reference's
+   (RECONCILE_TOTALS), with each kernel launched once; 20 steady ticks
+   launch nothing; 20 churned ticks (1,000 pods replaced per tick) launch
+   each kernel once per tick; the last churned tick's inputs solved by
+   the plain program on the CPU equal the card's five outputs; then the
+   host split of churned ticks, a torch.profiler window of 5 churned
+   ticks (device kernels, busy us, copies and host->device bytes per
+   tick, the generic fused instance's device time per launch), and the
+   mixed draw (20k x 50, affinity 0.3, anti 0.05, spread 0.1): its
+   statuses and gauges on the card equal a CPU-solver run on the same
+   store state, with no reroute.
 
 Then it profiles 20 main-path solves (torch.profiler: device time by
 kernel) and prints, before the last line, one JSON line of kernel records
@@ -57,7 +71,9 @@ Imports neither jax nor karpenter_tpu.
 
 from __future__ import annotations
 
+import functools
 import json
+import os
 import sys
 import time
 
@@ -83,6 +99,20 @@ KERNEL_NAMES = {
 # series x 64 samples; 64 pool groups x 4 pools
 FLEET_N, FLEET_M = 4096, 3
 TICK_SHAPE = dict(n=FLEET_N, m=FLEET_M, s=2048, t=64, groups=64, pools=4)
+# phase 9: bench.py::run_e2e's cluster at its defaults, its churn per tick
+# (max(1, pods // 100)), and its mixed draw
+RECONCILE_SHAPE = dict(pods=100_000, types=300, seed=0)
+RECONCILE_CHURN = 1000
+MIXED_SHAPE = dict(pods=20_000, types=50, seed=0, affinity=0.3, anti=0.05,
+                   spread=0.1)
+# the first tick's totals on RECONCILE_SHAPE: the reference's solve_pending
+# (karpenter_tpu, backend="numpy", on a CPU) over the same draw gives these
+# summed over the 300 producers, with every pod on mp0
+RECONCILE_TOTALS = dict(nodes=9263, lp_bound=8197, unschedulable=0,
+                        mp0_pending=100_000)
+# where phase 9 writes its profiler trace (listed in .gitignore)
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out")
 # the card's `nvidia-smi --query-gpu=name,power.limit` line, set in main()
 CARD = {"line": "not read"}
 
@@ -526,6 +556,277 @@ def phase_fused_tick(torch, FT, M, workloads):
            f"{torch.cuda.max_memory_allocated()} bytes")
 
 
+def _totals(producers) -> dict:
+    """RECONCILE_TOTALS' keys from the producers' statuses."""
+    sts = [mp.status.pending_capacity for mp in producers]
+    return dict(
+        nodes=sum(st.additional_nodes_needed for st in sts),
+        lp_bound=sum(st.lp_lower_bound for st in sts),
+        unschedulable=sts[0].unschedulable_pods,
+        mp0_pending=sts[0].pending_pods,
+    )
+
+
+def _status_and_gauges(PC, cluster) -> dict:
+    """(status fields, the four gauges) per producer."""
+    out = {}
+    for mp in cluster.producers:
+        ns, name = mp.metadata.namespace, mp.metadata.name
+        st = mp.status.pending_capacity
+        out[(ns, name)] = (
+            None if st is None else (
+                st.pending_pods, st.additional_nodes_needed,
+                st.lp_lower_bound, st.unschedulable_pods,
+            ),
+            tuple(
+                cluster.registry.gauge(PC.SUBSYSTEM, g).get(name, ns)
+                for g in (PC.PENDING_PODS, PC.ADDITIONAL_NODES_NEEDED,
+                          PC.LP_LOWER_BOUND, PC.UNSCHEDULABLE_PODS)
+            ),
+        )
+    return out
+
+
+def _host_split(TB, PC, workloads, cluster, n=10) -> dict:
+    """Median ms of each host stage of n churned ticks: the store mutation
+    (with its watch fan-out into the feed), the feed (targets, profiles,
+    snapshot, fingerprint: the tick's time outside the stages below), the
+    encode, the solve call (the launches return before the kernels end),
+    the fetch (one device->host copy, which waits for the kernels), and
+    the status and gauge writes. Timed by wrapping the module's
+    encode_snapshot and _pack_outputs seams and the solver."""
+    marks = {}
+    encode, pack = PC.encode_snapshot, PC._pack_outputs
+
+    def timed_encode(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = encode(*args, **kwargs)
+        marks["encode"] = time.perf_counter() - t0
+        return out
+
+    def timed_solver(inputs, **kwargs):
+        t0 = time.perf_counter()
+        out = TB.solve(inputs, **kwargs)
+        marks["solve"] = time.perf_counter() - t0
+        return out
+
+    def timed_pack(*args):
+        t0 = time.perf_counter()
+        out = pack(*args).cpu()  # the tick's own .cpu() is then a no-op
+        marks["fetched_at"] = time.perf_counter()
+        marks["fetch"] = marks["fetched_at"] - t0
+        return out
+
+    rows = []
+    PC.encode_snapshot, PC._pack_outputs = timed_encode, timed_pack
+    try:
+        for _ in range(n):
+            apply = workloads.churn_reconcile(cluster, RECONCILE_CHURN)
+            marks.clear()
+            t0 = time.perf_counter()
+            apply()
+            t1 = time.perf_counter()
+            cluster.tick(timed_solver)
+            t2 = time.perf_counter()
+            row = {
+                "mutation": t1 - t0,
+                "encode": marks["encode"],
+                "solve": marks["solve"],
+                "fetch": marks["fetch"],
+                "status_gauges": t2 - marks["fetched_at"],
+            }
+            row["feed"] = (t2 - t1) - sum(
+                row[k] for k in ("encode", "solve", "fetch", "status_gauges")
+            )
+            row["tick"] = t2 - t0
+            rows.append(row)
+    finally:
+        PC.encode_snapshot, PC._pack_outputs = encode, pack
+    return {k: float(np.median([r[k] for r in rows])) * 1e3 for k in rows[0]}
+
+
+def _trace_copy_bytes(prof, name) -> dict:
+    """{"HtoD": bytes, "DtoH": bytes} of the memcpy events in a profile,
+    read from its exported Chrome trace (written to OUT_DIR/name), or
+    None when the trace carries no byte counts."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, name)
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    out = {"HtoD": 0, "DtoH": 0}
+    seen = False
+    for ev in events:
+        if ev.get("cat") != "gpu_memcpy" or "bytes" not in ev.get("args", {}):
+            continue
+        seen = True
+        for kind in out:
+            if kind in ev.get("name", ""):
+                out[kind] += int(ev["args"]["bytes"])
+    return out if seen else None
+
+
+def _profile_reconcile(torch, workloads, cluster, n=5) -> dict:
+    """A torch.profiler window of n churned ticks (after two warm-up
+    ticks): device kernels, busy us, copies and host->device bytes per
+    tick, and the device time per launch of the fused kernel's generic
+    instance and of the shelf kernel."""
+    mutations = iter([
+        workloads.churn_reconcile(cluster, RECONCILE_CHURN)
+        for _ in range(n + 2)
+    ])
+
+    def churned_tick():
+        next(mutations)()
+        cluster.tick()
+
+    prof, wall_us = profile_window(torch, churned_tick, n)
+    rows = device_rows(torch, prof)
+    need(rows, "profiler: no device rows in the reconcile ticks")
+
+    def per_tick(pred):
+        hits = [(us, count) for us, count, key in rows if pred(key)]
+        return sum(c for _, c in hits) / n, sum(u for u, _ in hits) / n
+
+    kernels, _ = per_tick(lambda k: not k.startswith(("Memcpy", "Memset")))
+    d2h, _ = per_tick(lambda k: k.startswith("Memcpy DtoH"))
+    h2d, _ = per_tick(lambda k: k.startswith("Memcpy HtoD"))
+    busy = sum(us for us, _, _ in rows) / n
+    generic = [(us, c) for us, c, key in rows if "assign_kernel<8, 8, false>" in key]
+    narrow = [key for _, _, key in rows if "assign_kernel<3, 1, true>" in key]
+    need(generic and not narrow,
+         "the reconcile path did not run the fused kernel's generic instance")
+    fused_launches = sum(c for _, c in generic)
+    reduce_us = sum(us for us, _, key in rows if "demand_reduce_kernel" in key)
+    fused_ms = (sum(us for us, _ in generic) + reduce_us) / fused_launches / 1e3
+    shelf = [(us, c) for us, c, key in rows if "shelf_bfd_warp_kernel" in key]
+    need(shelf, "the reconcile path did not run the shelf kernel")
+    shelf_ms = sum(us for us, _ in shelf) / sum(c for _, c in shelf) / 1e3
+    copy_bytes = _trace_copy_bytes(prof, "reconcile_ticks_trace.json")
+    h2d_bytes = ("not measured" if copy_bytes is None
+                 else copy_bytes["HtoD"] / n)
+    report(f"reconcile profiler, {n} churned ticks: {kernels} kernels, "
+           f"{busy} us device busy per tick ({100.0 * busy * n / wall_us}% "
+           f"of the window); {h2d} host->device copies and {h2d_bytes} bytes "
+           f"per tick; {d2h} device->host copies per tick")
+    report(f"reconcile: fused generic instance assign_kernel<8, 8, false> + "
+           f"demand_reduce_kernel {fused_ms} ms per launch "
+           f"({fused_launches / n} launches per tick); shelf_bfd_warp_kernel "
+           f"{shelf_ms} ms per launch")
+    for dev_us, count, key in rows[:12]:
+        report(f"  device {dev_us / n} us/tick  x{count / n}/tick  {key[:90]}")
+    need(d2h == 1.0, f"{d2h} device->host copies per churned tick, not 1")
+    return {"fused_ms": fused_ms, "shelf_ms": shelf_ms}
+
+
+def phase_reconcile(torch, TB, TF, workloads):
+    """The port's solve_pending on run_e2e's cluster, on the card."""
+    from karpenter_tpu_torch.metrics.producers import pendingcapacity as PC
+
+    cpu_solve = functools.partial(TB.solve, device="cpu")
+    t0 = time.perf_counter()
+    cluster = workloads.build_reconcile_cluster(**RECONCILE_SHAPE)
+    report(f"reconcile cluster {RECONCILE_SHAPE}: store populated in "
+           f"{time.perf_counter() - t0} s (host)")
+
+    TF.reset_launch_counts()
+    t0 = time.perf_counter()
+    errors = cluster.tick()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(TF.LAUNCHES)
+    need(all(e is None for e in errors.values()), f"tick errors {errors}")
+    need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+         f"first reconcile tick launches {launches}")
+    totals = _totals(cluster.producers)
+    need(totals == RECONCILE_TOTALS,
+         f"reconcile totals {totals} != reference {RECONCILE_TOTALS}")
+    inputs = cluster.feed.encode_memo[1]
+    shape = {f: tuple(getattr(inputs, f).shape) for f in
+             ("pod_requests", "pod_intolerant", "pod_required",
+              "group_allocatable")}
+    report(f"reconcile first tick {first_ms} ms: totals {totals} (the "
+           f"reference's); launches {launches}; operands {shape}")
+
+    TF.reset_launch_counts()
+    steady = []
+    for _ in range(ITERS):
+        t0 = time.perf_counter()
+        cluster.tick()
+        steady.append((time.perf_counter() - t0) * 1e3)
+    need(all(n == 0 for n in TF.LAUNCHES.values()),
+         f"steady ticks launched kernels: {TF.LAUNCHES}")
+    need(cluster.feed.encode_memo[1] is inputs, "steady ticks re-encoded")
+
+    TF.reset_launch_counts()
+    churned = []
+    for _ in range(ITERS):
+        apply = workloads.churn_reconcile(cluster, RECONCILE_CHURN)
+        t0 = time.perf_counter()
+        apply()
+        cluster.tick()
+        churned.append((time.perf_counter() - t0) * 1e3)
+    need(TF.LAUNCHES == {"fused_assign": ITERS, "shelf_bfd": ITERS},
+         f"{ITERS} churned ticks launched {TF.LAUNCHES}")
+    last, host = cluster.feed.encode_memo[1], cluster.feed.encode_memo[2]
+    card = TB.solve(last)  # same inputs object: no upload
+    plain = cpu_solve(last)
+    for field in ("assigned", "assigned_count", "nodes_needed", "lp_bound",
+                  "unschedulable"):
+        need(torch_equal(getattr(card, field), getattr(plain, field)),
+             f"last churned tick: card {field} != CPU plain program")
+    for got, field in zip(host, ("assigned_count", "nodes_needed",
+                                 "lp_bound", "unschedulable")):
+        need(np.array_equal(np.asarray(got),
+                            getattr(plain, field).cpu().numpy()),
+             f"last churned tick: the tick's {field} != CPU plain program")
+    report(f"reconcile steady tick p50={np.percentile(steady, 50)}ms "
+           f"p95={np.percentile(steady, 95)}ms, no launch; churned tick "
+           f"({RECONCILE_CHURN} pods replaced) p50={np.percentile(churned, 50)}"
+           f"ms p95={np.percentile(churned, 95)}ms, each kernel launched once "
+           f"per tick (host clock, {ITERS} ticks each); the last churned "
+           f"tick's five outputs on the card == the CPU plain program's")
+
+    split = _host_split(TB, PC, workloads, cluster)
+    report("reconcile churned tick host split, median ms of 10: "
+           + ", ".join(f"{k} {v}" for k, v in split.items())
+           + f"; solve + fetch {split['solve'] + split['fetch']}")
+    device = _profile_reconcile(torch, workloads, cluster)
+
+    # the mixed draw: the forbidden, score and exclusive operands on the
+    # fused path, card == CPU solver on the same store state
+    for key in TB.REROUTES:
+        TB.REROUTES[key] = 0
+    mixed = workloads.build_reconcile_cluster(**MIXED_SHAPE)
+    TF.reset_launch_counts()
+    errors = mixed.tick()
+    need(all(e is None for e in errors.values()), f"mixed errors {errors}")
+    mixed_launches = dict(TF.LAUNCHES)
+    need(mixed_launches == {"fused_assign": 1, "shelf_bfd": 1},
+         f"mixed draw launches {mixed_launches}")
+    m_inputs = mixed.feed.encode_memo[1]
+    need(all(getattr(m_inputs, f) is not None for f in
+             ("pod_group_forbidden", "pod_group_score", "pod_exclusive")),
+         "the mixed draw lacks an optional operand")
+    on_card = _status_and_gauges(PC, mixed)
+    mixed.registry = type(mixed.registry)()
+    PC.register_gauges(mixed.registry)
+    mixed.feed.encode_memo = None  # solve the same state again
+    mixed.tick(cpu_solve)
+    need(_status_and_gauges(PC, mixed) == on_card,
+         "mixed draw: statuses or gauges on the card != CPU solver")
+    m_totals = _totals(mixed.producers)
+    used = sum(1 for st, _ in on_card.values() if st and st[0] > 0)
+    report(f"reconcile mixed draw {MIXED_SHAPE}: operands "
+           f"{tuple(m_inputs.pod_requests.shape)} x "
+           f"{tuple(m_inputs.group_allocatable.shape)} with forbidden, score "
+           f"and exclusive; card == CPU solver on {len(on_card)} statuses and "
+           f"{4 * len(on_card)} gauges; nodes {m_totals['nodes']}, "
+           f"unschedulable {m_totals['unschedulable']}, {used} groups used; "
+           f"launches {mixed_launches}; REROUTES {dict(TB.REROUTES)}")
+    need(not any(TB.REROUTES.values()), f"mixed draw rerouted {TB.REROUTES}")
+    return {"launches": launches, **device}
+
+
 def profile_solves(torch, TB, inputs, n=ITERS):
     """Where a solve's time goes: the mean of back-to-back solves by CUDA
     events, then a torch.profiler window of n solves (device time by
@@ -580,15 +881,20 @@ def profile_window(torch, fn, n, warmup=2):
     return prof, wall_us
 
 
+# record_function ranges the profiled code opens: the profiler shows each
+# as a device row spanning the kernels inside it, which are rows already
+ANNOTATIONS = ("ProfilerStep", "pendingcapacity.solve")
+
+
 def device_rows(torch, prof):
     """[(device us, count, name)] of a profile's device-side rows (kernels,
     memcpy, memset), largest first: an aten op's row repeats the time of
-    the kernels it launched, so only these are summed, and so does the
-    schedule's `ProfilerStep#` annotation on the device."""
+    the kernels it launched, so only these are summed, and so does a
+    record_function range on the device (ANNOTATIONS)."""
     rows = []
     for ev in prof.key_averages():
         if (ev.device_type != torch.autograd.DeviceType.CUDA
-                or ev.key.startswith("ProfilerStep")):
+                or ev.key.startswith(ANNOTATIONS)):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -629,7 +935,7 @@ def device_ms(profile, wrapper):
     return sum(us for us, _ in hits) / 1e3, sum(c for _, c in hits)
 
 
-def kernel_records(torch, TB, TF, inputs, launches, profile):
+def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile):
     """Per-kernel JSON records at the main path's shapes. `ms` is device
     time per launch from the profiler's rows of the kernel's own names
     (the fused row sums its two kernels); `call_ms` is the wrapper's time
@@ -638,7 +944,9 @@ def kernel_records(torch, TB, TF, inputs, launches, profile):
     path's single solve; `device_kernels_per_solve` counts the device
     kernels behind it (the fused wrapper launches two). Fails when the
     profiler shows none of a wrapper's kernels: `ms` never holds a host
-    time."""
+    time. `reconcile_launches` is the wrapper's count over phase 9's first
+    reconcile tick, `reconcile_ms` its device time per launch there (the
+    fused kernel's generic instance at R = 4)."""
     from karpenter_tpu_torch.ops.fused_assign import _packed
 
     pods, n_res = inputs.pod_requests.shape
@@ -699,6 +1007,9 @@ def kernel_records(torch, TB, TF, inputs, launches, profile):
             "replaces": replaces,
             "launches": launches[name],
             "device_kernels_per_solve": per_solve,
+            "reconcile_launches": reconcile["launches"][name],
+            "reconcile_ms": reconcile[
+                "fused_ms" if name == "fused_assign" else "shelf_ms"],
             "max_abs_err": err,
             "ms": ms,
             "call_ms": call_ms,
@@ -764,6 +1075,8 @@ def main() -> int:
             torch, TB, TF, D, MESH, inputs,
             results["decision at fleet scale"])),
         ("fused tick", lambda: phase_fused_tick(torch, FT, M, workloads)),
+        ("reconcile tick",
+         lambda: phase_reconcile(torch, TB, TF, workloads)),
     ]
     for name, run in phases:
         try:
@@ -780,7 +1093,8 @@ def main() -> int:
         return 1
     _, launches = results["main path"]
     profile = profile_solves(torch, TB, inputs)
-    records = kernel_records(torch, TB, TF, inputs, launches, profile)
+    records = kernel_records(torch, TB, TF, inputs, launches, profile,
+                             results["reconcile tick"])
     print(f"card: {CARD['line']}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

@@ -9,14 +9,18 @@
   edge rows and optionally forecast operands.
 - `build_fused_tick_inputs`: a FusedTickInputs batch with every stage
   present, optionally pool groups.
+- `build_reconcile_cluster` / `churn_reconcile`: bench.py::run_e2e's
+  cluster (pending pods, one node and one pendingCapacity producer per
+  group) in a Store with its PendingFeed, and its per-tick churn.
 
-The last two return dicts of numpy arrays (nested for the operand groups)
-that the operand dataclasses' `from_numpy` take.
+The decision and tick builders return dicts of numpy arrays (nested for
+the operand groups) that the operand dataclasses' `from_numpy` take.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -251,3 +255,318 @@ def build_fused_tick_inputs(
     if groups:
         fields["poolgroup"] = _poolgroup_fields(r, n, m, groups, pools)
     return fields
+
+
+# -- the reconcile tick's cluster (bench.py::run_e2e) -------------------------
+
+# What the cluster draw needs, by module under the package root. The draw
+# takes these classes as an argument (`reconcile_api` gives this package's),
+# so the same routine fills a store from any package with this layout.
+RECONCILE_API = {
+    "api.core": (
+        "Affinity", "Container", "LabelSelector", "Node", "NodeAffinity",
+        "NodeCondition", "NodeSelector", "NodeSelectorRequirement",
+        "NodeSelectorTerm", "NodeStatus", "ObjectMeta", "Pod",
+        "PodAffinityTerm", "PodAntiAffinity", "PodSpec",
+        "PreferredSchedulingTerm", "TopologySpreadConstraint",
+    ),
+    "api.metricsproducer": (
+        "MetricsProducer", "MetricsProducerSpec", "PendingCapacitySpec",
+    ),
+    "metrics.producers.pendingcapacity": (
+        "group_profile", "register_gauges", "solve_pending",
+    ),
+    "metrics.registry": ("GaugeRegistry",),
+    "store": ("Store",),
+    "store.columnar": ("PendingFeed", "PendingPodCache"),
+    "utils.quantity": ("Quantity",),
+}
+
+
+class ReconcileAPI:
+    """The classes and functions of RECONCILE_API, as attributes."""
+
+    def __init__(self, **names):
+        self.__dict__.update(names)
+
+
+def api_namespace(modules: Dict[str, object]) -> ReconcileAPI:
+    """The names of RECONCILE_API taken from `modules`, which maps each
+    of its keys to a module object."""
+    return ReconcileAPI(
+        **{
+            attr: getattr(modules[module], attr)
+            for module, attrs in RECONCILE_API.items()
+            for attr in attrs
+        }
+    )
+
+
+def reconcile_api() -> ReconcileAPI:
+    """RECONCILE_API from this package."""
+    from karpenter_tpu_torch import store
+    from karpenter_tpu_torch.api import core, metricsproducer
+    from karpenter_tpu_torch.metrics import registry
+    from karpenter_tpu_torch.metrics.producers import pendingcapacity
+    from karpenter_tpu_torch.store import columnar
+    from karpenter_tpu_torch.utils import quantity
+
+    return api_namespace({
+        "api.core": core,
+        "api.metricsproducer": metricsproducer,
+        "metrics.producers.pendingcapacity": pendingcapacity,
+        "metrics.registry": registry,
+        "store": store,
+        "store.columnar": columnar,
+        "utils.quantity": quantity,
+    })
+
+
+def _affinity_shapes(api) -> list:
+    """bench.py::_e2e_affinity_shapes: require ssd, forbid hdd, prefer ssd
+    (weight 80)."""
+
+    def term(operator, values):
+        return api.NodeSelectorTerm(
+            match_expressions=[
+                api.NodeSelectorRequirement(
+                    key="disk", operator=operator, values=values
+                )
+            ]
+        )
+
+    def required(operator, values):
+        return api.Affinity(
+            node_affinity=api.NodeAffinity(
+                required_during_scheduling_ignored_during_execution=(
+                    api.NodeSelector(node_selector_terms=[term(operator, values)])
+                )
+            )
+        )
+
+    prefer_ssd = api.Affinity(
+        node_affinity=api.NodeAffinity(
+            preferred_during_scheduling_ignored_during_execution=[
+                api.PreferredSchedulingTerm(
+                    weight=80, preference=term("In", ["ssd"])
+                )
+            ]
+        )
+    )
+    return [required("In", ["ssd"]), required("NotIn", ["hdd"]), prefer_ssd]
+
+
+def _anti_affinity(api, app: str):
+    """bench.py::_e2e_anti_affinity: required hostname self-anti-affinity
+    (one replica per node)."""
+    return api.Affinity(
+        pod_anti_affinity=api.PodAntiAffinity(
+            required_during_scheduling_ignored_during_execution=[
+                api.PodAffinityTerm(
+                    label_selector=api.LabelSelector(match_labels={"app": app}),
+                    topology_key="kubernetes.io/hostname",
+                )
+            ]
+        )
+    )
+
+
+@dataclass
+class ReconcileCluster:
+    """A populated store with its feed, producers and gauge registry, and
+    the draw state the churn continues from."""
+
+    api: ReconcileAPI
+    store: object
+    feed: object
+    producers: List
+    registry: object
+    pods: int
+    types: int
+    bound_count: int
+    make_pod: Callable
+    make_bound: Callable
+    next_id: int = 0
+    next_bound: int = 0
+
+    def tick(self, solver=None):
+        """One reconcile tick: solve_pending over every producer through
+        the feed."""
+        return self.api.solve_pending(
+            self.store, self.producers, self.registry, solver=solver,
+            feed=self.feed,
+        )
+
+
+def build_reconcile_cluster(
+    pods: int, types: int, seed: int, affinity: float = 0.0,
+    anti: float = 0.0, spread: float = 0.0,
+    api: Optional[ReconcileAPI] = None,
+) -> ReconcileCluster:
+    """bench.py::run_e2e's cluster, draw for draw from
+    np.random.default_rng(seed): `pods` pending pods (cpu from 100m..4,
+    memory from 128Mi..4Gi; fractions `affinity`, `anti` and `spread`
+    carry required/preferred node affinity on the disk label, hostname
+    self-anti-affinity, and a zone topology spread), `types` groups of
+    one Ready node each (8-96 cores, 4 GiB per core, disk alternating
+    hdd/ssd, 16 zones under `spread`), a slab of bound pods under
+    `spread`, and one pendingCapacity MetricsProducer per group selecting
+    its node. `api` (reconcile_api) names the classes; the port's by
+    default."""
+    api = api if api is not None else reconcile_api()
+    rng = np.random.default_rng(seed)
+    store = api.Store()
+    feed = api.PendingFeed(store, api.group_profile)
+    cpu_choices = [
+        api.Quantity.parse(q) for q in ("100m", "250m", "500m", "1", "2", "4")
+    ]
+    mem_choices = [api.Quantity.parse(q) for q in ("128Mi", "512Mi", "1Gi", "4Gi")]
+    affinity_shapes = _affinity_shapes(api) if affinity else []
+
+    def make_pod(name):
+        # independent draws, in run_e2e's order: a pod may carry both node
+        # affinity and pod anti-affinity
+        pod_affinity = None
+        labels = {}
+        constraints = []
+        if affinity_shapes and rng.random() < affinity:
+            pod_affinity = affinity_shapes[
+                int(rng.integers(0, len(affinity_shapes)))
+            ]
+        if anti and rng.random() < anti:
+            app = f"svc{int(rng.integers(0, 8))}"
+            labels = {"app": app}
+            pod_affinity = api.Affinity(
+                node_affinity=(
+                    pod_affinity.node_affinity if pod_affinity else None
+                ),
+                pod_anti_affinity=_anti_affinity(api, app).pod_anti_affinity,
+            )
+        if spread and rng.random() < spread:
+            app = f"web{int(rng.integers(0, 8))}"
+            labels = {**labels, "spread-app": app}
+            constraints = [
+                api.TopologySpreadConstraint(
+                    max_skew=1,
+                    topology_key="topology.kubernetes.io/zone",
+                    when_unsatisfiable="DoNotSchedule",
+                    label_selector={"matchLabels": {"spread-app": app}},
+                )
+            ]
+        return api.Pod(
+            metadata=api.ObjectMeta(name=name, labels=labels),
+            spec=api.PodSpec(
+                containers=[
+                    api.Container(
+                        requests={
+                            "cpu": rng.choice(cpu_choices),
+                            "memory": rng.choice(mem_choices),
+                        }
+                    )
+                ],
+                affinity=pod_affinity,
+                topology_spread_constraints=constraints,
+            ),
+        )
+
+    def make_bound(name):
+        # a bound pod with a per-pod-unique label (the StatefulSet
+        # pod-name pattern) feeding the occupancy census
+        app = f"web{int(rng.integers(0, 8))}"
+        return api.Pod(
+            metadata=api.ObjectMeta(
+                name=name,
+                labels={
+                    "spread-app": app,
+                    "statefulset.kubernetes.io/pod-name": name,
+                },
+            ),
+            spec=api.PodSpec(
+                node_name=f"n{int(rng.integers(0, types))}",
+                containers=[api.Container(requests={"cpu": cpu_choices[0]})],
+            ),
+        )
+
+    for i in range(pods):
+        store.create(make_pod(f"p{i}"))
+    for g in range(types):
+        cores = int(rng.choice([8, 16, 32, 64, 96]))
+        node_labels = {"group": f"g{g}", "disk": "ssd" if g % 2 else "hdd"}
+        if spread:
+            node_labels["topology.kubernetes.io/zone"] = f"z{g % 16}"
+        store.create(
+            api.Node(
+                metadata=api.ObjectMeta(name=f"n{g}", labels=node_labels),
+                status=api.NodeStatus(
+                    allocatable={
+                        "cpu": api.Quantity.parse(str(cores)),
+                        "memory": api.Quantity.parse(f"{cores * 4}Gi"),
+                    },
+                    conditions=[
+                        api.NodeCondition(type="Ready", status="True")
+                    ],
+                ),
+            )
+        )
+    bound_count = min(max(pods // 10, 1), 10000) if spread else 0
+    for i in range(bound_count):
+        store.create(make_bound(f"b{i}"))
+    producers = [
+        store.create(
+            api.MetricsProducer(
+                metadata=api.ObjectMeta(name=f"mp{g}"),
+                spec=api.MetricsProducerSpec(
+                    pending_capacity=api.PendingCapacitySpec(
+                        node_selector={"group": f"g{g}"}
+                    )
+                ),
+            )
+        )
+        for g in range(types)
+    ]
+    registry = api.GaugeRegistry()
+    api.register_gauges(registry)
+    return ReconcileCluster(
+        api=api, store=store, feed=feed, producers=producers,
+        registry=registry, pods=pods, types=types, bound_count=bound_count,
+        make_pod=make_pod, make_bound=make_bound, next_id=pods,
+        next_bound=bound_count,
+    )
+
+
+def churn_reconcile(
+    cluster: ReconcileCluster, churn: Optional[int] = None
+) -> Callable[[], None]:
+    """One churned tick of run_e2e: draws `churn` replacement pods
+    (default max(1, pods // 100)) and, under `spread`, a tenth as many
+    bound pods, then returns the mutation that applies them: it deletes
+    the oldest pods and creates the fresh ones through the store, whose
+    watch events feed the incremental caches. Drawing is the load
+    generator's cost, so it happens here, outside the mutation."""
+    c = cluster
+    churn = churn if churn is not None else max(1, c.pods // 100)
+    bound_churn = (
+        min(c.bound_count, max(1, churn // 10))
+        if (c.bound_count and churn)
+        else 0
+    )
+    fresh = [c.make_pod(f"p{c.next_id + j}") for j in range(churn)]
+    victims = [f"p{c.next_id - c.pods + j}" for j in range(churn)]
+    c.next_id += churn
+    fresh_bound = [
+        c.make_bound(f"b{c.next_bound + j}") for j in range(bound_churn)
+    ]
+    bound_victims = [
+        f"b{c.next_bound - c.bound_count + j}" for j in range(bound_churn)
+    ]
+    c.next_bound += bound_churn
+
+    def apply() -> None:
+        for victim, pod in zip(victims, fresh):
+            c.store.delete("Pod", "default", victim)
+            c.store.create(pod)
+        for victim, pod in zip(bound_victims, fresh_bound):
+            c.store.delete("Pod", "default", victim)
+            c.store.create(pod)
+
+    return apply
