@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (set-up, with ptxas's register,
-shared-memory and stack report), then runs nine phases and fails (exit 1,
+shared-memory and stack report), then runs ten phases and fails (exit 1,
 no result line) if any of them fails:
 
 1. fused kernel vs its plain version on the card: fused_assign against
@@ -56,7 +56,37 @@ no result line) if any of them fails:
    tick, the generic fused instance's device time per launch), and the
    mixed draw (20k x 50, affinity 0.3, anti 0.05, spread 0.1): its
    statuses and gauges on the card equal a CPU-solver run on the same
-   store state, with no reroute.
+   store state, with no reroute;
+10. the solve service on the card (karpenter_tpu_torch/solver), as
+   production reaches the kernels: (a) SolverService() (the cuda rung,
+   which does not pad) on the main path's problem handed over as host
+   arrays: its five outputs equal a direct solve(backend="cuda"), each
+   kernel launched once per request (counts set to 0 just before, read
+   just after); service and direct p50/p95 over 20 calls, the service's
+   stage percentiles, the fused instance that ran (the narrow one) with
+   its device ms per launch and the host->device bytes of a repeated
+   request (profiler); (b) phase 9's cluster with its pods restored to
+   the first tick's, reconciled by solve_pending(...,
+   solver=service.solve): the first tick's totals equal
+   RECONCILE_TOTALS, and on it and on 20 churned ticks the statuses and
+   gauges equal the direct-solve path's; then 12 pairs of churned ticks
+   timed in turns (service, direct, direct, service, ...), each on its
+   own fresh churn: medians and spread of both arms and of the pairs'
+   differences, and the service's share of the tick;
+   (c) 8 threads submitting reconcile-size problems in one window, on the
+   cuda and the torch rungs: answers equal their direct solves, requests,
+   dispatches and coalesce factor printed; (d) the torch rung over 5
+   churned ticks with the device-resident state and without it: equal to
+   each other and to the cuda rung, host->device bytes per tick for both
+   (the resident arm ships only the changed rows), the batched program
+   under set_sync_debug_mode("error"); (e) solve(backend="numpy") at the
+   main path with its C helper loaded == the card, its p50; then a
+   solver.dispatch error plan: each failed request raises the injected
+   error (the card's service never answers from numpy), the health FSM
+   trips to degraded and the next request raises SolverDeviceError with
+   no device attempt; with the plan cleared the probe (on an injected
+   clock) heals it. The phase ends with every service at fallback_total
+   0, the main one healthy, and no shard route.
 
 Then it profiles 20 main-path solves (torch.profiler: device time by
 kernel) and prints, before the last line, one JSON line of kernel records
@@ -103,6 +133,7 @@ TICK_SHAPE = dict(n=FLEET_N, m=FLEET_M, s=2048, t=64, groups=64, pools=4)
 # (max(1, pods // 100)), and its mixed draw
 RECONCILE_SHAPE = dict(pods=100_000, types=300, seed=0)
 RECONCILE_CHURN = 1000
+SERVICE_PAIRS = 12  # churned ticks timed in turns, service vs direct
 MIXED_SHAPE = dict(pods=20_000, types=50, seed=0, affinity=0.3, anti=0.05,
                    spread=0.1)
 # the first tick's totals on RECONCILE_SHAPE: the reference's solve_pending
@@ -728,6 +759,9 @@ def phase_reconcile(torch, TB, TF, workloads):
     cluster = workloads.build_reconcile_cluster(**RECONCILE_SHAPE)
     report(f"reconcile cluster {RECONCILE_SHAPE}: store populated in "
            f"{time.perf_counter() - t0} s (host)")
+    # the first tick's pods, for phase 10: stored instances are replaced,
+    # never mutated, so references keep the state
+    initial_pods = _stored_pods(cluster.store)
 
     TF.reset_launch_counts()
     t0 = time.perf_counter()
@@ -824,7 +858,437 @@ def phase_reconcile(torch, TB, TF, workloads):
            f"unschedulable {m_totals['unschedulable']}, {used} groups used; "
            f"launches {mixed_launches}; REROUTES {dict(TB.REROUTES)}")
     need(not any(TB.REROUTES.values()), f"mixed draw rerouted {TB.REROUTES}")
-    return {"launches": launches, **device}
+    return {"launches": launches, **device, "cluster": cluster,
+            "initial_pods": initial_pods}
+
+
+def _stored_pods(store) -> dict:
+    """{key: stored Pod instance} of a port Store."""
+    return {key: store._objects[key]
+            for key in store._by_kind.get("Pod", {})}
+
+
+def _restore_pods(store, pods: dict) -> None:
+    """Bring the store's pods back to `pods` (a _stored_pods snapshot):
+    delete the pods created since, re-create the ones deleted since, in
+    their original order, through the store (its watch events update the
+    feed like any churn)."""
+    from karpenter_tpu_torch.utils.clone import fast_clone
+
+    current = _stored_pods(store)
+    for key in current:
+        if key not in pods:
+            store.delete("Pod", key[1], key[2])
+    for key, pod in pods.items():
+        if key not in current:
+            store.create(fast_clone(pod))
+
+
+def _service_outputs_equal(got, want, inputs, what):
+    """A service answer (host numpy) == a direct solve (tensors): the
+    four integer outputs exactly; lp_bound exactly, or with `inputs`, per
+    check_lp at the documented f32 boundary. Returns the lp mismatches."""
+    import torch
+
+    for field in ("assigned", "assigned_count", "nodes_needed",
+                  "unschedulable"):
+        need(np.array_equal(np.asarray(getattr(got, field)),
+                            getattr(want, field).cpu().numpy()),
+             f"{what}: {field} differs")
+    lp = torch.from_numpy(np.asarray(got.lp_bound)).to(want.lp_bound.device)
+    if inputs is None:
+        need(torch.equal(lp, want.lp_bound), f"{what}: lp_bound differs")
+        return 0
+    return check_lp(type("Out", (), {"lp_bound": lp}), want, inputs)
+
+
+def _fused_instance_ms(rows, n):
+    """(instance, fused ms per launch, shelf ms per launch) from profiler
+    rows of n calls of one launch each."""
+    generic = [(us, c) for us, c, key in rows
+               if "assign_kernel<8, 8, false>" in key]
+    narrow = [(us, c) for us, c, key in rows
+              if "assign_kernel<3, 1, true>" in key]
+    need(bool(generic) != bool(narrow),
+         f"service solves ran {len(generic)} generic and {len(narrow)} "
+         f"narrow fused instances")
+    hits = generic or narrow
+    fused_launches = sum(c for _, c in hits)
+    need(fused_launches == n, f"{fused_launches} fused launches in {n} calls")
+    reduce_us = sum(us for us, _, key in rows if "demand_reduce_kernel" in key)
+    fused_ms = (sum(us for us, _ in hits) + reduce_us) / fused_launches / 1e3
+    shelf = [(us, c) for us, c, key in rows if "shelf_bfd_warp_kernel" in key]
+    need(shelf, "service solves ran no shelf kernel")
+    shelf_ms = sum(us for us, _ in shelf) / sum(c for _, c in shelf) / 1e3
+    return ("generic" if generic else "narrow"), fused_ms, shelf_ms
+
+
+def _service_main_path(torch, TB, TF, svc, inputs, host_inputs):
+    """Sub-phase 1: the bench problem through SolverService() on the card
+    (the cuda rung: solve(backend="cuda") on the request's own 100k x 300
+    x 3 operands, kept resident by object identity, both kernels, one
+    fetch), against a direct solve(backend="cuda")."""
+    direct = TB.solve(inputs, buckets=BUCKETS, backend="cuda")
+    torch.cuda.synchronize()
+    TF.reset_launch_counts()
+    out = svc.solve(host_inputs, buckets=BUCKETS)
+    launches = dict(TF.LAUNCHES)
+    need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+         f"service main path launches {launches}")
+    n_lp = _service_outputs_equal(out, direct, inputs,
+                                  "service main path vs direct cuda")
+    nodes = int(np.asarray(out.nodes_needed).sum())
+    need(nodes == MAIN_NODES, f"service main path nodes {nodes}")
+
+    def service_call():
+        svc.solve(host_inputs, buckets=BUCKETS)
+
+    def direct_call():
+        TB.solve(inputs, buckets=BUCKETS, backend="cuda")
+        torch.cuda.synchronize()
+
+    TF.reset_launch_counts()
+    s50, s95 = host_ms(torch, service_call, ITERS)
+    need(TF.LAUNCHES == {"fused_assign": ITERS + 1, "shelf_bfd": ITERS + 1},
+         f"{ITERS + 1} service solves launched {TF.LAUNCHES}")
+    d50, d95 = host_ms(torch, direct_call, ITERS)
+    report(f"service main path: SolverService().solve == direct "
+           f"solve(backend='cuda') on all five outputs (lp_bound mismatches "
+           f"{n_lp}, nodes {nodes}); launches per request {launches}")
+    report(f"service main path p50={s50}ms p95={s95}ms vs direct solve "
+           f"p50={d50}ms p95={d95}ms (host clock, {ITERS} calls each)")
+    stages = svc.stage_percentiles()
+    report("service stage percentiles (ms): " + "; ".join(
+        f"{k} p50={v['p50_ms']} p99={v['p99_ms']} n={v['n']}"
+        for k, v in sorted(stages.items())))
+    prof, _ = profile_window(torch, service_call, 5)
+    rows = device_rows(torch, prof)
+    need(rows, "profiler: no device rows in the service solves")
+    instance, fused_ms, shelf_ms = _fused_instance_ms(rows, 5)
+    need(instance == "narrow",
+         "the service's unpadded R = 3 request missed the narrow instance")
+    copies = _trace_copy_bytes(prof, "service_main_trace.json")
+    h2d = "not measured" if copies is None else copies["HtoD"] / 5
+    busy = sum(us for us, _, _ in rows) / 5
+    report(f"service main path: fused instance {instance} + "
+           f"demand_reduce_kernel {fused_ms} ms per launch; "
+           f"shelf_bfd_warp_kernel {shelf_ms} ms per launch; device busy "
+           f"{busy} us per request; host->device {h2d} bytes per repeated "
+           f"request (profiler, 5 requests)")
+    for dev_us, count, key in rows[:8]:
+        report(f"  device {dev_us / 5} us/request  x{count / 5}/request  "
+               f"{key[:90]}")
+    return {"launches": launches, "fused_ms": fused_ms, "shelf_ms": shelf_ms,
+            "instance": instance}
+
+
+def _service_reconcile(torch, TB, TF, PC, workloads, svc, reconcile):
+    """Sub-phase 2: phase 9's cluster, its pods restored to the first
+    tick's, reconciled by solve_pending(..., solver=service.solve) as
+    production wires it; each tick's statuses and gauges against the
+    direct-solve path's on the same store state. Then the service's cost
+    on the tick: pairs of churned ticks timed in turns, each tick on its
+    own fresh churn, with no check between them."""
+    cluster = reconcile["cluster"]
+    t0 = time.perf_counter()
+    _restore_pods(cluster.store, reconcile["initial_pods"])
+    report(f"reconcile via service: phase 9's store restored to the first "
+           f"tick's pods in {time.perf_counter() - t0} s (host)")
+    in_service = {"s": 0.0}
+
+    def service_solver(inputs, **kwargs):
+        t = time.perf_counter()
+        out = svc.solve(inputs, **kwargs)
+        in_service["s"] += time.perf_counter() - t
+        return out
+
+    def same_as_direct(what):
+        """Solve the tick's state again by the direct path; statuses and
+        gauges must not move."""
+        got = _status_and_gauges(PC, cluster)
+        cluster.feed.encode_memo = None
+        cluster.tick(TB.solve)
+        need(_status_and_gauges(PC, cluster) == got,
+             f"{what}: statuses or gauges != the direct-solve path's")
+
+    cluster.feed.encode_memo = None
+    TF.reset_launch_counts()
+    errors = cluster.tick(service_solver)
+    launches = dict(TF.LAUNCHES)
+    need(all(e is None for e in errors.values()), f"errors {errors}")
+    need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+         f"first service tick launches {launches}")
+    totals = _totals(cluster.producers)
+    need(totals == RECONCILE_TOTALS,
+         f"service first tick totals {totals} != {RECONCILE_TOTALS}")
+    same_as_direct("first service tick")
+    for _ in range(ITERS):
+        workloads.churn_reconcile(cluster, RECONCILE_CHURN)()
+        TF.reset_launch_counts()
+        errors = cluster.tick(service_solver)
+        need(all(e is None for e in errors.values()), f"errors {errors}")
+        need(TF.LAUNCHES == {"fused_assign": 1, "shelf_bfd": 1},
+             f"churned service tick launched {TF.LAUNCHES}")
+        same_as_direct("churned service tick")
+    report(f"reconcile via service: first tick totals {totals} (the "
+           f"reference's), statuses and gauges == the direct path's on it "
+           f"and on {ITERS} churned ticks ({RECONCILE_CHURN} pods each), "
+           f"each kernel launched once per tick")
+
+    # in turns: S D D S S D ..., every tick after its own churn, so both
+    # arms meet the same kind of state (a delta encode of 1,000 replaced
+    # pods) and drift in the host's speed falls on both alike
+    arms = {"service": service_solver, "direct": TB.solve}
+    ticks = {"service": [], "direct": []}
+    churned = {"service": [], "direct": []}
+    shares = []
+    for i in range(2 * SERVICE_PAIRS):
+        arm = ("service", "direct")[(i + i // 2) % 2]
+        apply = workloads.churn_reconcile(cluster, RECONCILE_CHURN)
+        in_service["s"] = 0.0
+        t0 = time.perf_counter()
+        apply()
+        t1 = time.perf_counter()
+        errors = cluster.tick(arms[arm])
+        t2 = time.perf_counter()
+        need(all(e is None for e in errors.values()), f"errors {errors}")
+        ticks[arm].append((t2 - t1) * 1e3)
+        churned[arm].append((t2 - t0) * 1e3)
+        if arm == "service":
+            shares.append(in_service["s"] / (t2 - t0))
+    diffs = [s - d for s, d in zip(ticks["service"], ticks["direct"])]
+
+    def spread(xs):
+        return (f"median {float(np.median(xs))} [min {min(xs)}, max "
+                f"{max(xs)}]")
+
+    report(f"reconcile via service vs direct, {SERVICE_PAIRS} pairs in turns "
+           f"(host clock, ms): tick after the store mutation: service "
+           f"{spread(ticks['service'])}, direct {spread(ticks['direct'])}; "
+           f"service - direct per pair {spread(diffs)}")
+    report(f"reconcile via service: churned tick (mutation + tick) "
+           f"p50={np.percentile(churned['service'], 50)}ms "
+           f"p95={np.percentile(churned['service'], 95)}ms vs direct "
+           f"p50={np.percentile(churned['direct'], 50)}ms "
+           f"p95={np.percentile(churned['direct'], 95)}ms; service.solve "
+           f"{100.0 * float(np.median(shares))}% of the churned tick "
+           f"(median)")
+    return cluster
+
+
+def _service_coalescing(torch, TB, S, GaugeRegistry, cluster):
+    """Sub-phase 3: 8 threads submit reconcile-size problems in one
+    window, on the cuda rung and on the torch rung."""
+    import dataclasses
+    import threading
+
+    base = cluster.feed.encode_memo[1]
+    rng = np.random.default_rng(10)
+    rows = base.pod_requests.shape[0]
+    problems = [
+        dataclasses.replace(base, pod_weight=(
+            np.asarray(base.pod_weight) * rng.integers(1, 4, rows)
+        ).astype(np.int32))
+        for _ in range(8)
+    ]
+    wants = [TB.solve(p, buckets=BUCKETS, backend="cuda") for p in problems]
+    for rung in ("cuda", "torch"):
+        csvc = S.SolverService(registry=GaugeRegistry(), backend=rung,
+                               window_s=0.05, adaptive_window=False)
+        try:
+            csvc.solve(problems[0], buckets=BUCKETS)
+            results = [None] * 8
+            barrier = threading.Barrier(8)
+
+            def submit(i):
+                barrier.wait(10.0)
+                results[i] = csvc.solve(problems[i], buckets=BUCKETS)
+
+            before = (csvc.stats.requests, csvc.stats.dispatches)
+            threads = [threading.Thread(target=submit, args=(i,))
+                       for i in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(60.0)
+                need(not t.is_alive(), "a coalescing submitter hung")
+            for i, (got, want) in enumerate(zip(results, wants)):
+                _service_outputs_equal(got, want, None,
+                                       f"coalesced {rung} request {i}")
+            requests = csvc.stats.requests - before[0]
+            dispatches = csvc.stats.dispatches - before[1]
+            need(csvc.stats.fallbacks == 0
+                 and csvc.stats.device_failures == 0, f"{rung}: fallbacks")
+            report(f"coalescing ({rung} rung), 8 threads x "
+                   f"{tuple(base.pod_requests.shape)} x "
+                   f"{tuple(base.group_allocatable.shape)}: requests "
+                   f"{requests}, dispatches {dispatches}, coalesce_factor "
+                   f"{csvc.stats.last_coalesce_factor}, coalesced batches "
+                   f"{csvc.stats.coalesced_batches}, pipeline splits "
+                   f"{csvc.stats.pipeline_splits}, overlaps "
+                   f"{csvc.stats.pipeline_overlaps}; every answer == its "
+                   f"direct solve(backend='cuda')")
+        finally:
+            csvc.close()
+
+
+def _service_torch_rung(torch, S, GaugeRegistry, workloads, cluster, svc):
+    """Sub-phase 4: the torch rung on the card, with the device-resident
+    state and without it, over 5 churned ticks through the feed; both
+    equal the cuda rung; host->device bytes per tick."""
+    rsvc = S.SolverService(registry=GaugeRegistry(), backend="torch")
+    csvc = S.SolverService(registry=GaugeRegistry(), backend="torch",
+                           resident=False)
+    fields = ("assigned", "assigned_count", "nodes_needed", "lp_bound",
+              "unschedulable")
+    try:
+        workloads.churn_reconcile(cluster, RECONCILE_CHURN)()
+        cluster.tick(rsvc.solve)  # establishes residency (a rebuild)
+        need(rsvc.stats.resident_rebuilds == 1, "no resident rebuild")
+        res_bytes, cold_bytes, changed = [], [], []
+        for _ in range(5):
+            workloads.churn_reconcile(cluster, RECONCILE_CHURN)()
+            b0 = rsvc.stats.upload_bytes
+            cluster.tick(rsvc.solve)
+            res_bytes.append(rsvc.stats.upload_bytes - b0)
+            changed.append(rsvc._resident.last_scatter_rows)
+            need(res_bytes[-1] == rsvc._resident.last_scatter_bytes,
+                 "the resident arm copied more than its scatter")
+            inputs = cluster.feed.encode_memo[1]
+            resident = rsvc.solve(inputs, buckets=BUCKETS)  # identity hit
+            b0 = csvc.stats.upload_bytes
+            cold = csvc.solve(inputs, buckets=BUCKETS)
+            cold_bytes.append(csvc.stats.upload_bytes - b0)
+            card = svc.solve(inputs, buckets=BUCKETS)
+            for field in fields:
+                a = np.asarray(getattr(resident, field))
+                need(np.array_equal(a, np.asarray(getattr(cold, field))),
+                     f"torch rung resident vs not: {field} differs")
+                need(np.array_equal(a, np.asarray(getattr(card, field))),
+                     f"torch rung vs cuda rung: {field} differs")
+        need(rsvc.stats.resident_scatters == 5,
+             f"{rsvc.stats.resident_scatters} scatters in 5 churned ticks")
+        for arm in (rsvc, csvc):
+            need(arm.stats.fallbacks == 0 and arm.stats.device_failures == 0,
+                 "the torch rung fell back to numpy")
+        need(max(res_bytes) * 10 < min(cold_bytes),
+             f"resident arm bytes {res_bytes} vs full upload {cold_bytes}")
+        entry = next(iter(rsvc._resident._entries.values()))
+        n_rows = int(inputs.pod_requests.shape[0])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = S.run_batched(entry.stacked, BUCKETS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        need(np.array_equal(out.assigned[0].cpu().numpy()[:n_rows],
+                            np.asarray(card.assigned)),
+             "run_batched under sync debug mode differs")
+        report(f"torch rung on the card, 5 churned ticks: resident == not "
+               f"resident == cuda rung on all five outputs; host->device "
+               f"bytes per tick resident {res_bytes} (scatters of "
+               f"{changed} changed rows) vs full upload {cold_bytes}; the "
+               f"batched program ran under set_sync_debug_mode('error')")
+    finally:
+        rsvc.close()
+        csvc.close()
+
+
+def _service_numpy_and_ladder(torch, TB, TF, S, GaugeRegistry, inputs,
+                              host_inputs):
+    """Sub-phase 5: the numpy rung with its C helper at the main path, and
+    the FSM under a solver.dispatch error plan: each failure raises to
+    the caller (never a numpy answer on the card), the FSM trips and
+    short-circuits with SolverDeviceError, and the probe heals it."""
+    from karpenter_tpu_torch import faults, native
+
+    lib = native.load_kbinpack()
+    need(lib is not None, "the numpy rung's C helper did not build or load")
+    print(f"numpy rung C helper loaded: {lib._name}")
+    direct = TB.solve(inputs, buckets=BUCKETS, backend="cuda")
+    out = TB.solve(host_inputs, buckets=BUCKETS, backend="numpy")
+    n_lp = _service_outputs_equal(out, direct, inputs, "numpy rung vs cuda")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        TB.solve(host_inputs, buckets=BUCKETS, backend="numpy")
+        times.append((time.perf_counter() - t0) * 1e3)
+    report(f"numpy rung (C helper) at {MAIN_SHAPE}: == cuda rung (lp_bound "
+           f"mismatches {n_lp}); p50={np.percentile(times, 50)}ms (host "
+           f"clock, 5 solves)")
+    now = [1000.0]
+    fsvc = S.SolverService(registry=GaugeRegistry(), clock=lambda: now[0],
+                           health_failure_threshold=3,
+                           health_probe_interval_s=30.0)
+    raised = []
+    try:
+        with faults.injected_faults(seed=5) as reg:
+            reg.plan("solver.dispatch", mode="error")
+            for i in range(4):
+                try:
+                    fsvc.solve(host_inputs, buckets=BUCKETS)
+                except (faults.FaultInjected, S.SolverDeviceError) as exc:
+                    raised.append(type(exc).__name__)
+                else:
+                    need(False, f"request {i} under the error plan answered")
+            need(raised == ["FaultInjected"] * 3 + ["SolverDeviceError"],
+                 f"under the error plan the requests raised {raised}")
+            need(fsvc.backend_health() == "degraded", "the FSM did not trip")
+            need(fsvc.stats.fsm_short_circuits == 1, "no short circuit")
+            need(fsvc.stats.fallbacks == 0, "a numpy answer on the card")
+        now[0] += 31.0
+        TF.reset_launch_counts()
+        got = fsvc.solve(host_inputs, buckets=BUCKETS)
+        need(fsvc.backend_health() == "healthy", "the probe did not heal")
+        need(TF.LAUNCHES == {"fused_assign": 1, "shelf_bfd": 1},
+             f"the probe launched {TF.LAUNCHES}")
+        _service_outputs_equal(got, direct, inputs, "probe answer")
+        need(fsvc.stats.fallbacks == 0, "a numpy answer on the card")
+        print(f"ladder: solver.dispatch error plan -> the requests raised "
+              f"{raised} ({fsvc.stats.device_failures} device failures, FSM "
+              f"degraded after {fsvc.health_failure_threshold}, "
+              f"{fsvc.stats.fsm_short_circuits} short-circuited, "
+              f"{fsvc.stats.fallbacks} numpy answers); plan cleared, probe "
+              f"clock +31 s -> healthy ({fsvc.stats.fsm_recoveries} "
+              f"recovery), the probe ran both kernels and == the direct "
+              f"solve")
+    finally:
+        fsvc.close()
+
+
+def phase_service(torch, TB, TF, workloads, inputs, host_inputs, reconcile):
+    """Phase 10: the shared solve service on the card."""
+    from karpenter_tpu_torch.metrics.producers import pendingcapacity as PC
+    from karpenter_tpu_torch.metrics.registry import GaugeRegistry
+    from karpenter_tpu_torch.solver import service as S
+
+    svc = S.SolverService(registry=GaugeRegistry())
+    try:
+        need(svc.device.type == "cuda", f"default service on {svc.device}")
+        main = _service_main_path(torch, TB, TF, svc, inputs, host_inputs)
+        cluster = _service_reconcile(torch, TB, TF, PC, workloads, svc,
+                                     reconcile)
+        _service_coalescing(torch, TB, S, GaugeRegistry, cluster)
+        _service_torch_rung(torch, S, GaugeRegistry, workloads, cluster, svc)
+        _service_numpy_and_ladder(torch, TB, TF, S, GaugeRegistry, inputs,
+                                  host_inputs)
+        svc.publish_gauges()
+        fallback = svc.registry.gauge("solver", "fallback_total").get("-", "-")
+        need(svc.stats.fallbacks == 0 and not fallback,
+             f"service fallbacks {svc.stats.fallbacks} / {fallback}")
+        need(svc.backend_health() == "healthy", "service not healthy")
+        need(svc.stats.device_failures == 0, "service device failures")
+        need(not any(k.startswith("shard") for k in vars(svc.stats)),
+             "a shard count exists")
+        need(not any("shard" in name
+                     for name in svc.registry._gauges.get("solver", {})),
+             "a shard gauge is registered")
+        print(f"service: {svc.stats.requests} requests, "
+              f"{svc.stats.dispatches} dispatches, fallback_total 0, health "
+              f"{svc.backend_health()}, no shard route")
+        return main
+    finally:
+        svc.close()
 
 
 def profile_solves(torch, TB, inputs, n=ITERS):
@@ -935,7 +1399,8 @@ def device_ms(profile, wrapper):
     return sum(us for us, _ in hits) / 1e3, sum(c for _, c in hits)
 
 
-def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile):
+def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
+                   service):
     """Per-kernel JSON records at the main path's shapes. `ms` is device
     time per launch from the profiler's rows of the kernel's own names
     (the fused row sums its two kernels); `call_ms` is the wrapper's time
@@ -946,7 +1411,11 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile):
     profiler shows none of a wrapper's kernels: `ms` never holds a host
     time. `reconcile_launches` is the wrapper's count over phase 9's first
     reconcile tick, `reconcile_ms` its device time per launch there (the
-    fused kernel's generic instance at R = 4)."""
+    fused kernel's generic instance at R = 4). `service_launches` is the
+    wrapper's count over phase 10's one main-path request through
+    SolverService(), `service_ms` its device time per launch there and
+    `service_instance` the fused instance that ran (the cuda rung does not
+    pad, so R = 3 takes the narrow one)."""
     from karpenter_tpu_torch.ops.fused_assign import _packed
 
     pods, n_res = inputs.pod_requests.shape
@@ -1010,6 +1479,11 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile):
             "reconcile_launches": reconcile["launches"][name],
             "reconcile_ms": reconcile[
                 "fused_ms" if name == "fused_assign" else "shelf_ms"],
+            "service_launches": service["launches"][name],
+            "service_ms": service[
+                "fused_ms" if name == "fused_assign" else "shelf_ms"],
+            "service_instance": (service["instance"]
+                                 if name == "fused_assign" else None),
             "max_abs_err": err,
             "ms": ms,
             "call_ms": call_ms,
@@ -1056,6 +1530,8 @@ def main() -> int:
     t0 = time.perf_counter()
     fields = workloads.build_inputs(**MAIN_SHAPE)
     inputs = TB.inputs_from_numpy(fields, "cuda")
+    # the same problem as the host arrays a service caller hands over
+    host_inputs = TB.BinPackInputs(**fields)
     torch.cuda.synchronize()
     print(f"main path inputs {MAIN_SHAPE}: {time.perf_counter() - t0} s")
 
@@ -1077,6 +1553,9 @@ def main() -> int:
         ("fused tick", lambda: phase_fused_tick(torch, FT, M, workloads)),
         ("reconcile tick",
          lambda: phase_reconcile(torch, TB, TF, workloads)),
+        ("solve service", lambda: phase_service(
+            torch, TB, TF, workloads, inputs, host_inputs,
+            results["reconcile tick"])),
     ]
     for name, run in phases:
         try:
@@ -1094,7 +1573,8 @@ def main() -> int:
     _, launches = results["main path"]
     profile = profile_solves(torch, TB, inputs)
     records = kernel_records(torch, TB, TF, inputs, launches, profile,
-                             results["reconcile tick"])
+                             results["reconcile tick"],
+                             results["solve service"])
     print(f"card: {CARD['line']}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

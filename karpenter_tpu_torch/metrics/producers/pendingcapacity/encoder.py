@@ -7,8 +7,8 @@ The port's copy of karpenter_tpu/metrics/producers/pendingcapacity/
 encoder.py. Its output is the port's ops/binpack.BinPackInputs holding
 NUMPY arrays, byte for byte the reference's: `solve` makes them
 resident on the device by object identity, so an encoded inputs object
-is never mutated after it is returned. The reference's fault-injection
-points (encoder.encode, constraints.mask) are not carried over."""
+is never mutated after it is returned. Its fault-injection points
+(encoder.encode, constraints.mask) fire through the port's faults/."""
 
 from __future__ import annotations
 
@@ -81,10 +81,18 @@ def _constraints_admitted() -> bool:
     THIS tick encodes unconstrained (the never-block fallback); the
     breaker turns a persistently failing compile into cheap
     short-circuits and grants one probe per reset window, so clearing
-    the fault restores the constrained fixed point. The port has no
-    fault registry yet, so admission fails only through the breaker."""
+    the fault restores the constrained fixed point."""
+    from karpenter_tpu_torch.faults import inject
+
     if not _constraint_breaker.allow():
         constraint_stats["short_circuits"] += 1
+        constraint_stats["fallbacks"] += 1
+        constraint_stats["degraded"] = True
+        return False
+    try:
+        inject("constraints.mask")
+    except Exception as e:
+        _constraint_breaker.record_failure(type(e).__name__)
         constraint_stats["fallbacks"] += 1
         constraint_stats["degraded"] = True
         return False
@@ -1050,6 +1058,12 @@ def _encode_from_cache(
     """THE encode seam (public face: pendingcapacity.encode_snapshot):
     delta-accelerated when the process-default SnapshotDeltaCache has a
     matching entry, bit-identical to _encode_full always."""
+    # injection point (faults/registry.py): a failed encode is a
+    # producer-reconcile failure — row-isolated by solve_pending, then
+    # ridden down the engine's retryable-backoff ladder
+    from karpenter_tpu_torch.faults import inject
+
+    inject("encoder.encode")
     return _default_delta.encode(
         snap, profiles, with_rows=with_rows, census=census,
         constraints=constraints,

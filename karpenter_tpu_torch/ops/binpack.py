@@ -483,11 +483,21 @@ def solve(
 ) -> BinPackOutputs:
     """Backend dispatcher. 'cuda': the fused assignment kernel plus the
     shelf kernel (ops/fused_assign.py); 'torch': this module's plain
-    program; 'auto': 'cuda' on the card, 'torch' on the CPU. The device
-    defaults to the CUDA card and raises when there is none; the CPU runs
-    only when asked for (device='cpu'), and there only 'torch' exists.
-    Fields may be tensors or numpy arrays; they are made resident on the
-    device by object identity (see _device_resident)."""
+    program; 'numpy': the host program (ops/numpy_binpack.py), which
+    touches no device, ignores `device` and returns numpy arrays; 'auto':
+    'cuda' on the card, 'torch' on the CPU. The device defaults to the
+    CUDA card and raises when there is none; the CPU runs only when asked
+    for (device='cpu'), and there only 'torch' exists. Fields may be
+    tensors or numpy arrays; they are made resident on the device by
+    object identity (see _device_resident).
+
+    This is the kernel-level entry; production callers submit through
+    the shared solve service (karpenter_tpu_torch/solver: coalescing,
+    shape bucketing, backpressure) rather than calling here directly."""
+    if backend == "numpy":
+        from karpenter_tpu_torch.ops.numpy_binpack import binpack_numpy
+
+        return binpack_numpy(inputs, buckets=buckets)
     dev = resolve_device(device)
     if backend == "auto":
         backend = "cuda" if dev.type == "cuda" else "torch"

@@ -1,0 +1,1799 @@
+"""Shared solve service: one amortized device pipeline for every caller.
+
+The port's copy of karpenter_tpu/solver/service.py: the bin-pack and
+decide families with the numpy floor rung. Every bin-pack caller — the
+pendingCapacity batch solve, and later simulate and the sidecar — goes
+through this single in-process front door, which turns independent calls
+into one production pipeline:
+
+  submit → coalesce → pad → dispatch → scatter
+
+  * ADAPTIVE COALESCING QUEUE: requests arriving within a gather window
+    are batched, grouped by compatibility key, and same-key requests on
+    the `torch` rung ride ONE batched dispatch (a loop over the stacked
+    operands' batch axis — each item runs the same per-item program as
+    a direct solve(backend="torch"), so results match direct calls
+    element for element). The window is LOAD-ADAPTIVE: an idle queue
+    dispatches immediately (a lone reconcile tick pays no batching-timer
+    tax), and the window widens to `window_s` only while recent traffic
+    was actually concurrent.
+  * PIPELINED DISPATCH: the worker double-buffers device work — while
+    batch k computes on device, batch k+1 is gathered, padded, stacked,
+    and dispatched, and only then is batch k's host-side fetch/crop
+    paid. The torch rung's program makes no host sync between dispatch
+    and drain; the drain waits on a CUDA event recorded after the
+    dispatch, so it waits for its own batch only.
+  * SHAPE BUCKETING (torch rung): operands are padded up the
+    power-of-two-ish ladder (solver/bucketing.py) so that requests of
+    nearby sizes stack into one batch; the dispatch key is (shape
+    bucket, batch bucket, buckets, operand presence, backend). Nothing
+    is compiled per key: the compile-cache counters count FIRST-SEEN
+    dispatch keys (the first launch of a key pays lazy CUDA module
+    loading and the caching allocator's growth, and earns the
+    watchdog's grace), under the reference's metric names. The cuda
+    rung does not pad (its kernels take any shape).
+  * BACKPRESSURE + DEADLINES: the queue is bounded; each request
+    carries a deadline.
+  * BACKEND HEALTH FSM + WATCHDOG: after `health_failure_threshold`
+    CONSECUTIVE device failures the service trips to DEGRADED: requests
+    get no device attempt, and one probe dispatch per
+    `health_probe_interval_s` rides the device path — a probe success
+    flips back to HEALTHY. Separately, a watchdog (enabled by
+    `watchdog_timeout_s` > 0) detects a worker HUNG inside a device
+    call, restarts the worker thread (generation-stamped; the stale
+    thread's late results are discarded) and answers the stuck
+    requests. Both export karpenter_resilience_* metrics.
+  * METRICS: queue depth, coalesce factor, first-seen keys,
+    rejections/expiries/fallbacks, and per-stage latency percentiles,
+    registered through the same GaugeRegistry the runtime serves on
+    /metrics (subsystem "solver"), under the reference's names (less
+    the shard route's gauge, which comes with that route).
+
+Who answers when the device path cannot. On the CPU (device="cpu") the
+reference's never-block ladder holds: a full queue, an expired deadline
+(on_timeout="fallback"), a device-path failure, a hang and a degraded
+FSM are each answered from the numpy rung, counted in fallback_total.
+On the card the service never answers from numpy unless the caller
+named backend="numpy": a full queue raises SolverSaturated, an expired
+deadline SolverTimeout, a failed launch its own error, a hang or a
+degraded FSM SolverDeviceError — a kernel that fails is never hidden
+behind the host program. A real CUDA fault (an illegal address, a
+device-side assert) is sticky for the process's CUDA context: every
+later launch fails too, so the FSM's probe cannot heal it; the service
+keeps raising until the process restarts. Faults the probe heals are
+the transient ones (an injected plan, a failed allocation).
+
+Rungs. The reference resolves `auto` from JAX's platform; the port from
+the service's `device=`, which defaults to the CUDA card (raising
+without one — the CPU runs only when asked for, device="cpu"):
+
+  * `cuda` (auto on the card; the reference's `pallas`): per request,
+    ops/binpack.solve(backend="cuda") on the request's own operands —
+    no padding; solve keeps host operands resident on the card by
+    object identity — which launches both hand-written CUDA kernels;
+    synchronised inside the supervised device section; one
+    device->host copy. The kernels are built and loaded when a service
+    whose rung resolves to `cuda` is constructed (or a request first
+    names the rung), on the caller's thread, outside any supervised
+    section: a build or load failure raises.
+  * `torch` (the reference's `xla`): the coalesced, pipelined batch of
+    the plain program, with the device-resident fleet state.
+  * `numpy` (auto on the CPU): the host program (ops/numpy_binpack.py),
+    with no padding.
+
+The service holds no DOMAIN state — results are a pure function of each
+request — but it does own one derived cache: the DEVICE-RESIDENT fleet
+state (solver/resident.py). Singleton torch-rung dispatches keep their
+padded operand stack resident on device, keyed by the host inputs
+object's identity: an unchanged fleet re-dispatches with zero host
+encode and zero upload, and a delta-encoded successor (the encoder's
+SnapshotDeltaCache publishes the changed-row plan) applies as a row
+scatter instead of a full re-upload.
+
+Left out of this slice (each comes with its own): the shard route, the
+consolidate/forecast/preempt/cost/poolgroup/sim/fused-tick families,
+the introspection plane and decision provenance.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import threading
+import time as _time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from karpenter_tpu_torch.faults import inject
+from karpenter_tpu_torch.metrics.registry import GaugeRegistry, default_registry
+from karpenter_tpu_torch.observability import (
+    default_flight_recorder,
+    default_tracer,
+    solver_trace,
+)
+from karpenter_tpu_torch.ops.binpack import (
+    DEFAULT_BUCKETS,
+    BinPackInputs,
+    BinPackOutputs,
+    _as_field,
+    has_constraint_operands,
+)
+from karpenter_tpu_torch.solver.bucketing import (
+    bucket_shape,
+    bucket_up,
+    constraint_shape,
+    crop_outputs,
+    pad_to_bucket,
+    presence,
+)
+from karpenter_tpu_torch.utils.device import DeviceLike, resolve_device
+from karpenter_tpu_torch.utils.log import logger
+
+SUBSYSTEM = "solver"
+
+QUEUE_DEPTH = "queue_depth"
+COALESCE_FACTOR = "coalesce_factor"
+REQUESTS_TOTAL = "requests_total"
+DISPATCH_TOTAL = "dispatch_total"
+COMPILE_CACHE_HITS = "compile_cache_hits_total"
+COMPILE_CACHE_MISSES = "compile_cache_misses_total"
+FALLBACK_TOTAL = "fallback_total"
+REJECTED_TOTAL = "rejected_total"
+DEADLINE_EXPIRED_TOTAL = "deadline_expired_total"
+STAGE_P50_MS = "stage_p50_ms"
+STAGE_P99_MS = "stage_p99_ms"
+STAGE_SECONDS = "stage_seconds"
+COALESCE_BATCH_SIZE = "coalesce_batch_size"
+WINDOW_MS = "window_ms"
+PIPELINE_DEPTH = "pipeline_depth"
+UPLOAD_MS = "upload_ms"
+# device-resident fleet state (solver/resident.py)
+RESIDENT_BYTES = "resident_bytes"
+RESIDENT_ROWS = "resident_rows"
+RESIDENT_SCATTER_MS = "resident_scatter_ms"
+RESIDENT_REBUILDS = "resident_rebuilds_total"
+# boot-time pre-warm
+PREWARM_COMPILES = "prewarm_compiles_total"
+PREWARM_MS = "prewarm_ms"
+# device programs the last reconcile tick paid (note_tick)
+DISPATCHES_PER_TICK = "dispatches_per_tick"
+
+# A lone coalesced batch splits into pipeline_depth+1 chunked dispatches
+# (so the double buffer has something to overlap) only at or above this
+# size — smaller batches aren't worth a second dispatch's fixed cost, and
+# 2-request batches must keep riding one dispatch.
+_PIPELINE_SPLIT_MIN = 4
+
+# Backend health FSM states (karpenter_resilience_solver_backend_state)
+HEALTHY = "healthy"
+DEGRADED = "degraded"
+
+# Extra watchdog headroom for a dispatch whose key MISSED the cache: the
+# first launch of a key pays lazy CUDA module loading and library
+# handles (the reference's reason, a first XLA compile, is larger), and
+# a restart mid-first-launch would loop. Cache hits get the bare
+# watchdog_timeout_s. Kernel BUILDS never run under the watchdog.
+COMPILE_GRACE_S = 120.0
+
+_STAGE_WINDOW = 256  # per-stage latency ring size (fleet-scale constant)
+# native-histogram ladders: stage latencies run from sub-ms host work to
+# seconds-long first launches; coalesce batch sizes follow the
+# power-of-two batch ladder
+_STAGE_BUCKETS = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+    0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 30.0,
+)
+_COALESCE_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+# Adaptive-window load tracking: EWMA of gathered batch sizes. Below the
+# threshold the queue is treated as idle (dispatch immediately); at or
+# above it the full window holds so concurrent bursts keep coalescing.
+_LOAD_ALPHA = 0.5
+_LOAD_IDLE = 1.5
+
+BACKENDS = ("cuda", "torch", "numpy")
+
+_OUTPUT_FIELDS = (
+    "assigned", "assigned_count", "nodes_needed", "lp_bound", "unschedulable"
+)
+
+
+class SolverSaturated(RuntimeError):
+    """The bounded request queue is full (backpressure signal)."""
+
+
+class SolverTimeout(TimeoutError):
+    """A request's deadline expired before the device path answered."""
+
+
+class SolverDeviceError(RuntimeError):
+    """The card's device path hung or is degraded (health FSM tripped):
+    on the card the service raises this where the CPU service would
+    answer from numpy."""
+
+
+@dataclass
+class SolverStatistics:
+    """Plain-int mirror of the service counters (tests and callers read
+    these directly; the registry carries the same values for /metrics).
+    The reference's fields for the families this slice leaves out are
+    absent; `upload_bytes` is the port's own."""
+
+    requests: int = 0
+    dispatches: int = 0
+    coalesced_batches: int = 0
+    compile_cache_hits: int = 0
+    compile_cache_misses: int = 0
+    fallbacks: int = 0
+    rejected: int = 0
+    deadline_expired: int = 0
+    last_coalesce_factor: int = 0
+    immediate_dispatches: int = 0  # idle-queue batches that skipped the window
+    pipeline_overlaps: int = 0  # dispatches issued while another was in flight
+    decide_calls: int = 0
+    decide_errors: int = 0
+    # cuda-resolved requests carrying constraint operands rerouted to the
+    # torch rung (the fused kernel has no constraint entry — counted,
+    # never silently dropped)
+    constraint_reroutes: int = 0
+    last_dispatches_per_tick: int = 0  # note_tick() delta (the gauge)
+    # device-resident fleet state (solver/resident.py)
+    resident_hits: int = 0  # dispatches served from resident buffers as-is
+    resident_scatters: int = 0  # dispatches served via a changed-row scatter
+    resident_rebuilds: int = 0  # full uploads (re)establishing residency
+    resident_drops: int = 0  # wholesale discards (ladder / recovery boot)
+    pipeline_splits: int = 0  # lone batches chunked so the pipeline overlaps
+    # host bytes sent to the device: full uploads plus resident scatters'
+    # index vectors and update blocks
+    upload_bytes: int = 0
+    # backend health FSM + watchdog
+    device_failures: int = 0  # total device-path failures (any rung)
+    fsm_trips: int = 0  # healthy -> degraded transitions
+    fsm_recoveries: int = 0  # degraded -> healthy transitions
+    fsm_probes: int = 0  # device probes granted while degraded
+    fsm_short_circuits: int = 0  # batches routed to numpy with no attempt
+    watchdog_restarts: int = 0  # hung-worker restarts
+
+
+@dataclass
+class _Request:
+    inputs: BinPackInputs
+    buckets: int
+    backend: str
+    key: tuple
+    n_pods: int
+    n_groups: int
+    deadline: Optional[float]
+    enqueued_at: float
+    event: threading.Event = field(default_factory=threading.Event)
+    result: Optional[object] = None
+    error: Optional[BaseException] = None
+    abandoned: bool = False
+    # reconcile-trace span opened at submit (observability.tracing):
+    # covers queue wait through completion; the coalesced dispatch span
+    # LINKS it, and the FSM-trip flight-recorder event backlinks its
+    # trace id. None with tracing disabled.
+    span: Optional[object] = None
+    # tenant id the submitter stamped, carried into the span args
+    tenant: Optional[str] = None
+    _finish_lock: threading.Lock = field(
+        default_factory=threading.Lock, repr=False
+    )
+
+    def trace_id(self) -> Optional[str]:
+        return self.span.trace_id if self.span is not None else None
+
+    def finish(self, result=None, error=None, degraded: bool = False) -> bool:
+        """First finisher wins (idempotent): the watchdog may answer a
+        stuck request while the stale worker later unwedges and tries to
+        answer it too — the caller must see exactly one result.
+        `degraded` marks the span of a request the ladder answered from
+        numpy AFTER a device failure/hang."""
+        with self._finish_lock:
+            if self.event.is_set():
+                return False
+            self.result = result
+            self.error = error
+            self.event.set()
+            if self.span is not None:
+                self.span.close(
+                    ok=error is None, degraded=degraded or None
+                )
+            return True
+
+
+class SolveFuture:
+    """Handle returned by submit(); result() blocks with a deadline."""
+
+    def __init__(self, request: _Request, service: "SolverService"):
+        self._request = request
+        self._service = service
+
+    def result(self, timeout: Optional[float] = None):
+        req = self._request
+        if not req.event.wait(timeout):
+            req.abandoned = True  # the worker will skip it
+            self._service._on_expired(req)
+            raise SolverTimeout(
+                f"solve deadline expired after {timeout}s "
+                f"(queue depth {self._service.queue_depth()})"
+            )
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+
+class SolverService:
+    """Long-lived in-process solve service (module docstring).
+
+    `device` is where the device rungs run: the CUDA card by default
+    (raising without one), the CPU only when named. `device_solver`
+    overrides the in-process device path with any (inputs, buckets=...,
+    backend=...) -> BinPackOutputs callable — a fault injector in tests,
+    or a remote solver. With an override the worker dispatches requests
+    individually, but queueing, deadlines, backpressure, fallback, and
+    metrics still apply. `decider` seams the HPA decision program the
+    same way.
+    """
+
+    def __init__(
+        self,
+        registry: Optional[GaugeRegistry] = None,
+        *,
+        window_s: float = 0.002,
+        adaptive_window: bool = True,
+        pipeline_depth: int = 1,
+        max_queue: int = 64,
+        max_batch: int = 8,
+        default_timeout_s: float = 30.0,
+        backend: str = "auto",
+        on_timeout: Optional[str] = None,  # "fallback" (CPU only) | "raise"
+        device_solver: Optional[Callable] = None,
+        decider: Optional[Callable] = None,
+        clock: Callable[[], float] = _time.monotonic,
+        health_failure_threshold: int = 3,
+        health_probe_interval_s: float = 5.0,
+        watchdog_timeout_s: float = 0.0,  # 0 = watchdog disabled
+        resident: bool = True,
+        device: DeviceLike = None,
+    ):
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        # the never-block ladder (module docstring) answers from numpy on
+        # the CPU only: on the card a failure reaches the caller
+        self._numpy_ladder = dev.type != "cuda"
+        if on_timeout is None:
+            on_timeout = "fallback" if self._numpy_ladder else "raise"
+        if on_timeout not in ("fallback", "raise"):
+            raise ValueError(f"on_timeout must be fallback|raise, got {on_timeout!r}")
+        if on_timeout == "fallback" and not self._numpy_ladder:
+            raise ValueError(
+                "on_timeout='fallback' answers from numpy, which the card's "
+                "service never does; use 'raise'"
+            )
+        self.registry = registry if registry is not None else default_registry()
+        # window_s is the MAX gather window: with adaptive_window an idle
+        # queue dispatches immediately and only concurrent traffic waits
+        # the window out; adaptive_window=False pins the fixed window
+        self.window_s = window_s
+        self.adaptive_window = adaptive_window
+        # how many dispatched-but-unfetched batches may be in flight (1 =
+        # double buffering: host scatter of batch k overlaps device
+        # compute of batch k+1); 0 disables pipelining
+        self.pipeline_depth = pipeline_depth
+        self.max_queue = max_queue
+        self.max_batch = max_batch
+        self.default_timeout_s = default_timeout_s
+        self.backend = backend
+        self.on_timeout = on_timeout
+        self.device_solver = device_solver
+        self._decider = decider
+        self._clock = clock
+        self.stats = SolverStatistics()
+        self._queue: collections.deque = collections.deque()
+        self._cond = threading.Condition()
+        self._worker: Optional[threading.Thread] = None
+        self._closed = False
+        # dispatch keys seen so far (_count_key)
+        self._compile_seen: set = set()
+        # kernel families already pre-warmed (prewarm; reset_caches re-arms)
+        self._prewarmed: set = set()
+        self._kernels_ready = False
+        self._kernel_lock = threading.Lock()
+        self._stages: Dict[str, collections.deque] = {}
+        self._stage_lock = threading.Lock()
+        # worker-only state: batch-size EWMA (adaptive window), in-flight
+        # dispatches (pipeline), and the gauges mirroring both
+        self._load = 0.0
+        self._window_now_s = 0.0 if adaptive_window else window_s
+        self._inflight: collections.deque = collections.deque()
+        self._last_pipeline_depth = 0
+        # device-resident fleet state (solver/resident.py): singleton
+        # torch-rung dispatches keep their operand stack on device and
+        # churn applies as row scatters. `resident=False` pins the
+        # upload-every-dispatch path.
+        self.resident_enabled = resident
+        from karpenter_tpu_torch.solver.resident import ResidentFleetState
+
+        self._resident = ResidentFleetState()
+        # backend health FSM (module docstring)
+        self.health_failure_threshold = health_failure_threshold
+        self.health_probe_interval_s = health_probe_interval_s
+        self.watchdog_timeout_s = watchdog_timeout_s
+        self._health_lock = threading.Lock()
+        self._health = HEALTHY
+        self._consec_device_failures = 0
+        self._next_probe = 0.0
+        # watchdog: generation-stamped worker threads; a restart bumps
+        # the generation and the superseded thread discards its results
+        self._worker_gen = 0
+        self._watchdog: Optional[threading.Thread] = None
+        self._busy_since: Optional[float] = None
+        self._busy_requests: List[_Request] = []
+        # the FULL batch the worker is currently processing (already
+        # popped from the queue): on a watchdog restart, groups not yet
+        # dispatched live only here and must be drained too
+        self._current_batch: List[_Request] = []
+        self._tls = threading.local()
+        # per-tick dispatch accounting (note_tick)
+        self._tick_dispatch_mark = 0
+        self._register_metrics()
+        if self._resolve_backend(None) == "cuda":
+            self._ensure_kernels()
+
+    # -- metrics ----------------------------------------------------------
+
+    def _register_metrics(self) -> None:
+        reg = self.registry.register
+        self._g_queue = reg(SUBSYSTEM, QUEUE_DEPTH)
+        self._g_coalesce = reg(SUBSYSTEM, COALESCE_FACTOR)
+        self._c_requests = reg(SUBSYSTEM, REQUESTS_TOTAL, kind="counter")
+        self._c_dispatch = reg(SUBSYSTEM, DISPATCH_TOTAL, kind="counter")
+        self._c_hits = reg(SUBSYSTEM, COMPILE_CACHE_HITS, kind="counter")
+        self._c_misses = reg(SUBSYSTEM, COMPILE_CACHE_MISSES, kind="counter")
+        self._c_fallback = reg(SUBSYSTEM, FALLBACK_TOTAL, kind="counter")
+        self._c_rejected = reg(SUBSYSTEM, REJECTED_TOTAL, kind="counter")
+        self._c_expired = reg(
+            SUBSYSTEM, DEADLINE_EXPIRED_TOTAL, kind="counter"
+        )
+        self._g_stage_p50 = reg(SUBSYSTEM, STAGE_P50_MS)
+        self._g_stage_p99 = reg(SUBSYSTEM, STAGE_P99_MS)
+        # native histograms: the stage rings as bucketed distributions
+        # {name=<stage>}, and the coalesce factor as a batch-size histogram
+        self._h_stage = reg(
+            SUBSYSTEM, STAGE_SECONDS, kind="histogram",
+            buckets=_STAGE_BUCKETS,
+        )
+        self._h_coalesce = reg(
+            SUBSYSTEM, COALESCE_BATCH_SIZE, kind="histogram",
+            buckets=_COALESCE_BUCKETS,
+        )
+        self._g_window = reg(SUBSYSTEM, WINDOW_MS)
+        self._g_pipeline = reg(SUBSYSTEM, PIPELINE_DEPTH)
+        # host->device transfer p50 of recent dispatches; also present
+        # per-dispatch under stage_p50_ms{upload}
+        self._g_upload = reg(SUBSYSTEM, UPLOAD_MS)
+        # device-resident fleet state: bytes/rows currently resident, the
+        # last scatter's wall time, and how often residency had to
+        # rebuild from a full upload
+        self._g_resident_bytes = reg(SUBSYSTEM, RESIDENT_BYTES)
+        self._g_resident_rows = reg(SUBSYSTEM, RESIDENT_ROWS)
+        self._g_resident_scatter = reg(SUBSYSTEM, RESIDENT_SCATTER_MS)
+        self._c_resident_rebuilds = reg(
+            SUBSYSTEM, RESIDENT_REBUILDS, kind="counter"
+        )
+        # boot-time pre-warm: families warmed {name=<family>} and the
+        # wall cost of each family's warm dispatch
+        self._c_prewarm = reg(SUBSYSTEM, PREWARM_COMPILES, kind="counter")
+        self._g_prewarm_ms = reg(SUBSYSTEM, PREWARM_MS)
+        # device programs per reconcile tick (note_tick)
+        self._g_dispatches_tick = reg(SUBSYSTEM, DISPATCHES_PER_TICK)
+        # degradation-ladder surface: FSM state (0 healthy / 1 degraded)
+        # + transition and watchdog counters
+        self._g_backend_state = reg("resilience", "solver_backend_state")
+        self._g_backend_state.set("-", "-", 0.0)
+        self._c_trips = reg(
+            "resilience", "solver_trips_total", kind="counter"
+        )
+        self._c_probes = reg(
+            "resilience", "solver_probes_total", kind="counter"
+        )
+        self._c_recoveries = reg(
+            "resilience", "solver_recoveries_total", kind="counter"
+        )
+        self._c_watchdog = reg(
+            "resilience", "solver_watchdog_restarts_total", kind="counter"
+        )
+
+    def _record_stage(self, stage: str, seconds: float) -> None:
+        ms = seconds * 1e3
+        with self._stage_lock:
+            ring = self._stages.get(stage)
+            if ring is None:
+                ring = self._stages[stage] = collections.deque(
+                    maxlen=_STAGE_WINDOW
+                )
+            ring.append(ms)
+        self._h_stage.observe(stage, "-", seconds)
+
+    def publish_gauges(self) -> None:
+        """Refresh the point-in-time gauges (queue depth, coalesce
+        factor, per-stage latency percentiles). Counters are incremented
+        at event time and need no refresh."""
+        self._g_queue.set("-", "-", float(self.queue_depth()))
+        self._g_coalesce.set(
+            "-", "-", float(self.stats.last_coalesce_factor)
+        )
+        # the EFFECTIVE window of the last gather (0 on an idle queue,
+        # window_s under concurrency) and the in-flight depth of the
+        # last dispatch
+        self._g_window.set("-", "-", self._window_now_s * 1e3)
+        self._g_pipeline.set("-", "-", float(self._last_pipeline_depth))
+        self._g_resident_bytes.set(
+            "-", "-", float(self._resident.resident_bytes())
+        )
+        self._g_resident_rows.set(
+            "-", "-", float(self._resident.resident_rows())
+        )
+        with self._stage_lock:
+            snapshot = {k: list(v) for k, v in self._stages.items()}
+        uploads = snapshot.get("upload")
+        if uploads:
+            self._g_upload.set(
+                "-", "-", float(np.percentile(uploads, 50))
+            )
+        for stage, samples in snapshot.items():
+            if samples:
+                self._g_stage_p50.set(
+                    stage, "-", float(np.percentile(samples, 50))
+                )
+                self._g_stage_p99.set(
+                    stage, "-", float(np.percentile(samples, 99))
+                )
+
+    def note_tick(self) -> None:
+        """Per-tick dispatch accounting behind the
+        karpenter_solver_dispatches_per_tick gauge: called once at the
+        end of every reconcile tick; the gauge then shows how many
+        device dispatches that tick paid."""
+        delta = self.stats.dispatches - self._tick_dispatch_mark
+        self._tick_dispatch_mark = self.stats.dispatches
+        self.stats.last_dispatches_per_tick = delta
+        self._g_dispatches_tick.set("-", "-", float(delta))
+
+    @contextlib.contextmanager
+    def track(self, stage: str):
+        """Record an arbitrary caller stage (e.g. the HA controller's
+        fleet decide) into the service's latency surface."""
+        t0 = _time.perf_counter()
+        try:
+            yield
+        finally:
+            self._record_stage(stage, _time.perf_counter() - t0)
+
+    def queue_depth(self) -> int:
+        with self._cond:
+            return len(self._queue)
+
+    def reset_caches(self) -> None:
+        """Recovery-boot seam: forget the seen dispatch keys and drop
+        every device-resident operand stack, so post-restart dispatches
+        rebuild from scratch (post-recovery encodes must not scatter
+        into pre-crash buffers). A fresh set is swapped in whole, so a
+        worker mid-lookup keeps a consistent (old) view and the next
+        lookup sees the reset. The built CUDA kernels stay loaded: they
+        are a pure function of their sources."""
+        with self._cond:
+            self._compile_seen = set()
+        self._resident.drop_all()
+        # a reset plane may legitimately want a fresh warm-up
+        self._prewarmed = set()
+
+    # -- kernels ----------------------------------------------------------
+
+    def _ensure_kernels(self) -> None:
+        """Build (nvcc, all sources at once) and load the CUDA kernels
+        the cuda rung launches, on the calling thread and outside any
+        supervised device section. A failure raises: it is a defect of
+        the build, not a device outage, and must not be served by the
+        numpy rung."""
+        if self._kernels_ready:
+            return
+        from karpenter_tpu_torch import kernels
+
+        with self._kernel_lock:  # concurrent cuda submits build once
+            if self._kernels_ready:
+                return
+            kernels.build()
+            for name in kernels.SOURCES:
+                kernels.library(name)
+            self._kernels_ready = True
+
+    # -- boot-time pre-warm -------------------------------------------------
+
+    def prewarm(self, families=("solve", "decide")) -> Dict[str, dict]:
+        """Drive one tiny REAL dispatch per named family through the
+        normal queue before the first real request arrives — same
+        bucketing, same key cache, same FSM accounting — so the first
+        touch of a small fleet (lazy CUDA module loading, library
+        handles, the caching allocator's first blocks) is paid at boot:
+
+          solve  — 1 pod x 1 group, padded up to the floor rung
+                   (256 pods x 8 groups), weight operand present;
+          decide — 1 autoscaler x 1 metric, padded to the decision
+                   program's row bucket (ops/decision.pad_to).
+
+        A family already warmed is SKIPPED (reset_caches re-arms).
+        Failures of a warm dispatch degrade, never block boot: the
+        family is reported and skipped. The CUDA kernels' build is not
+        such a failure: it runs first and raises (see _ensure_kernels)."""
+        if "solve" in families and self._resolve_backend(None) == "cuda":
+            self._ensure_kernels()
+        report: Dict[str, dict] = {}
+        for family in families:
+            if family in self._prewarmed:
+                report[family] = {"skipped": True}
+                continue
+            misses_before = self.stats.compile_cache_misses
+            t0 = _time.perf_counter()
+            try:
+                self._prewarm_dispatch(family)
+            except Exception as error:  # noqa: BLE001 — never block boot
+                logger().warning(
+                    "pre-warm for family %r failed (%s: %s); first-touch "
+                    "traffic will pay it (or degrade) instead",
+                    family, type(error).__name__, error,
+                )
+                report[family] = {
+                    "skipped": False, "error": type(error).__name__,
+                }
+                continue
+            elapsed_ms = (_time.perf_counter() - t0) * 1e3
+            self._prewarmed.add(family)
+            self._c_prewarm.inc(family, "-")
+            self._g_prewarm_ms.set(family, "-", elapsed_ms)
+            report[family] = {
+                "skipped": False,
+                "ms": round(elapsed_ms, 3),
+            }
+            if family == "solve":
+                # only the solve family counts keys in the service's
+                # cache counters; decide has no such counter, so no
+                # (meaningless) zero is reported for it
+                report[family]["fresh_compiles"] = (
+                    self.stats.compile_cache_misses - misses_before
+                )
+        return report
+
+    def _prewarm_dispatch(self, family: str) -> None:
+        """One tiny real dispatch for `family` (see prewarm)."""
+        if family == "solve":
+            self.solve(_prewarm_solve_inputs())
+            return
+        if family == "decide":
+            self.decide(_prewarm_decide_inputs())
+            return
+        raise ValueError(f"unknown pre-warm family {family!r}")
+
+    def stage_percentiles(self) -> Dict[str, Dict[str, float]]:
+        """{stage: {"p50_ms", "p99_ms", "n"}} over the retained latency
+        rings."""
+        with self._stage_lock:
+            snapshot = {k: list(v) for k, v in self._stages.items()}
+        return {
+            stage: {
+                "p50_ms": round(float(np.percentile(samples, 50)), 4),
+                "p99_ms": round(float(np.percentile(samples, 99)), 4),
+                "n": len(samples),
+            }
+            for stage, samples in snapshot.items()
+            if samples
+        }
+
+    # -- submission -------------------------------------------------------
+
+    def _resolve_backend(self, backend: Optional[str]) -> str:
+        backend = backend or self.backend
+        if self.device_solver is not None:
+            return backend  # the override owns backend semantics
+        if backend == "auto":
+            return "cuda" if self.device.type == "cuda" else "numpy"
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"unknown solver backend {backend!r} (one of {BACKENDS})"
+            )
+        if backend == "cuda" and self.device.type != "cuda":
+            raise ValueError(
+                f"backend 'cuda' needs a CUDA device, the service runs on "
+                f"{self.device}"
+            )
+        return backend
+
+    def submit(
+        self,
+        inputs: BinPackInputs,
+        buckets: int = DEFAULT_BUCKETS,
+        backend: Optional[str] = None,
+        timeout: Optional[float] = None,
+        tenant: Optional[str] = None,
+    ) -> SolveFuture:
+        """Enqueue one solve; raises SolverSaturated when the bounded
+        queue is full (solve() turns that into the numpy fallback on the
+        CPU).
+        `tenant` stamps the request's trace span."""
+        if self._closed:
+            raise RuntimeError("solver service is closed")
+        n_pods = inputs.pod_requests.shape[0]
+        n_groups = inputs.group_allocatable.shape[0]
+        resolved = self._resolve_backend(backend)
+        if resolved == "cuda" and self.device_solver is None:
+            if has_constraint_operands(inputs):
+                # the fused kernel has no constraint entry; route to the
+                # torch rung (exact, still on the card) and COUNT it
+                resolved = "torch"
+                self.stats.constraint_reroutes += 1
+            else:
+                self._ensure_kernels()
+        key = (
+            bucket_shape(inputs), buckets, resolved, presence(inputs),
+            constraint_shape(inputs),
+        )
+        timeout = self.default_timeout_s if timeout is None else timeout
+        now = self._clock()
+        request = _Request(
+            inputs=inputs,
+            buckets=buckets,
+            backend=resolved,
+            key=key,
+            n_pods=n_pods,
+            n_groups=n_groups,
+            deadline=(now + timeout) if timeout else None,
+            enqueued_at=now,
+            tenant=tenant,
+        )
+        self._enqueue_one(request)
+        return SolveFuture(request, self)
+
+    def _begin_request_span(self, request: _Request) -> None:
+        """Open the request's reconcile-trace span (parented to the
+        submitter's current span, so a tick-minted trace id follows the
+        request across the worker-thread boundary). No-op — request.span
+        stays None — when tracing is disabled."""
+        request.span = default_tracer().begin(
+            "solver.request", family="binpack", backend=request.backend,
+            tenant=request.tenant,
+        )
+
+    def _enqueue_one(self, request: _Request) -> None:
+        """Admit one request to the bounded queue (raises
+        SolverSaturated when full) and wake the worker."""
+        self._begin_request_span(request)
+        with self._cond:
+            if len(self._queue) >= self.max_queue:
+                self.stats.rejected += 1
+                self._c_rejected.inc("-", "-")
+                if request.span is not None:
+                    request.span.close(ok=False, rejected=True)
+                raise SolverSaturated(
+                    f"solver queue full ({self.max_queue})"
+                )
+            self._ensure_worker()
+            self._queue.append(request)
+            self.stats.requests += 1
+            self._c_requests.inc("-", "-")
+            self._g_queue.set("-", "-", float(len(self._queue)))
+            self._cond.notify_all()
+
+    def solve(
+        self,
+        inputs: BinPackInputs,
+        buckets: int = DEFAULT_BUCKETS,
+        backend: Optional[str] = None,
+        timeout: Optional[float] = None,
+    ):
+        """Synchronous solve through the service — the drop-in `solver`
+        seam every caller already takes (any (inputs, buckets=...) ->
+        BinPackOutputs callable; the outputs are host numpy arrays).
+        On the CPU, saturation and (by default) deadline expiry degrade
+        to the numpy backend inline, so a caller always gets an answer
+        while the device path is sick; on the card both raise."""
+        timeout = self.default_timeout_s if timeout is None else timeout
+        try:
+            future = self.submit(
+                inputs, buckets=buckets, backend=backend, timeout=timeout
+            )
+        except SolverSaturated:
+            if not self._numpy_ladder:
+                raise
+            logger().warning(
+                "solver queue saturated; degrading one request to numpy"
+            )
+            return self._numpy_fallback(inputs, buckets)
+        try:
+            return future.result(timeout if timeout else None)
+        except SolverTimeout:
+            if self.on_timeout == "raise":
+                raise
+            logger().warning(
+                "solve deadline expired; degrading one request to numpy"
+            )
+            return self._numpy_fallback(inputs, buckets)
+
+    def decide(self, inputs):
+        """The HPA decision program through the service: same metrics
+        surface and error accounting, no coalescing (the batch
+        autoscaler already evaluates the whole fleet in one call).
+        Single-card: runs the port's ops/decision.decide on the
+        service's device (numpy fields, or DecisionInputs on any
+        device, are moved there first). An injected `decider` gets the
+        inputs as given."""
+        self.stats.decide_calls += 1
+        t0 = _time.perf_counter()
+        try:
+            with default_tracer().span("solver.decide"):
+                with solver_trace("solver.decide"):
+                    return self._decide_dispatch(inputs)
+        except Exception:
+            self.stats.decide_errors += 1
+            raise
+        finally:
+            self._record_stage("decide", _time.perf_counter() - t0)
+
+    def _decide_dispatch(self, inputs):
+        if self._decider is not None:
+            return self._decider(inputs)
+        from karpenter_tpu_torch.ops import decision as D
+
+        if isinstance(inputs, D.DecisionInputs):
+            operands = inputs.to(self.device)
+        else:
+            operands = D.DecisionInputs.from_numpy(inputs, self.device)
+        return D.decide(operands)
+
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        worker = self._worker
+        if worker is not None:
+            worker.join(timeout=5.0)
+            self._worker = None
+        watchdog = self._watchdog
+        if watchdog is not None:
+            watchdog.join(timeout=2.0)
+            self._watchdog = None
+
+    # -- backend health FSM + watchdog ------------------------------------
+
+    def backend_health(self) -> str:
+        with self._health_lock:
+            return self._health
+
+    def _device_allowed(self) -> bool:
+        """Gate one batch's device attempt through the FSM: always in
+        HEALTHY; in DEGRADED only the periodic probe — everything else
+        short-circuits (_answer_failed) without billing a failed
+        dispatch."""
+        with self._health_lock:
+            if self._health == HEALTHY:
+                return True
+            now = self._clock()
+            if now >= self._next_probe:
+                # this dispatch IS the recovery probe; schedule the next
+                # one now so concurrent groups don't all probe at once
+                self._next_probe = now + self.health_probe_interval_s
+                self.stats.fsm_probes += 1
+                self._c_probes.inc("-", "-")
+                return True
+            self.stats.fsm_short_circuits += 1
+            return False
+
+    def _record_device_failure(self, requests: List[_Request] = ()) -> bool:
+        # the degradation ladder discards residency cleanly: after ANY
+        # device-path failure the resident buffers are suspect, so the
+        # next healthy dispatch re-establishes them from a full upload
+        self._resident.drop_all()
+        with self._health_lock:
+            self.stats.device_failures += 1
+            self._consec_device_failures += 1
+            tripped = (
+                self._health == HEALTHY
+                and self._consec_device_failures
+                >= self.health_failure_threshold
+            )
+            if tripped:
+                self._health = DEGRADED
+                self._next_probe = (
+                    self._clock() + self.health_probe_interval_s
+                )
+                self.stats.fsm_trips += 1
+                self._c_trips.inc("-", "-")
+                self._g_backend_state.set("-", "-", 1.0)
+        if tripped:
+            logger().warning(
+                "solver backend DEGRADED after %d consecutive device "
+                "failures; %s, probing recovery every %.1fs",
+                self._consec_device_failures,
+                "serving from numpy" if self._numpy_ladder
+                else "raising SolverDeviceError",
+                self.health_probe_interval_s,
+            )
+            # post-mortem surface: WHICH reconcile traces the trip
+            # degraded, not just that it happened
+            default_flight_recorder().record(
+                "fsm_trip",
+                trace_ids=self._trace_ids(requests),
+                subsystem="solver",
+                consecutive_failures=self._consec_device_failures,
+                requests=len(requests),
+            )
+        return tripped
+
+    @staticmethod
+    def _trace_ids(requests: List[_Request]) -> List[str]:
+        """Distinct trace ids of the requests a degradation touched
+        (insertion-ordered, deduped)."""
+        return list(dict.fromkeys(
+            tid for r in requests
+            if (tid := r.trace_id()) is not None
+        ))
+
+    def _record_device_success(self) -> None:
+        with self._health_lock:
+            self._consec_device_failures = 0
+            recovered = self._health == DEGRADED
+            if recovered:
+                self._health = HEALTHY
+                self.stats.fsm_recoveries += 1
+                self._c_recoveries.inc("-", "-")
+                self._g_backend_state.set("-", "-", 0.0)
+        if recovered:
+            logger().info(
+                "solver backend recovered; device path re-enabled"
+            )
+
+    def _stale(self) -> bool:
+        """True on a worker thread superseded by a watchdog restart: its
+        late results are discarded (the watchdog already answered its
+        requests)."""
+        gen = getattr(self._tls, "gen", None)
+        return gen is not None and gen != self._worker_gen
+
+    @contextlib.contextmanager
+    def _device_section(self, requests: List[_Request], grace: float = 0.0):
+        """Mark the worker busy inside a device call — the window the
+        watchdog supervises. A hang here never raises, so supervision
+        must come from outside the thread. `grace` shifts the busy mark
+        forward (a dispatch key's first launch gets COMPILE_GRACE_S)."""
+        with self._cond:
+            self._busy_since = self._clock() + grace
+            self._busy_requests = list(requests)
+        try:
+            yield
+        finally:
+            with self._cond:
+                if not self._stale():  # a restart already reset these
+                    self._busy_since = None
+                    self._busy_requests = []
+
+    def _watchdog_loop(self) -> None:
+        poll = max(0.05, self.watchdog_timeout_s / 4.0)
+        while not self._closed:
+            _time.sleep(poll)
+            self._watchdog_check()
+
+    def _watchdog_check(self) -> None:
+        """One supervision pass: if the worker has been inside a device
+        call longer than watchdog_timeout_s, supersede it (generation
+        bump + fresh thread) and answer every request it held — the
+        stuck batch AND the pipelined in-flight ones (_answer_failed)."""
+        stuck: List[_Request] = []
+        with self._cond:
+            busy = self._busy_since
+            if busy is None or (
+                self._clock() - busy <= self.watchdog_timeout_s
+            ):
+                return
+            # everything the superseded worker holds: the stuck device
+            # batch, pipelined in-flight batches, AND the not-yet-
+            # dispatched groups of its current batch (already popped
+            # from the queue — they live nowhere else). Dedup by
+            # identity: a request can appear in more than one list.
+            stuck.extend(self._busy_requests)
+            for _out, live, _t, _done in self._inflight:
+                stuck.extend(live)
+            stuck.extend(self._current_batch)
+            self._inflight.clear()
+            self._busy_since = None
+            self._busy_requests = []
+            self._current_batch = []
+            self.stats.watchdog_restarts += 1
+            self._c_watchdog.inc("-", "-")
+            if not self._closed:
+                self._spawn_worker()
+        stuck = list({id(r): r for r in stuck}.values())
+        logger().warning(
+            "solver worker hung in a device call > %.1fs; restarted the "
+            "worker and answering %d request(s) %s",
+            self.watchdog_timeout_s, len(stuck),
+            "from numpy" if self._numpy_ladder else "with an error",
+        )
+        recorder = default_flight_recorder()
+        # one incident, one dump: when the hang also trips the FSM, the
+        # fsm_trip auto-dump lands milliseconds later with THIS event
+        # already in the ring
+        recorder.record(
+            "watchdog_restart",
+            trace_ids=self._trace_ids(stuck),
+            subsystem="solver",
+            requests=len(stuck),
+            auto_dump=False,
+        )
+        tripped = self._record_device_failure(stuck)  # hang counts toward trip
+        if not tripped:
+            recorder.maybe_auto_dump("watchdog_restart")
+        self._answer_failed(stuck, SolverDeviceError(
+            f"solver worker hung in a device call > "
+            f"{self.watchdog_timeout_s}s"
+        ))
+
+    # -- worker -----------------------------------------------------------
+
+    def _spawn_worker(self) -> None:
+        # called under self._cond
+        self._worker_gen += 1
+        self._worker = threading.Thread(
+            target=self._run, args=(self._worker_gen,),
+            name="solver-service", daemon=True,
+        )
+        self._worker.start()
+
+    def _ensure_worker(self) -> None:
+        # called under self._cond
+        if self._worker is None or not self._worker.is_alive():
+            self._spawn_worker()
+        if self.watchdog_timeout_s > 0 and (
+            self._watchdog is None or not self._watchdog.is_alive()
+        ):
+            self._watchdog = threading.Thread(
+                target=self._watchdog_loop, name="solver-watchdog",
+                daemon=True,
+            )
+            self._watchdog.start()
+
+    def _run(self, gen: Optional[int] = None) -> None:
+        self._tls.gen = gen
+        if self.device.type == "cuda":
+            # a fresh thread starts on the process's current device;
+            # every launch of this worker belongs on the service's
+            torch.cuda.set_device(self.device)
+        while not self._stale():
+            if self._inflight:
+                # a dispatch is computing on device: gather the NEXT
+                # batch without blocking — if nothing is queued, the
+                # useful work left is fetching the in-flight results
+                batch = self._collect(block=False)
+                if batch is None:
+                    self._drain_inflight()
+                    return
+                if not batch:
+                    self._drain_one()
+                    continue
+            else:
+                batch = self._collect()
+                if batch is None:
+                    self._drain_inflight()
+                    return
+            with self._cond:
+                self._current_batch = list(batch)
+            groups: Dict[tuple, List[_Request]] = {}
+            for request in batch:
+                groups.setdefault(request.key, []).append(request)
+            # lone = this batch is one compatibility group with nothing
+            # else in flight to overlap — the shape the pipeline
+            # chunk-split exists for
+            for key, requests in groups.items():
+                self._dispatch_group(
+                    key, requests, lone=len(groups) == 1
+                )
+            with self._cond:
+                if not self._stale():  # a restart already drained it
+                    self._current_batch = []
+            if not self._queue:
+                # nothing else waiting: complete in-flight work now
+                # rather than holding a lone batch's results hostage to
+                # traffic that may never come
+                self._drain_inflight()
+            self.publish_gauges()
+
+    def _collect(self, block: bool = True) -> Optional[List[_Request]]:
+        """Gather one batch: block for the first request (block=True),
+        then hold the ADAPTIVE coalescing window open, gathering up to
+        max_batch requests. The window is 0 — dispatch immediately —
+        when the queue was empty behind the first request and recent
+        batches were singletons; it widens to window_s while traffic is
+        concurrent. None = closed+drained; [] = block=False and idle."""
+        with self._cond:
+            while not self._queue:
+                if self._closed:
+                    return None
+                if not block:
+                    return []
+                self._cond.wait()
+            batch = [self._queue.popleft()]
+            backlog = len(self._queue)
+        window = self._effective_window(backlog)
+        self._window_now_s = window
+        if window > 0:
+            self._gather_window(batch, window)
+        else:
+            self.stats.immediate_dispatches += 1
+            with self._cond:
+                while self._queue and len(batch) < self.max_batch:
+                    batch.append(self._queue.popleft())
+        with self._cond:
+            self._g_queue.set("-", "-", float(len(self._queue)))
+        # worker-only EWMA of observed concurrency: decays back to 1 a
+        # few idle batches after a burst, so steady singleton traffic
+        # keeps dispatching immediately
+        self._load = (
+            (1 - _LOAD_ALPHA) * self._load + _LOAD_ALPHA * len(batch)
+        )
+        return batch
+
+    def _gather_window(self, batch: List[_Request], window: float) -> None:
+        """Hold the coalescing window open, folding arrivals into the
+        batch until it fills or the window closes."""
+        window_end = self._clock() + window
+        while len(batch) < self.max_batch:
+            remaining = window_end - self._clock()
+            if remaining <= 0:
+                return
+            with self._cond:
+                if not self._queue:
+                    self._cond.wait(timeout=remaining)
+                while self._queue and len(batch) < self.max_batch:
+                    batch.append(self._queue.popleft())
+
+    def _effective_window(self, backlog: int) -> float:
+        """The gather window for this batch: 0 (dispatch now) on an idle
+        queue, window_s while concurrency is observed — either directly
+        (requests already queued behind the head) or recently (the
+        batch-size EWMA is still above the idle threshold)."""
+        if not self.adaptive_window:
+            return self.window_s
+        if backlog > 0 or self._load >= _LOAD_IDLE:
+            return self.window_s
+        return 0.0
+
+    def _filter_live(self, requests: List[_Request]) -> List[_Request]:
+        """Drop abandoned and queue-expired requests; the survivors are
+        the batch that actually dispatches."""
+        now = self._clock()
+        live: List[_Request] = []
+        for request in requests:
+            if request.abandoned:
+                # caller already gave up (counted there) — but the
+                # caller-side timeout never calls finish(), so close
+                # the trace span HERE
+                if request.span is not None:
+                    request.span.close(ok=False, abandoned=True)
+                continue
+            if request.deadline is not None and now > request.deadline:
+                self._on_expired(request)
+                request.finish(
+                    error=SolverTimeout("deadline expired in queue")
+                )
+                continue
+            self._record_stage("queue_wait", now - request.enqueued_at)
+            live.append(request)
+        return live
+
+    def _dispatch_group(
+        self, key: tuple, requests: List[_Request], lone: bool = False
+    ) -> None:
+        live = self._filter_live(requests)
+        if not live:
+            return
+        self.stats.last_coalesce_factor = len(live)
+        self.stats.coalesced_batches += len(live) > 1
+        self._g_coalesce.set("-", "-", float(len(live)))
+        self._h_coalesce.observe("-", "-", float(len(live)))
+        device_path = key[2] != "numpy"
+        if device_path and not self._device_allowed():
+            # FSM degraded, not this window's probe: answer the whole
+            # batch without attempting the sick device
+            self._answer_failed(live, SolverDeviceError(
+                "solver backend degraded: no device attempt until the "
+                "next probe"
+            ))
+            return
+        try:
+            self._solve_group(key, live, lone=lone)
+            return
+        except Exception as exc:  # noqa: BLE001 — device failure path
+            error: BaseException = exc
+            if device_path and not self._stale():
+                self._record_device_failure(live)
+        logger().warning(
+            "solver device path failed (%s: %s); answering %d "
+            "request(s) %s",
+            type(error).__name__, error, len(live),
+            "from numpy" if self._numpy_ladder else "with the error",
+        )
+        self._answer_failed(live, error)
+
+    def _dispatch_span(self, name: str, live: List[_Request], **args):
+        """The coalesced dispatch span (observability.tracing): opened
+        on the worker thread, parented into the FIRST rider's trace for
+        correlation, and LINKING every request span that rode the
+        dispatch."""
+        tracer = default_tracer()
+        if not tracer.enabled:
+            return tracer.span(name)  # the shared no-op span
+        spans = [r.span for r in live if r.span is not None]
+        return tracer.span(
+            name,
+            parent=spans[0] if spans else None,
+            links=spans,
+            n_requests=len(live),
+            **args,
+        )
+
+    def _finish_device(self, request: _Request, result) -> None:
+        """Answer one request from the device path. The FSM learns of the
+        success BEFORE the caller is woken, so a caller that reads
+        backend_health() after its answer sees the state that answer
+        left (the reference records it after the whole group). A stale
+        worker's late answer records nothing: the watchdog counted its
+        hang, and finish() discards the answer."""
+        if not self._stale():
+            self._record_device_success()
+        request.finish(result=result)
+
+    def _answer_failed(
+        self, live: List[_Request], error: BaseException
+    ) -> None:
+        """Answer requests whose device path failed, hung or was
+        short-circuited: from numpy on the CPU (the ladder), with
+        `error` on the card (module docstring)."""
+        if self._numpy_ladder:
+            self._finish_from_numpy(live)
+            return
+        for request in live:
+            request.finish(error=error)
+
+    def _finish_from_numpy(self, live: List[_Request]) -> None:
+        for request in live:
+            if request.event.is_set():
+                # already answered (watchdog drain vs. stale-worker
+                # unwind): don't burn a redundant host solve on a
+                # result finish() would discard anyway
+                continue
+            try:
+                request.finish(
+                    result=self._numpy_fallback(
+                        request.inputs, request.buckets
+                    ),
+                    degraded=True,
+                )
+            except Exception as numpy_error:  # noqa: BLE001
+                request.finish(error=numpy_error, degraded=True)
+
+    def _solve_group(
+        self, key: tuple, live: List[_Request], lone: bool = False
+    ) -> None:
+        shape, buckets, backend = key[0], key[1], key[2]
+        if backend == "numpy":
+            # host program: no device dispatch, no padding, and no
+            # fallback counting — this is the REQUESTED backend, not a
+            # degradation. Completes inline, so in-flight device work
+            # drains first to keep completion ordered.
+            self._drain_inflight()
+            with self._dispatch_span(
+                "solver.dispatch", live, strategy="host"
+            ):
+                for request in live:
+                    t0 = _time.perf_counter()
+                    request.finish(
+                        result=self._numpy_solve(request.inputs, buckets)
+                    )
+                    self._record_stage(
+                        "dispatch", _time.perf_counter() - t0
+                    )
+            return
+        # the device-dispatch injection point (faults/registry.py): an
+        # error plan here exercises the per-request failure answer and
+        # the FSM trip; a hang plan blocks inside a supervised device
+        # section, exercising the watchdog restart + drain
+        with self._device_section(live):
+            inject("solver.dispatch")
+        if self.device_solver is not None:
+            self._drain_inflight()
+            with self._device_section(live):
+                for request in live:
+                    t0 = _time.perf_counter()
+                    out = self.device_solver(
+                        request.inputs, buckets=buckets, backend=backend
+                    )
+                    self._record_stage(
+                        "dispatch", _time.perf_counter() - t0
+                    )
+                    self._count_dispatch()
+                    self._finish_device(request, out)
+            return
+        if backend == "cuda":
+            # the fused kernel has no batched entry; requests still
+            # share the single worker (bounded device pressure).
+            # Supervision happens per request inside.
+            self._drain_inflight()
+            self._solve_cuda(shape, buckets, live)
+            return
+        self._begin_pipelined_torch(shape, buckets, live, lone=lone)
+
+    def _begin_pipelined_torch(
+        self, shape, buckets: int, live: List[_Request], lone: bool,
+    ) -> None:
+        """Dispatch a group, SPLITTING a lone batch into pipeline chunks:
+        a lone coalesced batch with nothing in flight would dispatch
+        once and drain immediately (closed-loop callers can't enqueue the
+        next round until this one answers), so the double buffer never
+        engaged. Chunking gives it the overlap: chunk k+1's
+        pad/stack/dispatch runs while chunk k computes, and chunk k's
+        fetch/scatter overlaps chunk k+1's compute. The batch loop runs
+        its items one after another on the device either way, so
+        splitting costs no device efficiency."""
+        split = (
+            lone
+            and self.pipeline_depth > 0
+            and not self._inflight
+            and len(live) >= _PIPELINE_SPLIT_MIN
+        )
+        if not split:
+            self._begin_batched_torch(shape, buckets, live)
+            return
+        n_chunks = min(self.pipeline_depth + 1, len(live) // 2)
+        size = -(-len(live) // n_chunks)
+        self.stats.pipeline_splits += 1
+        for start in range(0, len(live), size):
+            self._begin_batched_torch(
+                shape, buckets, live[start:start + size]
+            )
+
+    def _solve_cuda(self, shape, buckets: int, live: List[_Request]) -> None:
+        """The cuda rung (the reference's _solve_pallas): per request,
+        ops/binpack.solve(backend="cuda") on the request's own operands,
+        synchronised inside the supervised section, fetched once. No
+        padding: the kernels take any shape, and solve keeps host
+        operands resident on the card by object identity, so a repeated
+        inputs object uploads nothing. The "dispatch" stage covers any
+        upload, both kernels and the sync."""
+        from karpenter_tpu_torch.ops import binpack as B
+
+        fresh = self._count_key(("cuda", shape, buckets, live[0].key[3]))
+        grace = COMPILE_GRACE_S if fresh else 0.0
+        for request in live:
+            with self._dispatch_span(
+                "solver.dispatch", [request], strategy="cuda"
+            ):
+                with self._device_section([request], grace=grace):
+                    t0 = _time.perf_counter()
+                    with solver_trace("solver.dispatch"):
+                        out = B.solve(
+                            request.inputs, buckets=buckets, backend="cuda",
+                            device=self.device,
+                        )
+                    torch.cuda.synchronize(self.device)
+            grace = 0.0  # only the first call of the batch is a first launch
+            if self._stale():
+                return  # the watchdog already answered these
+            self._record_stage("dispatch", _time.perf_counter() - t0)
+            self._count_dispatch()
+            t0 = _time.perf_counter()
+            host = _fetch_outputs(out)
+            self._record_stage("fetch", _time.perf_counter() - t0)
+            self._finish_device(request, host)
+
+    def _begin_batched_torch(
+        self, shape, buckets: int, live: List[_Request],
+    ) -> None:
+        """The coalesced path: pad each request to the shape bucket,
+        stack along a new leading axis, pad the batch axis up its own
+        ladder, dispatch ONE batched program — and DON'T wait for it.
+        The dispatch joins the in-flight pipeline; its host-side fetch +
+        crop + scatter are paid by _drain_one, which the worker calls
+        after dispatching the NEXT batch (overlap) or when the queue
+        goes idle (no result is ever held hostage to future traffic).
+
+        The batched program runs the per-item plain program over the
+        batch axis, one item after another, so outputs match direct
+        calls element for element and peak memory stays at one item's
+        working set (coalesced 100k-pod ticks must not pay a batch×
+        amplification).
+
+        Singleton groups first consult the DEVICE-RESIDENT fleet state
+        (solver/resident.py): an identity hit or changed-row scatter
+        skips the pad/stack/upload entirely."""
+        resident = self._resident_stack(shape, live)
+        if resident is not None:
+            stacked, n_batch = resident, 1
+        else:
+            stacked, n_batch = self._stack_group(shape, live)
+        fresh = self._count_key((
+            "torch", shape, n_batch, buckets, live[0].key[3],
+            live[0].key[4], "map",
+        ))
+        t0 = _time.perf_counter()
+        with self._dispatch_span(
+            "solver.dispatch", live, strategy="map", batch=n_batch,
+        ):
+            with self._device_section(
+                live, grace=COMPILE_GRACE_S if fresh else 0.0
+            ):
+                with solver_trace("solver.dispatch"):
+                    if resident is None:
+                        stacked = self._upload(stacked)
+                    out = run_batched(stacked, buckets)
+                    done = _record_done(self.device)
+        if self._stale():
+            # superseded by a watchdog restart while dispatching: the
+            # watchdog already answered these requests —
+            # discard the late device results
+            return
+        if self._inflight:
+            self.stats.pipeline_overlaps += 1
+        self._inflight.append((out, live, t0, done))
+        self._last_pipeline_depth = len(self._inflight)
+        self._count_dispatch()
+        # cap in-flight work at pipeline_depth, draining OLDEST first:
+        # with depth 1 this is classic double buffering (batch k's fetch
+        # is paid here, after batch k+1's dispatch); depth 0 restores
+        # the serial dispatch→wait→scatter loop
+        while len(self._inflight) > max(0, self.pipeline_depth):
+            self._drain_one()
+
+    def _stack_group(self, shape, live: List[_Request]):
+        """(stacked host operands, batch bucket): pad each request to the
+        shape bucket, stack along a new leading axis, pad the batch axis
+        up its own ladder — batch padding replicates the first request,
+        the cheapest valid filler (its outputs are computed and
+        discarded). Records the "pad" stage."""
+        t0 = _time.perf_counter()
+        padded = [pad_to_bucket(r.inputs, shape) for r in live]
+        n_batch = bucket_up(len(padded), 1)
+        padded.extend(padded[:1] * (n_batch - len(padded)))
+        stacked = _stack_inputs(padded)
+        self._record_stage("pad", _time.perf_counter() - t0)
+        return stacked, n_batch
+
+    def _resident_stack(self, shape, live: List[_Request]):
+        """The device-resident serve path for a SINGLETON group: returns
+        the resident stacked operands (batch axis 1), or None when
+        residency does not apply — disabled, a coalesced multi-request
+        batch (those stacks are ephemeral by nature), or an
+        out-of-process device solver.
+
+        kind accounting: a "hit" records a 0.0 upload sample (nothing
+        crossed the link), a "scatter" records the scatter wall time
+        under the resident_scatter stage + gauge (its host->device
+        traffic is the changed-row blocks), and a "rebuild" billed its
+        full upload through the normal _upload hook."""
+        if (
+            not self.resident_enabled
+            or len(live) != 1
+            or self.device_solver is not None
+        ):
+            return None
+        request = live[0]
+        t0 = _time.perf_counter()
+        try:
+            stacked, kind = self._resident.obtain(
+                request.inputs, shape, ("single",), self._upload,
+                tenant=request.tenant,
+                now=self._clock(),
+            )
+        except Exception as error:  # noqa: BLE001 — optimization layer
+            logger().warning(
+                "resident fleet state unavailable (%s: %s); "
+                "re-uploading the full operand stack",
+                type(error).__name__, error,
+            )
+            return None
+        if kind == "hit":
+            self.stats.resident_hits += 1
+            self._record_stage("upload", 0.0)
+        elif kind == "scatter":
+            self.stats.resident_scatters += 1
+            self.stats.upload_bytes += self._resident.last_scatter_bytes
+            elapsed = _time.perf_counter() - t0
+            self._record_stage("resident_scatter", elapsed)
+            self._g_resident_scatter.set("-", "-", elapsed * 1e3)
+        else:
+            self.stats.resident_rebuilds += 1
+            self._c_resident_rebuilds.inc("-", "-")
+        self.stats.resident_drops = self._resident.drops
+        return stacked
+
+    def _upload(self, stacked: BinPackInputs) -> BinPackInputs:
+        """Place host operands on the service's device (the dtype cast of
+        ops/binpack.solve's own upload) and record the ISOLATED
+        host->device transfer cost: compute waits on the transfer either
+        way, so the sync point only moves the wait to where it can be
+        measured."""
+        t_up = _time.perf_counter()
+        placed = {}
+        nbytes = 0
+        for f in dataclasses.fields(BinPackInputs):
+            leaf = getattr(stacked, f.name)
+            if leaf is None:
+                continue
+            placed[f.name] = _as_field(f.name, leaf, self.device)
+            nbytes += placed[f.name].numel() * placed[f.name].element_size()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stats.upload_bytes += nbytes
+        self._record_stage("upload", _time.perf_counter() - t_up)
+        return BinPackInputs(**placed)
+
+    def _drain_one(self) -> None:
+        """Complete the OLDEST in-flight dispatch: wait out its device
+        work (the event recorded after it, so a later dispatch already
+        enqueued is not waited for), fetch once, crop + scatter per
+        request. Device-path failures surface here (asynchronous
+        launches defer them to the wait) and are answered exactly like
+        a sync failure (_answer_failed).
+
+        Stage-metric caveat: under pipelining the "dispatch" sample is
+        dispatch-to-drain WALL time — it includes whatever gather/pad
+        work for the next batch overlapped the device compute, not pure
+        device time."""
+        with self._cond:
+            # pop under the lock: the watchdog clears _inflight when it
+            # supersedes a hung worker, and a stale worker must not
+            # steal the NEW worker's in-flight batches
+            if self._stale() or not self._inflight:
+                return
+            out, live, t_dispatch, done = self._inflight.popleft()
+        try:
+            with self._device_section(live):
+                if done is not None:
+                    done.synchronize()
+            self._record_stage(
+                "dispatch", _time.perf_counter() - t_dispatch
+            )
+            t0 = _time.perf_counter()
+            host = _fetch_outputs(out)
+            self._record_stage("fetch", _time.perf_counter() - t0)
+            t0 = _time.perf_counter()
+            for i, request in enumerate(live):
+                self._finish_device(request, crop_outputs(
+                    _index_outputs(host, i),
+                    request.n_pods, request.n_groups,
+                ))
+            self._record_stage("scatter", _time.perf_counter() - t0)
+        except Exception as error:  # noqa: BLE001 — device failure path
+            if not self._stale():
+                self._record_device_failure(live)
+            logger().warning(
+                "solver device path failed in flight (%s: %s); answering "
+                "%d request(s) %s",
+                type(error).__name__, error, len(live),
+                "from numpy" if self._numpy_ladder else "with the error",
+            )
+            self._answer_failed(live, error)
+
+    def _drain_inflight(self) -> None:
+        while self._inflight:
+            self._drain_one()
+
+    def _count_key(self, cache_key: tuple) -> bool:
+        """Count a dispatch key against the keys seen so far, under the
+        reference's compile-cache counters (nothing is compiled per key
+        here); True = first sight, and the following dispatch earns the
+        watchdog's COMPILE_GRACE_S."""
+        if cache_key in self._compile_seen:
+            self.stats.compile_cache_hits += 1
+            self._c_hits.inc("-", "-")
+            return False
+        self._compile_seen.add(cache_key)
+        self.stats.compile_cache_misses += 1
+        self._c_misses.inc("-", "-")
+        return True
+
+    def _count_dispatch(self) -> None:
+        self.stats.dispatches += 1
+        self._c_dispatch.inc("-", "-")
+
+    def _on_expired(self, request: _Request) -> None:
+        self.stats.deadline_expired += 1
+        self._c_expired.inc("-", "-")
+
+    def _numpy_fallback(self, inputs: BinPackInputs, buckets: int):
+        self.stats.fallbacks += 1
+        self._c_fallback.inc("-", "-")
+        return self._numpy_solve(inputs, buckets)
+
+    def _numpy_solve(self, inputs, buckets: int):
+        from karpenter_tpu_torch.ops.numpy_binpack import binpack_numpy
+
+        return binpack_numpy(inputs, buckets=buckets)
+
+
+def run_batched(stacked: BinPackInputs, buckets: int) -> BinPackOutputs:
+    """The torch rung's batched program: the plain per-item program
+    (ops/binpack.binpack, what solve(backend="torch") runs) over the
+    leading batch axis, one item after another, outputs stacked along a
+    new leading axis. No host sync: every op is enqueued on the current
+    stream, so the worker can dispatch the next batch before this one
+    finishes."""
+    from karpenter_tpu_torch.ops import binpack as B
+
+    n_batch = stacked.pod_requests.shape[0]
+    outs = []
+    for i in range(n_batch):
+        item = BinPackInputs(**{
+            f.name: None if getattr(stacked, f.name) is None
+            else getattr(stacked, f.name)[i]
+            for f in dataclasses.fields(BinPackInputs)
+        })
+        outs.append(B.binpack(item, buckets=buckets))
+    return BinPackOutputs(**{
+        name: torch.stack([getattr(o, name) for o in outs])
+        for name in _OUTPUT_FIELDS
+    })
+
+
+def _record_done(device: torch.device):
+    """A CUDA event recorded after the work enqueued so far on the
+    current stream (None on the CPU, where the work is already done)."""
+    if device.type != "cuda":
+        return None
+    done = torch.cuda.Event()
+    done.record()
+    return done
+
+
+def _stack_inputs(padded: List[BinPackInputs]) -> BinPackInputs:
+    """Stack same-shaped requests along a new leading batch axis (host
+    numpy; the upload happens inside the supervised dispatch).
+    Optional operands are presence-consistent across the batch (the
+    compatibility key includes the presence tuple)."""
+
+    def stack(name: str):
+        leaves = [getattr(p, name) for p in padded]
+        if leaves[0] is None:
+            return None
+        return np.stack([np.asarray(leaf) for leaf in leaves], axis=0)
+
+    return BinPackInputs(
+        **{
+            f.name: stack(f.name)
+            for f in dataclasses.fields(BinPackInputs)
+        }
+    )
+
+
+def _fetch_outputs(out):
+    """Device outputs -> host numpy in ONE device->host copy: the five
+    int32 leaves are flattened and concatenated on the device first.
+    Host outputs pass through."""
+    if not isinstance(out.assigned, torch.Tensor):
+        return out
+    leaves = [getattr(out, name) for name in _OUTPUT_FIELDS]
+    packed = torch.cat([leaf.reshape(-1) for leaf in leaves]).cpu().numpy()
+    host = {}
+    offset = 0
+    for name, leaf in zip(_OUTPUT_FIELDS, leaves):
+        n = leaf.numel()
+        host[name] = packed[offset:offset + n].reshape(tuple(leaf.shape))
+        offset += n
+    return dataclasses.replace(out, **host)
+
+
+def _index_outputs(host, i: int):
+    return dataclasses.replace(
+        host,
+        assigned=host.assigned[i],
+        assigned_count=host.assigned_count[i],
+        nodes_needed=host.nodes_needed[i],
+        lp_bound=host.lp_bound[i],
+        unschedulable=host.unschedulable[i],
+    )
+
+
+# -- pre-warm problem builders (prewarm docstring) ---------------------------
+
+
+def _prewarm_solve_inputs() -> BinPackInputs:
+    """1 pod x 1 group, weight present: pads up to the floor rung
+    (256 x 8 x 4 x 32 x 64) inside the queue — the dispatch key a small
+    fleet's first pendingCapacity solve hits."""
+    return BinPackInputs(
+        pod_requests=np.ones((1, 1), np.float32),
+        pod_valid=np.ones(1, bool),
+        pod_intolerant=np.zeros((1, 1), bool),
+        pod_required=np.zeros((1, 1), bool),
+        group_allocatable=np.full((1, 1), 8.0, np.float32),
+        group_taints=np.zeros((1, 1), bool),
+        group_labels=np.zeros((1, 1), bool),
+        pod_weight=np.ones(1, np.int32),
+    )
+
+
+def _prewarm_decide_inputs() -> dict:
+    """1 autoscaler x 1 metric at the decision program's smallest row
+    bucket (ops/decision.pad_to), as numpy fields."""
+    from karpenter_tpu_torch.ops import decision as D
+
+    n = D.pad_to(1)
+    zeros_i = np.zeros(n, np.int32)
+    zeros_f = np.zeros(n, np.float32)
+    col_i = np.zeros((n, 1), np.int32)
+    col_b = np.zeros((n, 1), bool)
+    return dict(
+        metric_value=np.zeros((n, 1), np.float32),
+        target_value=np.ones((n, 1), np.float32),
+        target_type=np.full((n, 1), D.TYPE_AVERAGE_VALUE, np.int32),
+        metric_valid=col_b.copy(),
+        spec_replicas=zeros_i.copy(),
+        status_replicas=zeros_i.copy(),
+        min_replicas=zeros_i.copy(),
+        max_replicas=np.ones(n, np.int32),
+        up_window=zeros_i.copy(),
+        down_window=zeros_i.copy(),
+        up_policy=np.full(n, D.POLICY_MAX, np.int32),
+        down_policy=np.full(n, D.POLICY_MAX, np.int32),
+        last_scale_time=zeros_f.copy(),
+        has_last_scale=np.zeros(n, bool),
+        now=np.float32(0.0),
+        up_ptype=col_i.copy(),
+        up_pvalue=col_i.copy(),
+        up_pperiod=np.ones((n, 1), np.int32),
+        up_pvalid=col_b.copy(),
+        down_ptype=col_i.copy(),
+        down_pvalue=col_i.copy(),
+        down_pperiod=np.ones((n, 1), np.int32),
+        down_pvalid=col_b.copy(),
+    )
+
+
+# -- process-default service -------------------------------------------------
+# simulate and the sidecar server share one service per process (the whole
+# point: concurrent callers coalesce); a runtime builds its OWN instance
+# so its gauges land in the runtime registry.
+
+_default_lock = threading.Lock()
+_default_service: Optional[SolverService] = None
+
+
+def default_service() -> SolverService:
+    """The process-shared service, on the CUDA card (it raises without
+    one, through resolve_device)."""
+    global _default_service
+    with _default_lock:
+        if _default_service is None:
+            _default_service = SolverService()
+        return _default_service
+
+
+def reset_default_service() -> None:
+    """Close and drop the process-default service (test isolation)."""
+    global _default_service
+    with _default_lock:
+        if _default_service is not None:
+            _default_service.close()
+            _default_service = None
+
+
+def reset_default_service_caches() -> None:
+    """Invalidate the process-default service's caches WITHOUT closing
+    it — the recovery-boot seam for the one solver instance that can
+    outlive an in-process controller restart."""
+    with _default_lock:
+        if _default_service is not None:
+            _default_service.reset_caches()

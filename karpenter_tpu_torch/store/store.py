@@ -218,6 +218,12 @@ class Store:
         mirroring the reference's Status().Patch(MergeFrom(persisted))
         (reference: pkg/controllers/controller.go:93) — concurrent spec
         writes are never clobbered by a status update."""
+        # injection point (faults/registry.py): a failed status write is
+        # the apiserver-conflict/outage analog; the engine requeues the
+        # reconcile with backoff instead of crashing the tick
+        from karpenter_tpu_torch.faults import inject
+
+        inject("store.patch_status")
         with self._lock:
             key = _key(obj)
             stored = self._objects.get(key)

@@ -622,3 +622,111 @@ class TestPortIsStandalone:
                     assert not banned.match(name), f"{path}: imports {name}"
             text = path.read_text()
             assert "import_module(" not in text and "__import__(" not in text
+
+    def test_native_sources_inside_the_port(self):
+        """Every C/CUDA source the port compiles lies inside the port and
+        includes only system headers; the loaders resolve their sources
+        and build directories inside the port too."""
+        from karpenter_tpu_torch import kernels, native
+
+        port = (REPO / "karpenter_tpu_torch").resolve()
+        sources = sorted(port.rglob("*.c")) + sorted(port.rglob("*.cu"))
+        names = {p.name for p in sources}
+        assert {"binpack_kernel.c", "fused_assign.cu", "shelf_bfd.cu"} <= names
+        include = re.compile(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]')
+        for path in sources:
+            assert path.resolve().is_relative_to(port), path
+            for line in path.read_text().splitlines():
+                m = include.match(line)
+                if m:
+                    assert not m.group(1).startswith((".", "/")), (path, line)
+                    assert "karpenter_tpu" not in m.group(1), (path, line)
+        for where in (native._HERE, native._BUILD_DIR, kernels.CSRC,
+                      kernels.BUILD):
+            assert pathlib.Path(where).resolve().is_relative_to(port), where
+
+    def test_no_port_module_opens_a_reference_file(self):
+        """No string constant of the port (docstrings aside) names the
+        reference package as a path, and driving the port — the numpy
+        rung's C helper rebuilt and loaded, a host solve, the solve
+        service's torch and numpy rungs — opens, loads or compiles no
+        file under karpenter_tpu/ (audited with sys.addaudithook)."""
+        for path in sorted((REPO / "karpenter_tpu_torch").rglob("*.py")):
+            tree = ast.parse(path.read_text(), filename=str(path))
+            docs = {
+                id(node.body[0].value) for node in ast.walk(tree)
+                if isinstance(node, (ast.Module, ast.ClassDef,
+                                     ast.FunctionDef, ast.AsyncFunctionDef))
+                and node.body and isinstance(node.body[0], ast.Expr)
+                and isinstance(node.body[0].value, ast.Constant)
+            }
+            for node in ast.walk(tree):
+                if (isinstance(node, ast.Constant)
+                        and isinstance(node.value, str)
+                        and id(node) not in docs):
+                    text = node.value.replace("karpenter_tpu_torch", "")
+                    assert "karpenter_tpu" not in text, (path, node.lineno)
+        _assert_port_run_touches_no_reference_file()
+
+
+_AUDIT = {"on": False, "events": []}
+
+
+def _audit(event, args):
+    if _AUDIT["on"] and event in ("open", "ctypes.dlopen", "subprocess.Popen"):
+        _AUDIT["events"].append((event, args))
+
+
+def _assert_port_run_touches_no_reference_file():
+    import os
+    import sys
+
+    from karpenter_tpu_torch import native
+    from karpenter_tpu_torch.metrics.registry import GaugeRegistry
+    from karpenter_tpu_torch.ops import numpy_binpack as NB
+    from karpenter_tpu_torch.solver import SolverService
+
+    if not getattr(_assert_port_run_touches_no_reference_file, "hooked", 0):
+        sys.addaudithook(_audit)
+        _assert_port_run_touches_no_reference_file.hooked = 1
+    reference = (REPO / "karpenter_tpu").resolve()
+    rng = np.random.default_rng(3)
+    inputs = random_inputs(rng, pods=120, types=9)
+    port = TB.BinPackInputs(**{
+        f.name: None if getattr(inputs, f.name) is None
+        else np.asarray(getattr(inputs, f.name))
+        for f in dataclasses.fields(inputs)
+    })
+    so = pathlib.Path(native._BUILD_DIR) / "_kbinpack.so"
+    _AUDIT["events"].clear()
+    _AUDIT["on"] = True
+    try:
+        if so.exists():  # force a rebuild: the compile is audited too
+            os.utime(so, (0, 0))
+        native._kbinpack, native._kbinpack_tried = None, False
+        lib = native.load_kbinpack()
+        NB.binpack_numpy(port, buckets=8)
+        TB.solve(port, buckets=8, backend="numpy")
+        svc = SolverService(registry=GaugeRegistry(), device="cpu")
+        try:
+            svc.solve(port, buckets=8, backend="torch")
+            svc.solve(port, buckets=8, backend="numpy")
+        finally:
+            svc.close()
+    finally:
+        _AUDIT["on"] = False
+    events = list(_AUDIT["events"])
+    if lib is not None:
+        assert any(e == "ctypes.dlopen" for e, _ in events)
+    for event, args in events:
+        paths = args[1] if event == "subprocess.Popen" else args[:1]
+        for value in paths or ():
+            if not isinstance(value, (str, bytes, os.PathLike)):
+                continue
+            text = os.fsdecode(value)
+            for token in text.split():
+                if "/" not in token and event == "subprocess.Popen":
+                    continue
+                p = pathlib.Path(token.removeprefix("-I"))
+                resolved = (p if p.is_absolute() else REPO / p).resolve()
+                assert not resolved.is_relative_to(reference), (event, text)
