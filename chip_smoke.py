@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (set-up, with ptxas's register,
-shared-memory and stack report), then runs ten phases and fails (exit 1,
+shared-memory and stack report), then runs eleven phases and fails (exit 1,
 no result line) if any of them fails:
 
 1. fused kernel vs its plain version on the card: fused_assign against
@@ -86,7 +86,28 @@ no result line) if any of them fails:
    trips to degraded and the next request raises SolverDeviceError with
    no device attempt; with the plan cleared the probe (on an injected
    clock) heals it. The phase ends with every service at fallback_total
-   0, the main one healthy, and no shard route.
+   0, the main one healthy, and no shard route;
+11. the HorizontalAutoscaler reconcile tick through SolverService() on the
+   card (workloads.build_ha_fleet at BASELINE.json's 1000 tenants x 4
+   autoscalers, 3 metrics, about half forecasting one metric over 64
+   observed samples, an SLO on about 60%, 64 pool groups x 4 pools,
+   --fused-tick): (a) the first tick captures the fused program's CUDA
+   graph while the service's worker answers bin-pack solves (each equal);
+   20 timed ticks: p50/p95 on the host clock, the host split (snapshot and
+   metric queries, plans and operands, service.fused_tick with its
+   upload / replay / fetch, commits, scale writes, status writes), the
+   device rows, kernels and busy us per tick (profiler) and the forecast
+   stage's share; fused_dispatches == ticks, no chained or numpy serve,
+   one dispatch per tick, one graph capture, the FSM healthy; (b) the
+   same world for 12 ticks through the card's chained wire (forecast,
+   decide, cost, poolgroup families) and through a CPU service (numpy):
+   the same replica trail, HA statuses, error maps and registry
+   exposition as the fused tick's; (c) phase 8's batch through
+   service.fused_tick == the direct FusedTickProgram replay, bitwise on
+   every leaf, the two timed in turns; (d) under a fused.tick error plan
+   every row reports the error, no scale is written, nothing answers
+   from numpy or the chained rung, the FSM degrades to SolverDeviceError
+   and the probe (on an injected clock) heals it.
 
 Then it profiles 20 main-path solves (torch.profiler: device time by
 kernel) and prints, before the last line, one JSON line of kernel records
@@ -102,6 +123,7 @@ Imports neither jax nor karpenter_tpu.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import os
 import sys
@@ -1291,6 +1313,478 @@ def phase_service(torch, TB, TF, workloads, inputs, host_inputs, reconcile):
         svc.close()
 
 
+# -- phase 11: the HorizontalAutoscaler reconcile tick through the service ----
+
+# BASELINE.json's 1000 tenants x 4 autoscalers (pad_to: 4,032 rows), 3
+# metrics; about half the HAs forecast one metric (S = 2,031, bucket
+# 2,048) over 64 observed samples; an SLO on about 60%; 64 pool groups x
+# 4 pools; --fused-tick. The queue series are spread over 125 gauge
+# vectors (32 HAs each), a layout no source has: the reference registers
+# one `karpenter_queue_length` vector, and the in-process metrics client
+# scans the matched vector's every series on each query, so at one vector
+# a tick of this fleet takes minutes of host time. (a) times one tick at
+# the reference's layout beside the spread one; every other tick of the
+# phase runs spread, so the phase fits the run.
+HA_SHAPE = dict(n_has=4000, metrics=3, seed=0, forecast_share=0.5,
+                slo_share=0.6, groups=64, pools=4, history=64,
+                queue_vectors=125)
+HA_WARMUP = 2  # ticks before the first recorded one (the graph capture)
+HA_PARITY_TICKS = 12  # ticks the card, its chained wire and the CPU share
+HA_TIMED_TICKS = 20
+HA_PAIRS = 10  # phase 8's batch through the service vs direct, in turns
+# the small world of the failure-policy check (d)
+HA_FAULT_SHAPE = dict(n_has=256, metrics=3, seed=1, groups=4, pools=4,
+                      history=16)
+
+
+class _Clock:
+    """An injected clock for the service's health FSM."""
+
+    def __init__(self):
+        self.now = 1000.0
+
+    def __call__(self):
+        return self.now
+
+
+class _Timers:
+    """Host-clock seconds spent in named methods, summed per tick: each
+    (object, method name, bucket) is wrapped on the instance."""
+
+    def __init__(self, hooks):
+        self.spent = {}
+        self._undo = []
+        for obj, name, bucket in hooks:
+            self._wrap(obj, name, bucket)
+
+    def _wrap(self, obj, name, bucket):
+        inner = getattr(obj, name)
+        # an attribute of the instance itself is restored, a method unwrapped
+        self._undo.append((obj, name, vars(obj).get(name, _Timers)))
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                self.spent[bucket] = (
+                    self.spent.get(bucket, 0.0) + time.perf_counter() - t0
+                )
+
+        setattr(obj, name, timed)
+
+    def take(self) -> dict:
+        spent, self.spent = self.spent, {}
+        return spent
+
+    def remove(self):
+        for obj, name, before in reversed(self._undo):
+            if before is _Timers:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, before)
+
+
+def _ha_record(fleet):
+    """(trail, statuses) of a fleet after a tick."""
+    return fleet.trail(), fleet.statuses()
+
+
+def _ha_run_parity(workloads, svc, fused, ticks):
+    """The phase's world on `svc` for `ticks` ticks: [(trail, statuses,
+    errors)] per tick and the registry exposition at the end."""
+    fleet = workloads.build_ha_fleet(service=svc, fused=fused, **HA_SHAPE)
+    out = []
+    for _ in range(ticks):
+        errors = fleet.tick()
+        svc.note_tick()
+        out.append((*_ha_record(fleet), _errors(errors)))
+    return out, fleet.registry.expose_text()
+
+
+def _errors(errors: dict) -> dict:
+    return {k: None if e is None else (type(e).__name__, str(e))
+            for k, e in errors.items()}
+
+
+def _ha_concurrent_solves(svc, workloads, stop, result):
+    """Bin-pack traffic on the service's worker while the main thread's
+    first fused tick captures its graph: each answer must equal the
+    first."""
+    from karpenter_tpu_torch.ops import binpack as TB
+
+    fields = workloads.build_inputs(2000, 50, 8, 8, seed=1)
+    host = TB.BinPackInputs(**fields)
+    want = None
+    n = 0
+    try:
+        while not stop.is_set():
+            got = svc.solve(host)
+            if want is None:
+                want = got
+            for name in ("assigned", "assigned_count", "nodes_needed",
+                         "unschedulable"):
+                need(np.array_equal(getattr(got, name), getattr(want, name)),
+                     f"concurrent solve {n}: {name} differs")
+            n += 1
+    except Exception as exc:  # noqa: BLE001 — reported by the phase
+        result["error"] = exc
+    result["solves"] = n
+
+
+def _ha_production(torch, workloads, S, M, GaugeRegistry):
+    """(a) The production tick at full width through SolverService()."""
+    import threading
+
+    svc = S.SolverService(registry=GaugeRegistry())
+    try:
+        need(svc.device.type == "cuda", f"default service on {svc.device}")
+        t0 = time.perf_counter()
+        fleet = workloads.build_ha_fleet(service=svc, fused=True, **HA_SHAPE)
+        build_s = time.perf_counter() - t0
+        rows = len(fleet.has)
+        n_series = sum(1 for h in fleet.has if h.spec.behavior.forecast)
+        print(f"HA world {HA_SHAPE}: built in {build_s} s; {rows} HAs, "
+              f"{n_series} forecast series, "
+              f"{sum(1 for h in fleet.has if h.spec.behavior.slo)} with an "
+              f"SLO, {len(fleet.store.list('PoolGroup'))} pool groups")
+        # the first tick captures the graph while the worker solves
+        stop, solves = threading.Event(), {}
+        worker = threading.Thread(
+            target=_ha_concurrent_solves,
+            args=(svc, workloads, stop, solves),
+        )
+        worker.start()
+        try:
+            while svc.stats.dispatches == 0 and worker.is_alive():
+                time.sleep(0.01)
+            records, errors_seen = [], []
+            t0 = time.perf_counter()
+            errors_seen.append(_errors(fleet.tick()))
+            first_tick_s = time.perf_counter() - t0
+        finally:
+            stop.set()
+            worker.join(120)
+        need(not worker.is_alive(), "concurrent solves did not stop")
+        need("error" not in solves, f"concurrent solve: {solves.get('error')!r}")
+        need(solves.get("solves", 0) >= 1, "no concurrent solve ran")
+        svc.note_tick()
+        records.append(_ha_record(fleet))
+        program = svc.fused_program()
+        need(program.captures == 1, f"{program.captures} graph captures")
+        report(f"first HA tick (graph capture, {solves['solves']} bin-pack "
+               f"solves on the worker meanwhile, each equal): "
+               f"{first_tick_s} s")
+        for _ in range(HA_PARITY_TICKS - 1):
+            errors_seen.append(_errors(fleet.tick()))
+            svc.note_tick()
+            records.append(_ha_record(fleet))
+        text = fleet.registry.expose_text()
+        need(all(e is None for errs in errors_seen for e in errs.values()),
+             "an HA row errored")
+        need(records[0][0] != records[-1][0], "the replica trail never moved")
+
+        # timed ticks with the host split
+        hooks = [
+            (fleet.autoscaler, "_snapshot_row", "snapshot + metric queries"),
+            (fleet.pool_engine, "plan", "plans + operands"),
+            (fleet.forecaster, "fused_plan", "plans + operands"),
+            (fleet.autoscaler, "_decision_inputs", "plans + operands"),
+            (fleet.cost_engine, "fused_operands", "plans + operands"),
+            (fleet.pool_engine, "fused_operands", "plans + operands"),
+            (fleet.forecaster, "fused_commit", "commits"),
+            (fleet.cost_engine, "fused_commit", "commits"),
+            (fleet.pool_engine, "fused_commit", "commits"),
+            (fleet.autoscaler, "_apply", "scale writes + conditions"),
+            (fleet.controller, "reconcile_batch", "reconcile_batch"),
+        ]
+        ticks, splits, programs = [], [], []
+        last_inputs = {}
+        inner_fn = fleet.autoscaler.fused_tick_fn
+
+        def keep(inputs):
+            last_inputs["tick"] = inputs
+            return inner_fn(inputs)
+
+        fleet.autoscaler.fused_tick_fn = keep
+        timers = _Timers(hooks + [
+            (fleet.autoscaler, "fused_tick_fn", "service.fused_tick"),
+        ])
+        # the interpreter's cyclic garbage collector, timed per tick
+        gc_spent, gc_t0 = {"s": 0.0, "full": 0}, {}
+
+        def on_gc(phase, info):
+            if phase == "start":
+                gc_t0["t"] = time.perf_counter()
+            elif "t" in gc_t0:
+                gc_spent["s"] += time.perf_counter() - gc_t0.pop("t")
+                gc_spent["full"] += info.get("generation") == 2
+
+        gc.callbacks.append(on_gc)
+        gc_ticks = []
+        try:
+            for _ in range(HA_TIMED_TICKS):
+                fleet.step_world()
+                t0 = time.perf_counter()
+                errors = fleet.reconcile()
+                ticks.append((time.perf_counter() - t0) * 1e3)
+                svc.note_tick()
+                need(all(e is None for e in errors.values()), "a row errored")
+                spent = timers.take()
+                spent["status writes"] = ticks[-1] / 1e3 - spent.pop(
+                    "reconcile_batch")
+                splits.append(spent)
+                programs.append(dict(program.last_split))
+                gc_ticks.append((ticks[-1], gc_spent["s"] * 1e3,
+                                 gc_spent["full"]))
+                gc_spent["s"], gc_spent["full"] = 0.0, 0
+        finally:
+            gc.callbacks.remove(on_gc)
+            timers.remove()
+            fleet.autoscaler.fused_tick_fn = inner_fn
+        p50, p95 = np.percentile(ticks, 50), np.percentile(ticks, 95)
+        report(f"HA tick (fused, {rows} HAs): p50={p50}ms p95={p95}ms over "
+               f"{HA_TIMED_TICKS} ticks (host clock; reconcile + HA status "
+               f"writes, the world's step excluded)")
+        total = {}
+        for spent in splits:
+            for k, v in spent.items():
+                total.setdefault(k, []).append(v * 1e3)
+        inside = sum(np.median(v) for k, v in total.items())
+        for k, v in sorted(total.items(), key=lambda kv: -np.median(kv[1])):
+            report(f"  host split, median ms per tick: {k} {np.median(v)} "
+                   f"({100.0 * np.median(v) / p50}% of the tick p50)")
+        report(f"  host split: the named spans sum to {inside} ms of the "
+               f"{p50} ms p50 (the rest is the batch loop's own work)")
+        for k in ("upload_ms", "replay_ms", "fetch_ms"):
+            report(f"  inside service.fused_tick, median: program {k} "
+                   f"{np.median([d[k] for d in programs])}")
+        slow = sorted(gc_ticks, reverse=True)[:3]
+        report(f"  garbage collector: median {np.median([g for _, g, _ in gc_ticks])}"
+               f" ms per tick, {sum(f for _, _, f in gc_ticks)} full "
+               f"collections in {HA_TIMED_TICKS} ticks; the 3 slowest ticks "
+               f"(tick ms, gc ms, full collections): {slow}")
+        stages = svc.stage_percentiles()
+        report(f"  service stages: fused {stages.get('fused')}, door "
+               f"(arrays + padding) {stages.get('fused_pad')}")
+
+        # device view: kernels and busy us per tick, and the forecast's share
+        prof, _ = profile_window(torch, fleet.tick, 3)
+        rows = device_rows(torch, prof)
+        need(rows, "profiler: no device rows for the HA tick")
+        ops = sum(c for _, c, _ in rows) / 3
+        kernels = sum(c for _, c, k in rows
+                      if not k.startswith(("Memcpy", "Memset"))) / 3
+        busy = sum(us for us, _, _ in rows) / 3
+        for dev_us, count, key in rows[:8]:
+            report(f"  HA tick device row: {dev_us / 3} us/tick "
+                   f"x{count / 3}/tick {key[:80]}")
+        fc = None
+        staged = last_inputs.get("tick")
+        if staged is not None and staged.forecast is not None:
+            from karpenter_tpu_torch.solver.bucketing import bucket_up
+
+            t = staged.forecast.values.shape[1]
+            s = staged.forecast.values.shape[0]
+            fin = M.pad_forecast_inputs(
+                M.ForecastInputs.from_numpy(staged.forecast, "cuda"),
+                bucket_up(t, 16))
+            fin = M.concat_forecast_inputs([fin], bucket_up(s, 8))
+            report(f"  forecast operands of the last tick: S = {s} series "
+                   f"(bucket {fin.values.shape[0]}) x T = {t}")
+            fc = profile_per_call(torch, lambda: M.forecast(fin), n=3)
+        report(f"profiler, HA tick: {kernels} kernels, {ops} device ops "
+               f"(kernels + memcpy/memset), {busy} us device busy per "
+               f"tick ({100.0 * busy / 1e3 / p50}% of the tick p50)")
+        need(fc is not None, "no forecast operands in the last tick")
+        report(f"  forecast stage alone on the tick's operands: "
+               f"{fc[1]} kernels, {fc[2]} us busy = "
+               f"{100.0 * fc[1] / kernels}% of the tick's kernels, "
+               f"{100.0 * fc[2] / busy}% of its device busy time")
+        ticks_run = fleet.ticks
+        st = svc.stats
+        need(st.fused_dispatches == ticks_run,
+             f"fused_dispatches {st.fused_dispatches} != ticks {ticks_run}")
+        need(st.fused_chained_serves == 0 and st.fused_mirror_serves == 0,
+             f"chained {st.fused_chained_serves} / mirror "
+             f"{st.fused_mirror_serves} serves")
+        need(st.fallbacks == 0, f"{st.fallbacks} numpy fallbacks")
+        need(st.last_dispatches_per_tick == 1,
+             f"{st.last_dispatches_per_tick} dispatches in the last tick")
+        need(program.captures == 1, f"{program.captures} graph captures")
+        need(svc.backend_health() == "healthy", "FSM not healthy")
+        print(f"HA tick on the card: {ticks_run} ticks, fused_dispatches "
+              f"{st.fused_dispatches}, chained 0, mirror 0, fallbacks 0, "
+              f"1 dispatch per tick, 1 graph capture for the shape class, "
+              f"{program.replays} replays, FSM healthy")
+        snapshot = np.median(total["snapshot + metric queries"])
+        _ha_one_vector(workloads, svc, records[0][0], snapshot)
+        return records, errors_seen, text
+    finally:
+        svc.close()
+
+
+def _ha_one_vector(workloads, svc, first_trail, spread_snapshot_ms):
+    """The first tick of (a)'s world at the reference's layout, one queue
+    vector for every series, on the same service: the same shape class
+    (no capture) and the same decisions; the snapshot's host time beside
+    the spread layout's."""
+    shape = dict(HA_SHAPE, queue_vectors=1)
+    fleet = workloads.build_ha_fleet(service=svc, fused=True, **shape)
+    queries = sum(len(h.spec.metrics) for h in fleet.has)
+    series = sum(len(names) for _, names in fleet.gauge_of)
+    captures = svc.fused_program().captures
+    timers = _Timers([
+        (fleet.autoscaler, "_snapshot_row", "snapshot + metric queries"),
+    ])
+    try:
+        t0 = time.perf_counter()
+        errors = fleet.tick()
+        tick_ms = (time.perf_counter() - t0) * 1e3
+        snapshot = timers.take()["snapshot + metric queries"] * 1e3
+    finally:
+        timers.remove()
+    svc.note_tick()
+    need(all(e is None for e in errors.values()), "one vector: a row errored")
+    need(fleet.trail() == first_trail, "one vector: the trail differs")
+    need(svc.fused_program().captures == captures, "one vector: recaptured")
+    report(f"HA tick at one queue vector ({series} series, {queries} "
+           f"queries): first tick {tick_ms} ms (step and status writes "
+           f"included), snapshot + metric queries {snapshot} ms = "
+           f"{snapshot / queries} ms per query; at {HA_SHAPE['queue_vectors']} "
+           f"vectors the median snapshot is {spread_snapshot_ms} ms = "
+           f"{spread_snapshot_ms / queries} ms per query; the same trail")
+
+
+def _ha_parity(workloads, S, GaugeRegistry, fused_run):
+    """(b) The card's chained wire and a CPU service (numpy) over the same
+    world: the same trail, statuses, error maps and exposition as (a)."""
+    records, errors, text = fused_run
+    for name, kw in (("card, chained wire", {}),
+                     ("CPU, numpy", dict(device="cpu", backend="numpy"))):
+        svc = S.SolverService(registry=GaugeRegistry(), **kw)
+        try:
+            t0 = time.perf_counter()
+            got, got_text = _ha_run_parity(workloads, svc, False,
+                                           HA_PARITY_TICKS)
+            elapsed = time.perf_counter() - t0
+            for k, (trail, statuses, errs) in enumerate(got):
+                need(trail == records[k][0], f"{name}: trail differs, tick {k}")
+                need(statuses == records[k][1],
+                     f"{name}: statuses differ, tick {k}")
+                need(errs == errors[k], f"{name}: errors differ, tick {k}")
+            need(got_text == text, f"{name}: registry exposition differs")
+            st = svc.stats
+            if svc.device.type == "cuda":
+                need(st.fallbacks == 0 and st.poolgroup_independent_serves == 0,
+                     f"{name}: numpy answered")
+                need(st.forecast_dispatches == HA_PARITY_TICKS,
+                     f"{name}: {st.forecast_dispatches} forecast dispatches")
+                need(st.last_dispatches_per_tick >= 2,
+                     f"{name}: {st.last_dispatches_per_tick} dispatches")
+            report(f"HA parity, {name}: {HA_PARITY_TICKS} ticks equal to the "
+                   f"card's fused tick (trail of {len(records[0][0])} node "
+                   f"groups, statuses, error maps, {len(text)} bytes of "
+                   f"exposition); {elapsed} s; families: forecast "
+                   f"{st.forecast_calls}, decide {st.decide_calls}, cost "
+                   f"{st.cost_calls}, poolgroup {st.poolgroup_calls}, "
+                   f"dispatches per tick {st.last_dispatches_per_tick}")
+        finally:
+            svc.close()
+
+
+def _ha_fused_vs_direct(torch, workloads, S, FT, GaugeRegistry):
+    """(c) Phase 8's batch through service.fused_tick == the direct
+    FusedTickProgram replay, bitwise; the two timed in turns."""
+    fields = workloads.build_fused_tick_inputs(0, **TICK_SHAPE)
+    host = FT.FusedTickInputs.from_arrays(fields)
+    card = FT.FusedTickInputs.from_numpy(fields, "cuda")
+    direct = FT.FusedTickProgram()
+    svc = S.SolverService(registry=GaugeRegistry())
+    try:
+        got = svc.fused_tick(host)
+        want = direct(card).to_numpy()
+        n_leaves = same_bits(got.to_numpy(), want,
+                             "service.fused_tick vs direct replay")
+        times = {"service": [], "direct": []}
+        for k in range(2 * HA_PAIRS):
+            arm = ("service", "direct", "direct", "service")[k % 4]
+            t0 = time.perf_counter()
+            if arm == "service":
+                svc.fused_tick(host)
+            else:
+                direct(card)
+                torch.cuda.synchronize()
+            times[arm].append((time.perf_counter() - t0) * 1e3)
+        need(svc.fused_program().captures == 1, "service recaptured")
+        report(f"phase 8's batch {TICK_SHAPE}: service.fused_tick == direct "
+               f"replay bitwise on {n_leaves} leaves; in turns, service "
+               f"(host in, one fetch out) median "
+               f"{np.median(times['service'])} ms, direct replay (card "
+               f"operands, synchronize) median {np.median(times['direct'])} "
+               f"ms over {HA_PAIRS} each")
+    finally:
+        svc.close()
+
+
+def _ha_failure_policy(workloads, S, GaugeRegistry):
+    """(d) On the card a fused-tick failure raises to the tick (every row
+    reports it, no scale is written, numpy never answers); the FSM
+    degrades to SolverDeviceError and the probe heals it."""
+    from karpenter_tpu_torch import faults
+
+    clock = _Clock()
+    svc = S.SolverService(registry=GaugeRegistry(), clock=clock,
+                          health_failure_threshold=2,
+                          health_probe_interval_s=30.0)
+    try:
+        fleet = workloads.build_ha_fleet(service=svc, fused=True,
+                                         **HA_FAULT_SHAPE)
+        fleet.tick()
+        before = fleet.trail()
+        seen = []
+        with faults.injected_faults(seed=11) as reg:
+            reg.plan("fused.tick", mode="error")
+            for _ in range(3):
+                fleet.step_world()
+                errors = fleet.reconcile()
+                kinds = {type(e).__name__ for e in errors.values()}
+                need(len(kinds) == 1 and None not in errors.values(),
+                     f"not every row errored: {kinds}")
+                seen.append(kinds.pop())
+                need(fleet.trail() == before, "a scale was written")
+            attempts = reg.attempts["fused.tick"]
+        need(seen == ["FaultInjected", "FaultInjected", "SolverDeviceError"],
+             f"errors per tick {seen}")
+        need(attempts == 2, f"{attempts} device attempts while degraded")
+        need(svc.backend_health() == "degraded", "FSM not degraded")
+        st = svc.stats
+        need(st.fallbacks == st.fused_chained_serves == st.fused_mirror_serves
+             == 0, "numpy or chained answered on the card")
+        clock.now += 31.0
+        errors = fleet.tick()
+        need(all(e is None for e in errors.values()), "probe tick errored")
+        need(svc.backend_health() == "healthy", "the probe did not heal")
+        print(f"HA failure policy: under a fused.tick error plan 3 ticks "
+              f"reported {seen} for every row, no scale written, no numpy or "
+              f"chained answer; the probe healed the FSM "
+              f"(trips {st.fsm_trips}, recoveries {st.fsm_recoveries})")
+    finally:
+        svc.close()
+
+
+def phase_ha_tick(torch, FT, M, workloads):
+    """Phase 11: the HorizontalAutoscaler reconcile tick through the
+    service on the card."""
+    from karpenter_tpu_torch.metrics.registry import GaugeRegistry
+    from karpenter_tpu_torch.solver import service as S
+
+    fused_run = _ha_production(torch, workloads, S, M, GaugeRegistry)
+    _ha_parity(workloads, S, GaugeRegistry, fused_run)
+    _ha_fused_vs_direct(torch, workloads, S, FT, GaugeRegistry)
+    _ha_failure_policy(workloads, S, GaugeRegistry)
+
+
 def profile_solves(torch, TB, inputs, n=ITERS):
     """Where a solve's time goes: the mean of back-to-back solves by CUDA
     events, then a torch.profiler window of n solves (device time by
@@ -1347,7 +1841,8 @@ def profile_window(torch, fn, n, warmup=2):
 
 # record_function ranges the profiled code opens: the profiler shows each
 # as a device row spanning the kernels inside it, which are rows already
-ANNOTATIONS = ("ProfilerStep", "pendingcapacity.solve")
+ANNOTATIONS = ("ProfilerStep", "pendingcapacity.solve", "solver.",
+               "autoscaler.")
 
 
 def device_rows(torch, prof):
@@ -1556,6 +2051,7 @@ def main() -> int:
         ("solve service", lambda: phase_service(
             torch, TB, TF, workloads, inputs, host_inputs,
             results["reconcile tick"])),
+        ("HA tick", lambda: phase_ha_tick(torch, FT, M, workloads)),
     ]
     for name, run in phases:
         try:

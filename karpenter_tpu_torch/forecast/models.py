@@ -38,12 +38,27 @@ from typing import List
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.utils.operands import BOOL, F32, I32, Operands
+from karpenter_tpu_torch.utils.operands import (
+    BOOL,
+    F32,
+    I32,
+    Operands,
+    host_seam,
+)
 
 MODEL_LINEAR = 0
 MODEL_HOLT_WINTERS = 1
 
+MODEL_CODES = {
+    "linear": MODEL_LINEAR,
+    "holt-winters": MODEL_HOLT_WINTERS,
+}
+
+_ONE = np.float32(1.0)
+_ZERO = np.float32(0.0)
+
 # Huber-style reweighting threshold, in units of the OLS residual RMS
+_HUBER_K = np.float32(1.5)
 _HUBER_K2 = 1.5 * 1.5
 # floor of the per-step horizon conversion (degenerate spacing)
 _MIN_STEP_S = float(np.float32(1e-3))
@@ -211,9 +226,20 @@ def forecast(inputs: ForecastInputs) -> ForecastOutputs:
     return ForecastOutputs(point=point, sigma2=sigma2_lin, n_valid=cnt)
 
 
+# forecast() on the card for host operands, one fetch at the seam: the
+# FleetForecaster's default forecast_fn (the reference's is forecast_jit)
+forecast_host = host_seam(forecast, ForecastInputs)
+
+
 # -- shape plumbing -----------------------------------------------------------
 # Extra T slots are left-padded valid=False and extra S rows are fully
-# invalid, so padded outputs equal unpadded ones bit for bit.
+# invalid, so padded outputs equal unpadded ones bit for bit. Each helper
+# takes tensors (any device) or host numpy arrays and answers in kind:
+# the solve service pads host operands at its door.
+
+
+def _is_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor)
 
 
 def pad_forecast_inputs(inputs: ForecastInputs, t_pad: int) -> ForecastInputs:
@@ -226,7 +252,12 @@ def pad_forecast_inputs(inputs: ForecastInputs, t_pad: int) -> ForecastInputs:
         raise ValueError(f"history length {t} exceeds bucket {t_pad}")
 
     def left(a):
-        return torch.nn.functional.pad(a, (t_pad - t, 0))
+        if _is_tensor(a):
+            return torch.nn.functional.pad(a, (t_pad - t, 0))
+        a = np.asarray(a)
+        out = np.zeros((a.shape[0], t_pad), a.dtype)
+        out[:, t_pad - t:] = a
+        return out
 
     return dataclasses.replace(
         inputs,
@@ -246,9 +277,17 @@ def concat_forecast_inputs(
     extra = s_pad - total
 
     def cat(name: str):
-        out = torch.cat([getattr(p, name) for p in padded], dim=0)
+        parts = [getattr(p, name) for p in padded]
+        if _is_tensor(parts[0]):
+            out = torch.cat(parts, dim=0)
+            if extra > 0:
+                out = torch.cat([out, out.new_zeros((extra,) + out.shape[1:])])
+            return out
+        out = np.concatenate([np.asarray(a) for a in parts], axis=0)
         if extra > 0:
-            out = torch.cat([out, out.new_zeros((extra,) + out.shape[1:])])
+            out = np.concatenate(
+                [out, np.zeros((extra,) + out.shape[1:], out.dtype)], axis=0
+            )
         return out
 
     return ForecastInputs(
@@ -262,4 +301,147 @@ def slice_forecast_outputs(out: ForecastOutputs, start: int, stop: int):
         point=out.point[start:stop],
         sigma2=out.sigma2[start:stop],
         n_valid=out.n_valid[start:stop],
+    )
+
+
+# -- numpy mirror -------------------------------------------------------------
+# The reference's forecast_numpy, copied: the numpy rung of the service's
+# forecast family and the parity oracle. It takes ForecastInputs of numpy
+# arrays and answers ForecastOutputs of numpy arrays. `_fma` is its
+# f64-rounded multiply-add (`fma` above is the tensor program's); the
+# f32 constants are numpy scalars.
+
+
+def _fma(a, b, c):
+    return (
+        np.asarray(a, np.float64) * np.asarray(b, np.float64)
+        + np.asarray(c, np.float64)
+    ).astype(np.float32)
+
+
+def _np_hw_scan(inputs: ForecastInputs):
+    values = np.asarray(inputs.values, np.float32)
+    valid = np.asarray(inputs.valid, bool)
+    S, T = values.shape
+    m = np.clip(np.asarray(inputs.season, np.int32), 1, T)
+    seasonal_on = np.asarray(inputs.season, np.int32) >= 2
+    alpha = np.asarray(inputs.alpha, np.float32)
+    beta = np.asarray(inputs.beta, np.float32)
+    gamma = np.asarray(inputs.gamma, np.float32)
+
+    level = np.zeros(S, np.float32)
+    trend = np.zeros(S, np.float32)
+    seas = np.zeros((S, T), np.float32)
+    cnt = np.zeros(S, np.int32)
+    seen = np.zeros(S, bool)
+    rows = np.arange(S)
+    for t in range(T):
+        x, v = values[:, t], valid[:, t]
+        idx = np.mod(cnt, m)
+        s_old = np.where(seasonal_on, seas[rows, idx], _ZERO)
+        init = v & ~seen
+        q = level + trend
+        nl = _fma(alpha, (x - s_old) - q, q)
+        nt = _fma(beta, (nl - level) - trend, trend)
+        ns = _fma(gamma, (x - nl) - s_old, s_old)
+        level = np.where(init, x, np.where(v, nl, level)).astype(np.float32)
+        trend = np.where(init, _ZERO, np.where(v, nt, trend)).astype(
+            np.float32
+        )
+        write = v & seasonal_on
+        seas[rows[write], idx[write]] = ns[write]
+        cnt = np.where(v, cnt + 1, cnt).astype(np.int32)
+        seen |= v
+    return level, trend, seas, cnt
+
+
+def _np_linear_fit(values, valid, times, weights):
+    S, T = values.shape
+    z = np.zeros(S, np.float32)
+    sw, st, sv, stt, stv = z.copy(), z.copy(), z.copy(), z.copy(), z.copy()
+    for t in range(T):
+        x, v, tt, w0 = values[:, t], valid[:, t], times[:, t], weights[:, t]
+        w = np.where(v, w0, _ZERO).astype(np.float32)
+        wt = w * tt
+        sw = sw + w
+        st = _fma(w, tt, st)
+        sv = _fma(w, x, sv)
+        stt = _fma(wt, tt, stt)
+        stv = _fma(wt, x, stv)
+    den = _fma(sw, stt, -(st * st))
+    num = _fma(sw, stv, -(st * sv))
+    ok = den > 0
+    slope = np.where(ok, num / np.where(ok, den, _ONE), _ZERO).astype(
+        np.float32
+    )
+    sw_safe = np.where(sw > 0, sw, _ONE).astype(np.float32)
+    mean_t = st / sw_safe
+    mean_v = sv / sw_safe
+    intercept = _fma(-slope, mean_t, mean_v)
+    return slope, intercept, sw
+
+
+def _np_residual_stats(values, valid, times, weights, slope, intercept):
+    S, T = values.shape
+    sse, sw = np.zeros(S, np.float32), np.zeros(S, np.float32)
+    for t in range(T):
+        x, v, tt, w0 = values[:, t], valid[:, t], times[:, t], weights[:, t]
+        w = np.where(v, w0, _ZERO).astype(np.float32)
+        r = x - _fma(slope, tt, intercept)
+        wr = w * r
+        sse = _fma(wr, r, sse)
+        sw = sw + w
+    return sse, sw
+
+
+def forecast_numpy(inputs: ForecastInputs) -> ForecastOutputs:
+    """Host mirror of forecast() — the numpy degradation path. Produces
+    bit-identical f32 outputs (module docstring parity contract)."""
+    values = np.asarray(inputs.values, np.float32)
+    valid = np.asarray(inputs.valid, bool)
+    times = np.asarray(inputs.times, np.float32)
+    horizon = np.asarray(inputs.horizon, np.float32)
+    base = np.asarray(inputs.weights, np.float32)
+
+    slope0, icept0, _ = _np_linear_fit(values, valid, times, base)
+    sse0, sw0 = _np_residual_stats(
+        values, valid, times, base, slope0, icept0
+    )
+    sw0_safe = np.where(sw0 > 0, sw0, _ONE).astype(np.float32)
+    scale2 = sse0 / sw0_safe
+    r = values - _fma(
+        slope0[:, None], times, np.broadcast_to(icept0[:, None], values.shape)
+    )
+    r2 = r * r
+    k2s = (_HUBER_K * _HUBER_K) * scale2
+    w_rob = base * np.where(
+        r2 > k2s[:, None],
+        k2s[:, None] / np.where(r2 > 0, r2, _ONE),
+        _ONE,
+    ).astype(np.float32)
+    slope, icept, _ = _np_linear_fit(values, valid, times, w_rob)
+    sse, swr = _np_residual_stats(values, valid, times, w_rob, slope, icept)
+    sigma2_lin = (sse / np.where(swr > 0, swr, _ONE)).astype(np.float32)
+    point_lin = _fma(slope, horizon, icept)
+
+    level, trend, seas, cnt = _np_hw_scan(inputs)
+    step_s = np.maximum(
+        np.asarray(inputs.step_s, np.float32), np.float32(_MIN_STEP_S)
+    )
+    h_steps = (horizon / step_s).astype(np.float32)
+    point_hw = _fma(trend, h_steps, level)
+    m = np.clip(np.asarray(inputs.season, np.int32), 1, values.shape[1])
+    seasonal_on = np.asarray(inputs.season, np.int32) >= 2
+    h_i = np.round(h_steps).astype(np.int32)
+    idx_f = np.mod(np.maximum(cnt - 1, 0) + h_i, m)
+    rows = np.arange(values.shape[0])
+    seas_at = np.where(seasonal_on, seas[rows, idx_f], _ZERO)
+    point_hw = point_hw + seas_at
+
+    is_hw = np.asarray(inputs.model, np.int32) == MODEL_HOLT_WINTERS
+    point = np.where(is_hw, point_hw, point_lin).astype(np.float32)
+    sigma2 = sigma2_lin
+    point = np.where(cnt > 0, point, _ZERO).astype(np.float32)
+    return ForecastOutputs(
+        point=point, sigma2=sigma2, n_valid=cnt.astype(np.int32)
     )

@@ -27,13 +27,27 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.forecast.models import fma
-from karpenter_tpu_torch.ops.decision import clip, to_i32
-from karpenter_tpu_torch.utils.operands import BOOL, F32, I32, Operands
+from karpenter_tpu_torch.ops.decision import (
+    _I32_SAFE_MAX,
+    _I32_SAFE_MIN,
+    clip,
+    to_i32,
+)
+from karpenter_tpu_torch.utils.operands import (
+    BOOL,
+    F32,
+    I32,
+    Operands,
+    host_seam,
+)
 
 # candidate ladder width: each row scores base .. base + CANDIDATES - 1
 CANDIDATES = 8
 
 _EPS = float(np.float32(1e-6))
+_NP_EPS = np.float32(1e-6)
+_ZERO = np.float32(0.0)
+_ONE = np.float32(1.0)
 
 
 @dataclass
@@ -131,6 +145,94 @@ def cost_decide(inputs: CostInputs) -> CostOutputs:
         expected_hourly=desired * inputs.unit_cost,
         violation_risk=torch.where(valid, chosen_risk, 0.0),
         headroom=to_i32(torch.where(valid, headroom, 0.0)),
+        cost_limited=cap_on & (base > hi),
+        slo_raised=valid & (chosen > base),
+    )
+
+
+# cost_decide() on the card for host operands, one fetch at the seam: the
+# CostEngine's default cost_fn (the reference's is cost_jit)
+cost_host = host_seam(cost_decide, CostInputs)
+
+
+# -- numpy mirror -------------------------------------------------------------
+# The reference's cost_numpy, copied: the parity oracle and the
+# service's requested-numpy backend. It takes CostInputs of numpy arrays
+# and answers CostOutputs of numpy arrays; `_fma` is its f64-rounded
+# multiply-add, and its f32 constants are numpy scalars.
+
+
+def _fma(a, b, c):
+    return (
+        np.asarray(a, np.float64) * np.asarray(b, np.float64)
+        + np.asarray(c, np.float64)
+    ).astype(np.float32)
+
+
+def cost_numpy(inputs: CostInputs) -> CostOutputs:
+    """Host mirror of cost_decide() — bit-identical f32 outputs (module
+    docstring parity contract)."""
+    base = np.asarray(inputs.base_desired, np.int32).astype(np.float32)
+    min_f = np.asarray(inputs.min_replicas, np.int32).astype(np.float32)
+    max_f = np.asarray(inputs.max_replicas, np.int32).astype(np.float32)
+    unit = np.asarray(inputs.unit_cost, np.float32)
+    weight = np.asarray(inputs.slo_weight, np.float32)
+    budget = np.asarray(inputs.max_hourly_cost, np.float32)
+    valid = np.asarray(inputs.slo_valid, bool)
+    slo_target = np.asarray(inputs.slo_target, np.float32)
+    mu = np.asarray(inputs.demand_mu, np.float32)
+    sigma = np.asarray(inputs.demand_sigma, np.float32)
+    dvalid = np.asarray(inputs.demand_valid, bool)
+
+    offsets = np.arange(CANDIDATES, dtype=np.float32)
+    cap_on = valid & (unit > 0) & (budget > 0)
+    safe_unit = np.where(unit > 0, unit, _ONE).astype(np.float32)
+    cap = np.floor(budget / safe_unit).astype(np.float32)
+    hi = np.where(
+        cap_on, np.minimum(max_f, np.maximum(cap, min_f)), max_f
+    ).astype(np.float32)
+    cand = np.clip(
+        base[:, None] + offsets[None, :], min_f[:, None], hi[:, None]
+    ).astype(np.float32)
+
+    demand_hi = (mu + sigma).astype(np.float32)
+    denom = np.maximum(demand_hi, _NP_EPS)[:, None, :].astype(np.float32)
+    # demand_hi - cand*slo_target: XLA:CPU contracts the subtract-of-a-
+    # product into one negated FMA, mirrored by the f64 round-trip
+    # (_fma broadcasts like the kernel's [N,K,1] x [N,1,M] operands)
+    shortfall = _fma(
+        -cand[:, :, None], slo_target[:, None, :], demand_hi[:, None, :]
+    )
+    short = np.clip((shortfall / denom).astype(np.float32), _ZERO, _ONE)
+    short = np.where(dvalid[:, None, :], short, _ZERO).astype(np.float32)
+    risk = np.max(short, axis=2)
+
+    hourly = (cand * unit[:, None]).astype(np.float32)
+    score = _fma(weight[:, None], risk, hourly)
+
+    k_star = np.argmin(score, axis=1)
+    rows = np.arange(len(base))
+    chosen = cand[rows, k_star]
+    chosen_risk = risk[rows, k_star]
+
+    needed = np.ceil(
+        (demand_hi / np.maximum(slo_target, _NP_EPS)).astype(np.float32)
+    ).astype(np.float32)
+    needed = np.where(dvalid, needed, _ZERO).astype(np.float32)
+    headroom = np.maximum(np.max(needed, axis=1) - chosen, _ZERO)
+
+    desired = np.where(valid, chosen, base).astype(np.float32)
+
+    def to_i32(x):
+        return np.clip(
+            x, np.float32(_I32_SAFE_MIN), np.float32(_I32_SAFE_MAX)
+        ).astype(np.int32)
+
+    return CostOutputs(
+        desired=to_i32(desired),
+        expected_hourly=(desired * unit).astype(np.float32),
+        violation_risk=np.where(valid, chosen_risk, _ZERO).astype(np.float32),
+        headroom=to_i32(np.where(valid, headroom, _ZERO)),
         cost_limited=cap_on & (base > hi),
         slo_raised=valid & (chosen > base),
     )

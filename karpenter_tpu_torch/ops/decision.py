@@ -32,7 +32,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.utils.operands import BOOL, F32, I32, Operands
+from karpenter_tpu_torch.utils.operands import (
+    BOOL,
+    F32,
+    I32,
+    Operands,
+    host_seam,
+)
 
 # target types (order matters: encoded into int arrays)
 TYPE_VALUE = 0
@@ -275,6 +281,221 @@ def decide(inputs: DecisionInputs) -> DecisionOutputs:
     down_hold = has_last & (elapsed < inputs.down_window.to(F32))
     up_ceiling = torch.where(up_hold, spec, spec + allowed_up)
     down_floor = torch.where(down_hold, spec, spec - allowed_down)
+
+    return DecisionOutputs(
+        desired=to_i32(bounded),
+        recommendation=to_i32(selected),
+        limited=to_i32(limited),
+        able_to_scale=able_to_scale,
+        scaling_unbounded=scaling_unbounded,
+        able_at=able_at,
+        rate_limited=rate_limited,
+        up_ceiling=to_i32(up_ceiling),
+        down_floor=to_i32(down_floor),
+    )
+
+
+# decide() on the card for host operands, one fetch at the seam: the
+# BatchAutoscaler's default decider (the reference's is decide_jit)
+decide_host = host_seam(decide, DecisionInputs)
+
+
+# -- numpy mirror -------------------------------------------------------------
+# The reference's decide_numpy, copied: the parity oracle for the fused
+# tick and the decide stage of its numpy floor (ops/fusedtick.py). It
+# takes DecisionInputs whose fields are numpy arrays (or anything
+# np.asarray takes) and answers DecisionOutputs of numpy arrays, bit for
+# bit equal to decide() above. The f32 constants are the mirror's own
+# (numpy scalars), apart from the tensor program's Python floats.
+
+_F32_ONE = np.float32(1.0)
+_F32_ZERO = np.float32(0.0)
+_F32_GUARD = np.float32(_CEIL_GUARD)
+_NP_NEG = np.float32(np.finfo(np.float32).min)
+_NP_POS = np.float32(np.finfo(np.float32).max)
+
+
+def _ceil_guarded_np(x: np.ndarray) -> np.ndarray:
+    return np.ceil((x - _F32_GUARD).astype(np.float32)).astype(np.float32)
+
+
+def _recommendations_numpy(
+    inputs: DecisionInputs, values: Optional[np.ndarray] = None
+) -> np.ndarray:
+    """Host mirror of _recommendations() — bit-identical f32."""
+    if values is None:
+        values = inputs.metric_value
+    values = np.asarray(values, np.float32)
+    target = np.asarray(inputs.target_value, np.float32)
+    target_type = np.asarray(inputs.target_type, np.int32)
+    safe_target = np.where(target != 0, target, _F32_ONE).astype(np.float32)
+    ratio = np.where(
+        target != 0, (values / safe_target).astype(np.float32), _F32_ZERO
+    ).astype(np.float32)
+    status = (
+        np.asarray(inputs.status_replicas, np.int32)[:, None]
+        .astype(np.float32)
+    )
+    proportional = (status * ratio).astype(np.float32)
+
+    by_value = np.maximum(_F32_ONE, _ceil_guarded_np(proportional))
+    by_average = _ceil_guarded_np(ratio)
+    by_utilization = np.maximum(
+        _F32_ONE,
+        _ceil_guarded_np((proportional * np.float32(100.0)).astype(np.float32)),
+    )
+    fallback = np.broadcast_to(status, ratio.shape)
+
+    return np.select(
+        [
+            target_type == TYPE_VALUE,
+            target_type == TYPE_AVERAGE_VALUE,
+            target_type == TYPE_UTILIZATION,
+        ],
+        [by_value, by_average, by_utilization],
+        fallback,
+    ).astype(np.float32)
+
+
+def decide_numpy(inputs: DecisionInputs) -> DecisionOutputs:  # lint: allow-complexity — line-for-line kernel mirror, linear
+    """Host mirror of decide() — bit-identical f32/i32 outputs (the
+    fused-tick parity contract; see the mirror banner above)."""
+    rec = _recommendations_numpy(inputs)
+    if inputs.forecast_value is not None:
+        rec_forecast = _recommendations_numpy(inputs, inputs.forecast_value)
+        blend = (
+            np.asarray(inputs.forecast_valid, bool)
+            & np.asarray(inputs.metric_valid, bool)
+        )
+        rec = np.where(
+            blend, np.maximum(rec, rec_forecast), rec
+        ).astype(np.float32)
+    valid = np.asarray(inputs.metric_valid, bool)
+    spec = np.asarray(inputs.spec_replicas, np.int32).astype(np.float32)
+
+    any_valid = np.any(valid, axis=1)
+    any_up = np.any(valid & (rec > spec[:, None]), axis=1)
+    any_down = np.any(valid & (rec < spec[:, None]), axis=1)
+    policy = np.where(
+        any_up,
+        np.asarray(inputs.up_policy, np.int32),
+        np.where(
+            any_down, np.asarray(inputs.down_policy, np.int32),
+            POLICY_DISABLED,
+        ),
+    ).astype(np.int32)
+    rec_max = np.max(np.where(valid, rec, _NP_NEG), axis=1).astype(np.float32)
+    rec_min = np.min(np.where(valid, rec, _NP_POS), axis=1).astype(np.float32)
+    selected = np.select(
+        [policy == POLICY_MAX, policy == POLICY_MIN],
+        [rec_max, rec_min],
+        spec,
+    ).astype(np.float32)
+    selected = np.where(any_valid, selected, spec).astype(np.float32)
+
+    going_up = selected > spec
+    going_down = selected < spec
+    window = np.where(
+        going_up,
+        np.asarray(inputs.up_window, np.int32),
+        np.where(going_down, np.asarray(inputs.down_window, np.int32), 0),
+    ).astype(np.float32)
+    last = np.asarray(inputs.last_scale_time, np.float32)
+    has_last = np.asarray(inputs.has_last_scale, bool)
+    elapsed = (np.float32(inputs.now) - last).astype(np.float32)
+    moving = going_up | going_down
+    within = moving & has_last & (elapsed < window)
+    window_end = (last + window).astype(np.float32)
+    limited = np.where(within, spec, selected).astype(np.float32)
+
+    def _allowed(ptype, pvalue, pperiod, pvalid, select):
+        ptype = np.asarray(ptype, np.int32)
+        pvalue_f = np.asarray(pvalue, np.int32).astype(np.float32)
+        pperiod_f = np.asarray(pperiod, np.int32).astype(np.float32)
+        pvalid = np.asarray(pvalid, bool)
+        select = np.asarray(select, np.int32)
+        base = np.maximum(spec[:, None], _F32_ONE).astype(np.float32)
+        budget = np.where(
+            ptype == POLICY_TYPE_PERCENT,
+            _ceil_guarded_np(
+                (
+                    (base * pvalue_f).astype(np.float32)
+                    / np.float32(100.0)
+                ).astype(np.float32)
+            ),
+            pvalue_f,
+        ).astype(np.float32)
+        spent = has_last[:, None] & (elapsed[:, None] < pperiod_f)
+        per_policy = np.where(spent, _F32_ZERO, budget).astype(np.float32)
+        a_max = np.max(np.where(pvalid, per_policy, _NP_NEG), axis=1)
+        a_min = np.min(np.where(pvalid, per_policy, _NP_POS), axis=1)
+        allowed = np.where(
+            select == POLICY_MIN, a_min, a_max
+        ).astype(np.float32)
+        unlimited = ~np.any(pvalid, axis=1) | ~has_last
+        p_min = np.min(np.where(pvalid, pperiod_f, _NP_POS), axis=1)
+        p_max = np.max(np.where(pvalid, pperiod_f, _NP_NEG), axis=1)
+        frees = np.where(
+            select == POLICY_MIN, p_max, p_min
+        ).astype(np.float32)
+        return (
+            np.where(unlimited, _NP_POS, allowed).astype(np.float32),
+            frees,
+        )
+
+    allowed_up, up_frees = _allowed(
+        inputs.up_ptype,
+        inputs.up_pvalue,
+        inputs.up_pperiod,
+        inputs.up_pvalid,
+        inputs.up_policy,
+    )
+    allowed_down, down_frees = _allowed(
+        inputs.down_ptype,
+        inputs.down_pvalue,
+        inputs.down_pperiod,
+        inputs.down_pvalid,
+        inputs.down_policy,
+    )
+    rate_clamped = np.clip(
+        limited,
+        (spec - allowed_down).astype(np.float32),
+        (spec + allowed_up).astype(np.float32),
+    ).astype(np.float32)
+    rate_limited = rate_clamped != limited
+    fully_held = rate_limited & (rate_clamped == spec)
+    rate_end = (
+        last + np.where(limited > spec, up_frees, down_frees)
+    ).astype(np.float32)
+    limited = rate_clamped
+
+    able_to_scale = ~within & ~fully_held
+    able_at = np.where(fully_held, rate_end, window_end).astype(np.float32)
+
+    bounded = np.clip(
+        limited,
+        np.asarray(inputs.min_replicas, np.int32).astype(np.float32),
+        np.asarray(inputs.max_replicas, np.int32).astype(np.float32),
+    ).astype(np.float32)
+    scaling_unbounded = bounded == limited
+
+    up_hold = has_last & (
+        elapsed < np.asarray(inputs.up_window, np.int32).astype(np.float32)
+    )
+    down_hold = has_last & (
+        elapsed < np.asarray(inputs.down_window, np.int32).astype(np.float32)
+    )
+    up_ceiling = np.where(
+        up_hold, spec, (spec + allowed_up).astype(np.float32)
+    ).astype(np.float32)
+    down_floor = np.where(
+        down_hold, spec, (spec - allowed_down).astype(np.float32)
+    ).astype(np.float32)
+
+    def to_i32(x):
+        return np.clip(
+            x, np.float32(_I32_SAFE_MIN), np.float32(_I32_SAFE_MAX)
+        ).astype(np.int32)
 
     return DecisionOutputs(
         desired=to_i32(bounded),

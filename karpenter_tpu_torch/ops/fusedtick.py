@@ -33,8 +33,10 @@ operand shape class: the counterpart of `fused_tick_jit`.
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -44,7 +46,14 @@ from karpenter_tpu_torch.ops import cost as C
 from karpenter_tpu_torch.ops import decision as D
 from karpenter_tpu_torch.ops import poolgroup as PG
 from karpenter_tpu_torch.utils.device import DeviceLike, resolve_device
-from karpenter_tpu_torch.utils.operands import BOOL, F32, I32, Operands
+from karpenter_tpu_torch.utils.operands import (
+    BOOL,
+    F32,
+    I32,
+    Operands,
+    fetch,
+    host_seam,
+)
 
 _I32_MAX = int(np.iinfo(np.int32).max)
 
@@ -363,42 +372,73 @@ def _clone_tree(obj):
     )
 
 
+def _all_tensors(obj) -> bool:
+    return all(isinstance(t, torch.Tensor) for _, t in _leaves(obj))
+
+
 class FusedTickProgram:
     """`fused_tick` as one captured CUDA graph per operand shape class
     (the counterpart of `fused_tick_jit`, which compiles one XLA program
     per shape class).
 
-    A call on the card copies the operands into the shape class's static
-    input buffers, replays the graph (one launch sequence, no host round
-    trip) and returns clones of the static outputs. The first call of a
-    shape class captures it: two eager warm-up ticks on a side stream,
-    then the capture. A failed capture raises; it never falls back to
-    eager. On the CPU a call is `fused_tick` itself."""
+    A call on the card copies the operands (tensors on any device, or
+    host numpy arrays) into the shape class's static input buffers,
+    replays the graph (one launch sequence, no host round trip) and
+    returns clones of the static outputs, or with `host=True` the
+    outputs as numpy in one device->host copy (utils/operands.fetch).
+    The first call of a shape class captures it: two eager warm-up
+    ticks on a side stream, then the capture with capture_error_mode
+    "thread_local", so another thread's CUDA calls (the solve service's
+    worker launching bin-pack kernels) neither fail nor invalidate the
+    capture. A failed capture raises; it never falls back to eager.
+    One call at a time runs on the card: a lock is held from the copy
+    into the static buffers through the fetch, since concurrent calls
+    of one shape class share those buffers. On the CPU a call is
+    `fused_tick` itself."""
 
     def __init__(self, device: DeviceLike = None):
         self.device = resolve_device(device)
+        self._lock = threading.Lock()
         self._graphs = {}  # shape class -> (static inputs, outputs, graph)
         self.captures = 0
         self.replays = 0
+        self.last_split: dict = {}
 
-    def __call__(self, inputs: FusedTickInputs) -> FusedTickOutputs:
-        inputs = inputs.to(self.device)
+    def __call__(self, inputs: FusedTickInputs, host: bool = False):
+        t0 = time.perf_counter()
+        if not _all_tensors(inputs):
+            inputs = FusedTickInputs.from_numpy(inputs, "cpu")
         if self.device.type != "cuda":
-            return fused_tick(inputs)
-        key = shape_class(inputs)
-        entry = self._graphs.get(key)
-        if entry is None:
-            entry = self._capture(inputs)
-            self._graphs[key] = entry
-        static_in, static_out, graph = entry
-        for (_, dst), (_, src) in zip(_leaves(static_in), _leaves(inputs)):
-            dst.copy_(src)
-        graph.replay()
-        self.replays += 1
-        return _clone_tree(static_out)
+            out = fused_tick(inputs.to(self.device))
+            return fetch(out) if host else out
+        with self._lock:
+            key = shape_class(inputs)
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._capture(inputs)
+                self._graphs[key] = entry
+            static_in, static_out, graph = entry
+            for (_, dst), (_, src) in zip(
+                _leaves(static_in), _leaves(inputs)
+            ):
+                dst.copy_(src)
+            t1 = time.perf_counter()
+            graph.replay()
+            self.replays += 1
+            t2 = time.perf_counter()
+            out = fetch(static_out) if host else _clone_tree(static_out)
+        # host-clock split of the call: staging + host->device copies
+        # (and a capture on a shape class's first call), the replay's
+        # launch, and the fetch, which waits for the device
+        self.last_split = {
+            "upload_ms": (t1 - t0) * 1e3,
+            "replay_ms": (t2 - t1) * 1e3,
+            "fetch_ms": (time.perf_counter() - t2) * 1e3,
+        }
+        return out
 
     def _capture(self, inputs: FusedTickInputs):
-        static_in = _clone_tree(inputs)
+        static_in = _clone_tree(inputs.to(self.device))
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
@@ -406,19 +446,228 @@ class FusedTickProgram:
                 fused_tick(static_in)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             static_out = fused_tick(static_in)
         self.captures += 1
         return static_in, static_out, graph
+
+
+# -- chained path and numpy floor (the reference's, copied) -----------------
+# Same operands, one program PER STAGE with numpy host glue between —
+# the pre-fusion wire. The glue mirrors the program's seams (boolean-
+# index writes land on zero-initialised cells), so chained == fused
+# bitwise wherever live series take distinct cells (module docstring).
+
+
+def _np_scatter(inputs, fout, n: int, m: int):
+    rows = np.asarray(inputs.series_row, np.int64)
+    cols = np.asarray(inputs.series_col, np.int64)
+    point = np.asarray(fout.point, np.float32)
+    sigma2 = np.asarray(fout.sigma2, np.float32)
+    live = rows < n
+    dist_gate = (
+        np.asarray(fout.n_valid, np.int32)
+        >= np.asarray(inputs.series_need, np.int32)
+    ) & live
+    blend_gate = np.asarray(inputs.series_blend, bool) & dist_gate
+    fv = np.zeros((n, m), np.float32)
+    fvalid = np.zeros((n, m), bool)
+    fv[rows[blend_gate], cols[blend_gate]] = point[blend_gate]
+    fvalid[rows[blend_gate], cols[blend_gate]] = True
+    dist_point = np.zeros((n, m), np.float32)
+    dist_sigma2 = np.zeros((n, m), np.float32)
+    dist_ok = np.zeros((n, m), bool)
+    dist_point[rows[dist_gate], cols[dist_gate]] = point[dist_gate]
+    dist_sigma2[rows[dist_gate], cols[dist_gate]] = sigma2[dist_gate]
+    dist_ok[rows[dist_gate], cols[dist_gate]] = True
+    return fv, fvalid, (dist_point, dist_sigma2, dist_ok)
+
+
+def _np_demand_overlay(inputs, dout, dist) -> C.CostInputs:
+    prior_point = np.asarray(inputs.prior_point, np.float32)
+    prior_sigma2 = np.asarray(inputs.prior_sigma2, np.float32)
+    have = np.asarray(inputs.prior_valid, bool)
+    if dist is not None:
+        dist_point, dist_sigma2, dist_ok = dist
+        prior_point = np.where(dist_ok, dist_point, prior_point)
+        prior_sigma2 = np.where(dist_ok, dist_sigma2, prior_sigma2)
+        have = dist_ok | have
+    observed = np.asarray(inputs.observed, np.float32)
+    with np.errstate(invalid="ignore"):
+        mu = np.where(
+            have & np.isfinite(prior_point),
+            np.maximum(observed, prior_point),
+            observed,
+        )
+        sigma = np.where(
+            have & np.isfinite(prior_sigma2) & (prior_sigma2 > 0),
+            np.sqrt(prior_sigma2),
+            np.float32(0.0),
+        )
+    valid = np.asarray(inputs.demand_base_valid, bool)
+    mu = np.where(valid, mu, np.float32(0.0)).astype(np.float32)
+    sigma = np.where(valid, sigma, np.float32(0.0)).astype(np.float32)
+    slo = np.asarray(inputs.slo_valid, bool)
+    ha_min = np.asarray(inputs.ha_min, np.int32)
+    ha_max = np.asarray(inputs.ha_max, np.int32)
+    down_floor = np.asarray(dout.down_floor, np.int32)
+    up_ceiling = np.asarray(dout.up_ceiling, np.int32)
+    min_eff = np.where(
+        slo, np.maximum(ha_min, np.minimum(down_floor, ha_max)), 0
+    ).astype(np.int32)
+    max_eff = np.where(
+        slo, np.minimum(ha_max, np.maximum(up_ceiling, ha_min)), 0
+    ).astype(np.int32)
+    return C.CostInputs(
+        base_desired=np.asarray(dout.desired, np.int32),
+        min_replicas=min_eff,
+        max_replicas=max_eff,
+        unit_cost=np.asarray(inputs.unit_cost, np.float32),
+        slo_weight=np.asarray(inputs.slo_weight, np.float32),
+        max_hourly_cost=np.asarray(inputs.max_hourly_cost, np.float32),
+        slo_valid=slo,
+        slo_target=np.asarray(inputs.slo_target, np.float32),
+        demand_mu=mu,
+        demand_sigma=sigma,
+        demand_valid=valid,
+    )
+
+
+def _np_pg_overlay(
+    pg: PoolGroupOperands, final_desired, dout, dist
+) -> PG.PoolGroupInputs:
+    """Host mirror of _pg_overlay (same gather + overlay, np ops)."""
+    final_desired = np.asarray(final_desired, np.int32)
+    n = final_desired.shape[0]
+    rows = np.clip(np.asarray(pg.member_row, np.int32), 0, n - 1)
+    valid = np.asarray(pg.pool_valid, bool)
+    base = np.where(valid, final_desired[rows], 0).astype(np.int32)
+    down = np.asarray(dout.down_floor, np.int32)[rows]
+    up = np.asarray(dout.up_ceiling, np.int32)[rows]
+    pg_min = np.asarray(pg.pg_min, np.int32)
+    pg_max = np.asarray(pg.pg_max, np.int32)
+    min_eff = np.where(
+        valid, np.maximum(pg_min, np.minimum(down, pg_max)), 0
+    ).astype(np.int32)
+    max_eff = np.where(
+        valid, np.minimum(pg_max, np.maximum(up, pg_min)), 0
+    ).astype(np.int32)
+    prior_point = np.asarray(pg.prior_point, np.float32)
+    prior_sigma2 = np.asarray(pg.prior_sigma2, np.float32)
+    have = np.asarray(pg.prior_valid, bool)
+    if dist is not None:
+        dist_point, dist_sigma2, dist_ok = dist  # [N, M] grids
+        g_ok = dist_ok[rows]
+        prior_point = np.where(g_ok, dist_point[rows], prior_point)
+        prior_sigma2 = np.where(g_ok, dist_sigma2[rows], prior_sigma2)
+        have = g_ok | have
+    observed = np.asarray(pg.observed, np.float32)
+    with np.errstate(invalid="ignore"):
+        mu = np.where(
+            have & np.isfinite(prior_point),
+            np.maximum(observed, prior_point),
+            observed,
+        )
+        sigma = np.where(
+            have & np.isfinite(prior_sigma2) & (prior_sigma2 > 0),
+            np.sqrt(prior_sigma2),
+            np.float32(0.0),
+        )
+    dvalid = np.asarray(pg.demand_base_valid, bool)
+    mu = np.where(dvalid, mu, np.float32(0.0)).astype(np.float32)
+    sigma = np.where(dvalid, sigma, np.float32(0.0)).astype(np.float32)
+    return PG.PoolGroupInputs(
+        base_desired=base,
+        min_replicas=min_eff,
+        max_replicas=max_eff,
+        unit_cost=np.asarray(pg.unit_cost, np.float32),
+        slo_weight=np.asarray(pg.slo_weight, np.float32),
+        max_hourly_cost=np.asarray(pg.max_hourly_cost, np.float32),
+        tier_penalty=np.asarray(pg.tier_penalty, np.float32),
+        pool_valid=valid,
+        slo_target=np.asarray(pg.slo_target, np.float32),
+        demand_mu=mu,
+        demand_sigma=sigma,
+        demand_valid=dvalid,
+        ratio_a=np.asarray(pg.ratio_a, np.int32),
+        ratio_b=np.asarray(pg.ratio_b, np.int32),
+        ratio_min_num=np.asarray(pg.ratio_min_num, np.int32),
+        ratio_min_den=np.asarray(pg.ratio_min_den, np.int32),
+        ratio_max_num=np.asarray(pg.ratio_max_num, np.int32),
+        ratio_max_den=np.asarray(pg.ratio_max_den, np.int32),
+        ratio_valid=np.asarray(pg.ratio_valid, bool),
+        group_budget=np.asarray(pg.group_budget, np.float32),
+        group_valid=np.asarray(pg.group_valid, bool),
+    )
+
+
+def fused_tick_chained(
+    inputs: FusedTickInputs,
+    forecast_fn: Optional[Callable] = None,
+    decide_fn: Optional[Callable] = None,
+    cost_fn: Optional[Callable] = None,
+    poolgroup_fn: Optional[Callable] = None,
+    device: DeviceLike = None,
+) -> FusedTickOutputs:
+    """One program per stage, host round-trip between each — the
+    pre-fusion wire and the CPU service's fallback rung. A stage
+    function left None is the port's program for it on `device` (the
+    card by default), its operands uploaded and its outputs fetched in
+    one copy (utils/operands.host_seam). `inputs` may hold tensors or
+    numpy arrays: the glue runs on host copies."""
+    inputs = FusedTickInputs.from_arrays(inputs)
+    forecast_fn = forecast_fn or host_seam(M.forecast, M.ForecastInputs, device)
+    decide_fn = decide_fn or host_seam(D.decide, D.DecisionInputs, device)
+    cost_fn = cost_fn or host_seam(C.cost_decide, C.CostInputs, device)
+    poolgroup_fn = poolgroup_fn or host_seam(
+        PG.poolgroup_decide, PG.PoolGroupInputs, device
+    )
+    dec = inputs.decision
+    n = int(np.asarray(dec.spec_replicas).shape[0])
+    m = int(np.asarray(dec.metric_value).shape[1])
+    fout = None
+    dist = None
+    if inputs.forecast is not None:
+        fout = fetch(forecast_fn(inputs.forecast))
+        fv, fvalid, dist = _np_scatter(inputs, fout, n, m)
+        dec = replace(dec, forecast_value=fv, forecast_valid=fvalid)
+    dout = fetch(decide_fn(dec))
+    cout = None
+    if inputs.slo_valid is not None:
+        cout = fetch(cost_fn(_np_demand_overlay(inputs, dout, dist)))
+    pout = None
+    if inputs.poolgroup is not None:
+        final = cout.desired if cout is not None else dout.desired
+        pout = fetch(
+            poolgroup_fn(
+                _np_pg_overlay(inputs.poolgroup, final, dout, dist)
+            )
+        )
+    return FusedTickOutputs(
+        decision=dout, forecast=fout, cost=cout, poolgroup=pout
+    )
+
+
+def fused_tick_numpy(inputs: FusedTickInputs) -> FusedTickOutputs:
+    """Pure-host floor of the never-block ladder: the stage mirrors
+    joined by the same glue. Bitwise equal to fused_tick."""
+    return fused_tick_chained(
+        inputs,
+        M.forecast_numpy,
+        D.decide_numpy,
+        C.cost_numpy,
+        PG.poolgroup_numpy,
+    )
 
 
 # -- padding ------------------------------------------------------------------
 
 
 def pad_series(inputs: FusedTickInputs, s_pad: int) -> FusedTickInputs:
-    """Pad the forecast group to `s_pad` series. Pad series carry an
-    impossible sample requirement, a False blend gate and the trash row
-    N: they cannot touch a live cell."""
+    """Pad the forecast group to `s_pad` series (tensors or host numpy,
+    answered in kind). Pad series carry an impossible sample
+    requirement, a False blend gate and the trash row N: they cannot
+    touch a live cell."""
     if inputs.forecast is None:
         return inputs
     s = inputs.forecast.values.shape[0]
@@ -430,7 +679,10 @@ def pad_series(inputs: FusedTickInputs, s_pad: int) -> FusedTickInputs:
     n = inputs.decision.spec_replicas.shape[0]
 
     def extend(t, fill):
-        return torch.cat([t, t.new_full((pad,), fill)])
+        if isinstance(t, torch.Tensor):
+            return torch.cat([t, t.new_full((pad,), fill)])
+        t = np.asarray(t)
+        return np.concatenate([t, np.full(pad, fill, t.dtype)])
 
     return replace(
         inputs,

@@ -25,17 +25,32 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from karpenter_tpu_torch.forecast.models import fma
 from karpenter_tpu_torch.ops.cost import (
+    _NP_EPS,
+    _ONE,
+    _ZERO,
     CANDIDATES,
+    _fma,
     headroom_need,
     ladder,
     risk_of,
 )
-from karpenter_tpu_torch.ops.decision import to_i32
-from karpenter_tpu_torch.utils.operands import BOOL, F32, I32, Operands
+from karpenter_tpu_torch.ops.decision import (
+    _I32_SAFE_MAX,
+    _I32_SAFE_MIN,
+    to_i32,
+)
+from karpenter_tpu_torch.utils.operands import (
+    BOOL,
+    F32,
+    I32,
+    Operands,
+    host_seam,
+)
 
 # pool-count ceiling per group and the static pool-axis buckets (K^P
 # joint candidates: 4 pools x K = 8 is 4,096)
@@ -65,6 +80,18 @@ def joint_digits(pools: int, device=None) -> torch.Tensor:
     c = torch.arange(CANDIDATES**pools, dtype=torch.int64, device=device)
     radix = CANDIDATES ** torch.arange(pools, dtype=torch.int64, device=device)
     return (c[None, :] // radix[:, None]) % CANDIDATES
+
+
+def _np_joint_digits(pools: int) -> np.ndarray:
+    """i32[P, K^P]: joint_digits as a host array (the numpy mirror's)."""
+    c = CANDIDATES ** pools
+    return (
+        (np.arange(c)[None, :] // (CANDIDATES ** np.arange(pools)[:, None]))
+        % CANDIDATES
+    ).astype(np.int32)
+
+
+_INF = np.float32(np.inf)
 
 
 @dataclass
@@ -228,3 +255,174 @@ def poolgroup_decide(
         group_hourly=torch.where(group_valid, sel_spend, 0.0),
         joint_repair=group_valid & (selected != indep_c),
     )
+
+
+# poolgroup_decide() on the card for host operands, one fetch at the
+# seam: the PoolGroupEngine's default poolgroup_fn (the reference's is
+# poolgroup_jit)
+poolgroup_host = host_seam(poolgroup_decide, PoolGroupInputs)
+
+
+# -- numpy mirror -------------------------------------------------------------
+# The reference's poolgroup_numpy, copied with its `_violations` (numpy
+# branch only): the parity oracle, the service's requested-numpy backend
+# (enforce=True) and its independent-ladder rung (enforce=False). It
+# takes PoolGroupInputs of numpy arrays and answers PoolGroupOutputs of
+# numpy arrays.
+
+
+def poolgroup_numpy(
+    inputs: PoolGroupInputs, enforce: bool = True
+) -> PoolGroupOutputs:
+    """Host mirror of poolgroup_decide() — bit-identical output leaves
+    (module docstring parity contract)."""
+    base = np.asarray(inputs.base_desired, np.int32).astype(np.float32)
+    min_f = np.asarray(inputs.min_replicas, np.int32).astype(np.float32)
+    max_f = np.asarray(inputs.max_replicas, np.int32).astype(np.float32)
+    unit = np.asarray(inputs.unit_cost, np.float32)
+    weight = np.asarray(inputs.slo_weight, np.float32)
+    budget = np.asarray(inputs.max_hourly_cost, np.float32)
+    tier = np.asarray(inputs.tier_penalty, np.float32)
+    valid = np.asarray(inputs.pool_valid, bool)
+    slo_target = np.asarray(inputs.slo_target, np.float32)
+    mu = np.asarray(inputs.demand_mu, np.float32)
+    sigma = np.asarray(inputs.demand_sigma, np.float32)
+    dvalid = np.asarray(inputs.demand_valid, bool)
+    group_valid = np.asarray(inputs.group_valid, bool)
+    g, p = base.shape
+    c = CANDIDATES ** p
+    digits = _np_joint_digits(p)  # [P, C]
+
+    offsets = np.arange(CANDIDATES, dtype=np.float32)
+    cap_on = valid & (unit > 0) & (budget > 0)
+    safe_unit = np.where(unit > 0, unit, _ONE).astype(np.float32)
+    cap = np.floor(budget / safe_unit).astype(np.float32)
+    hi = np.where(
+        cap_on, np.minimum(max_f, np.maximum(cap, min_f)), max_f
+    ).astype(np.float32)
+    cand = np.clip(
+        base[:, :, None] + offsets[None, None, :],
+        min_f[:, :, None],
+        hi[:, :, None],
+    ).astype(np.float32)
+
+    demand_hi = (mu + sigma).astype(np.float32)
+    denom = np.maximum(demand_hi, _NP_EPS)[:, :, None, :].astype(np.float32)
+    shortfall = _fma(
+        -cand[:, :, :, None],
+        slo_target[:, :, None, :],
+        demand_hi[:, :, None, :],
+    )
+    short = np.clip((shortfall / denom).astype(np.float32), _ZERO, _ONE)
+    short = np.where(dvalid[:, :, None, :], short, _ZERO).astype(np.float32)
+    risk = np.max(short, axis=3)
+
+    rate = (unit + tier).astype(np.float32)
+    hourly = (cand * rate[:, :, None]).astype(np.float32)
+    score = _fma(weight[:, :, None], risk, hourly)
+
+    k_star = np.argmin(score, axis=2).astype(np.int32)
+
+    idx = np.broadcast_to(digits[None, :, :], (g, p, c))
+    cand_j = np.take_along_axis(cand, idx, axis=2)
+    score_j = np.take_along_axis(score, idx, axis=2)
+    risk_j = np.take_along_axis(risk, idx, axis=2)
+    n_j = cand_j.astype(np.int32)
+
+    total = score_j[:, 0, :]
+    spend = (cand_j[:, 0, :] * unit[:, 0, None]).astype(np.float32)
+    for pool in range(1, p):
+        total = (score_j[:, pool, :] + total).astype(np.float32)
+        spend = _fma(cand_j[:, pool, :], unit[:, pool, None], spend)
+
+    viol = _np_violations(inputs, n_j, spend)
+
+    indep_c = k_star[:, 0].copy()
+    for pool in range(1, p):
+        indep_c = (
+            indep_c + k_star[:, pool] * np.int32(CANDIDATES ** pool)
+        ).astype(np.int32)
+    rows = np.arange(g)
+    indep_viol = viol[rows, indep_c]
+    min_viol = np.min(viol, axis=1)
+    masked_total = np.where(
+        viol == min_viol[:, None], total, _INF
+    ).astype(np.float32)
+    repair_c = np.argmin(masked_total, axis=1).astype(np.int32)
+    if enforce:
+        selected = np.where(indep_viol == 0, indep_c, repair_c).astype(
+            np.int32
+        )
+    else:
+        selected = indep_c
+
+    chosen = cand_j[rows[:, None], np.arange(p)[None, :], selected[:, None]]
+    chosen_risk = risk_j[
+        rows[:, None], np.arange(p)[None, :], selected[:, None]
+    ]
+    sel_viol = viol[rows, selected]
+    sel_spend = spend[rows, selected]
+
+    needed = np.ceil(
+        (demand_hi / np.maximum(slo_target, _NP_EPS)).astype(np.float32)
+    ).astype(np.float32)
+    needed = np.where(dvalid, needed, _ZERO).astype(np.float32)
+    headroom = np.maximum(np.max(needed, axis=2) - chosen, _ZERO)
+
+    desired = np.where(valid, chosen, base).astype(np.float32)
+
+    def to_i32(x):
+        return np.clip(
+            x, np.float32(_I32_SAFE_MIN), np.float32(_I32_SAFE_MAX)
+        ).astype(np.int32)
+
+    return PoolGroupOutputs(
+        desired=to_i32(desired),
+        expected_hourly=(desired * unit).astype(np.float32),
+        violation_risk=np.where(valid, chosen_risk, _ZERO).astype(
+            np.float32
+        ),
+        headroom=to_i32(np.where(valid, headroom, _ZERO)),
+        cost_limited=cap_on & (base > hi),
+        slo_raised=valid & (chosen > base),
+        ratio_ok=group_valid & (sel_viol == 0),
+        group_hourly=np.where(group_valid, sel_spend, _ZERO).astype(
+            np.float32
+        ),
+        joint_repair=group_valid & (selected != indep_c),
+    )
+
+
+def _np_violations(inputs, n_j, spend):
+    """Exact-i32 constraint-violation count per joint candidate (int
+    math only, plus one f32 compare for the budget whose operand `spend`
+    the caller already computed under the parity discipline).
+
+    Ratio bands compare by integer cross-multiplication — a/b >= lo is
+    a*lo_den >= b*lo_num — so a slot with min_num=0 self-disables the
+    lower bound (n*den < 0 is false for n >= 0) and max_num=max_den=0
+    self-disables the upper (0 > 0 is false): absent bounds need no
+    masks, only genuinely invalid slots do."""
+    g, p, c = n_j.shape
+    viol = np.zeros((g, c), np.int32)
+    for r in range(RATIO_SLOTS):
+        a_idx = np.clip(inputs.ratio_a[:, r], 0, p - 1).astype(np.int32)
+        b_idx = np.clip(inputs.ratio_b[:, r], 0, p - 1).astype(np.int32)
+        rows = np.arange(g)
+        n_a = n_j[rows, a_idx]
+        n_b = n_j[rows, b_idx]
+        low = (
+            n_a * inputs.ratio_min_den[:, r, None]
+            < n_b * inputs.ratio_min_num[:, r, None]
+        )
+        high = (
+            n_a * inputs.ratio_max_den[:, r, None]
+            > n_b * inputs.ratio_max_num[:, r, None]
+        )
+        live = inputs.ratio_valid[:, r, None]
+        viol = viol + np.where(live & low, np.int32(1), np.int32(0))
+        viol = viol + np.where(live & high, np.int32(1), np.int32(0))
+    over = (inputs.group_budget[:, None] > 0) & (
+        spend > inputs.group_budget[:, None]
+    )
+    return viol + np.where(over, np.int32(1), np.int32(0))

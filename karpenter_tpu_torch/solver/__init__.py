@@ -10,6 +10,8 @@ Public surface:
   * SolverSaturated     — bounded-queue backpressure signal
   * SolverTimeout       — per-request deadline expiry
   * SolverDeviceError   — the card's device path hung or is degraded
+  * CostUnavailable     — the cost family is short-circuited (FSM
+                          degraded): the caller scales cost-blind
   * default_service     — the process-shared instance
   * bucket_up / bucket_shape / pad_to_bucket — the shape ladder
 """
@@ -22,6 +24,7 @@ from karpenter_tpu_torch.solver.bucketing import (
 from karpenter_tpu_torch.solver.resident import ResidentFleetState
 from karpenter_tpu_torch.solver.service import (
     SUBSYSTEM,
+    CostUnavailable,
     SolveFuture,
     SolverDeviceError,
     SolverSaturated,
@@ -33,6 +36,7 @@ from karpenter_tpu_torch.solver.service import (
 )
 
 __all__ = [
+    "CostUnavailable",
     "ResidentFleetState",
     "SUBSYSTEM",
     "SolveFuture",

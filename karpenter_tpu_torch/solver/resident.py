@@ -313,7 +313,7 @@ class ResidentFleetState:
         ]
         out = _scatter_stack(stacked, rows_t, *updates)
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            torch.cuda.current_stream(device).synchronize()
         self.last_scatter_rows = int(len(union))
         self.last_scatter_bytes = rows_t.numel() * 8 + sum(
             u.numel() * u.element_size() for u in updates

@@ -1,10 +1,11 @@
 """Shared solve service: one amortized device pipeline for every caller.
 
-The port's copy of karpenter_tpu/solver/service.py: the bin-pack and
-decide families with the numpy floor rung. Every bin-pack caller — the
-pendingCapacity batch solve, and later simulate and the sidecar — goes
-through this single in-process front door, which turns independent calls
-into one production pipeline:
+The port's copy of karpenter_tpu/solver/service.py: the bin-pack,
+decide and fleet-tick families (forecast, cost, poolgroup, fused_tick)
+with the numpy floor rung. Every bin-pack caller — the pendingCapacity
+batch solve, and later simulate and the sidecar — goes through this
+single in-process front door, which turns independent calls into one
+production pipeline:
 
   submit → coalesce → pad → dispatch → scatter
 
@@ -90,9 +91,26 @@ encode and zero upload, and a delta-encoded successor (the encoder's
 SnapshotDeltaCache publishes the changed-row plan) applies as a row
 scatter instead of a full re-upload.
 
+The fleet-tick families (the HorizontalAutoscaler path; each answers
+host numpy, fetched from the device in one copy per call):
+
+  * `forecast` rides the coalescing queue: same-history-bucket requests
+    are concatenated along the series axis and answered by one dispatch
+    of forecast/models.forecast on the service's device.
+  * `cost` is synchronous: the numpy mirror answers only as the
+    requested backend; a device failure propagates (the CostEngine goes
+    cost-blind) and a degraded FSM raises CostUnavailable.
+  * `poolgroup` is synchronous: the joint program, then (CPU only) the
+    independent per-pool ladders (poolgroup_numpy(enforce=False)).
+  * `fused_tick` pads the forecast group up the T and S ladders at the
+    door and runs ops/fusedtick.FusedTickProgram (one captured CUDA
+    graph per shape class on the card). On the CPU a failure steps down
+    to the chained per-stage path, then the numpy floor. On the card a
+    failure raises (counted by the FSM): a chained serve would hide a
+    broken graph while ticks carry on.
+
 Left out of this slice (each comes with its own): the shard route, the
-consolidate/forecast/preempt/cost/poolgroup/sim/fused-tick families,
-the introspection plane and decision provenance.
+consolidate/preempt/sim families and the introspection plane.
 """
 
 from __future__ import annotations
@@ -132,6 +150,7 @@ from karpenter_tpu_torch.solver.bucketing import (
 )
 from karpenter_tpu_torch.utils.device import DeviceLike, resolve_device
 from karpenter_tpu_torch.utils.log import logger
+from karpenter_tpu_torch.utils.operands import host_seam
 
 SUBSYSTEM = "solver"
 
@@ -161,6 +180,11 @@ PREWARM_COMPILES = "prewarm_compiles_total"
 PREWARM_MS = "prewarm_ms"
 # device programs the last reconcile tick paid (note_tick)
 DISPATCHES_PER_TICK = "dispatches_per_tick"
+
+# Forecast shape ladders (forecast requests bucket on (series, history
+# length))
+FORECAST_T_FLOOR = 16
+FORECAST_S_FLOOR = 8
 
 # A lone coalesced batch splits into pipeline_depth+1 chunked dispatches
 # (so the double buffer has something to overlap) only at or above this
@@ -205,6 +229,11 @@ class SolverSaturated(RuntimeError):
     """The bounded request queue is full (backpressure signal)."""
 
 
+class CostUnavailable(RuntimeError):
+    """The cost-refinement path is short-circuited (backend-health FSM
+    degraded, no probe due): the caller proceeds cost-blind this tick."""
+
+
 class SolverTimeout(TimeoutError):
     """A request's deadline expired before the device path answered."""
 
@@ -235,6 +264,24 @@ class SolverStatistics:
     pipeline_overlaps: int = 0  # dispatches issued while another was in flight
     decide_calls: int = 0
     decide_errors: int = 0
+    # cost-refinement seam (cost/)
+    cost_calls: int = 0  # cost() entries
+    cost_errors: int = 0  # cost() failures (the caller goes cost-blind)
+    cost_dispatches: int = 0  # cost device dispatches
+    # joint pool-group allocation seam (poolgroups/)
+    poolgroup_calls: int = 0  # poolgroup() entries
+    poolgroup_errors: int = 0  # poolgroup() failures
+    poolgroup_dispatches: int = 0  # joint device dispatches
+    poolgroup_independent_serves: int = 0  # degraded independent-ladder serves
+    # forecast seam (forecast/)
+    forecast_calls: int = 0  # forecast() entries
+    forecast_series: int = 0  # total series submitted across calls
+    forecast_dispatches: int = 0  # coalesced forecast device dispatches
+    # fused steady-state tick (ops/fusedtick.py)
+    fused_calls: int = 0  # fused_tick() entries
+    fused_dispatches: int = 0  # ticks answered by the ONE fused program
+    fused_chained_serves: int = 0  # ticks served by the per-stage rung
+    fused_mirror_serves: int = 0  # ticks served by the numpy floor
     # cuda-resolved requests carrying constraint operands rerouted to the
     # torch rung (the fused kernel has no constraint entry — counted,
     # never silently dropped)
@@ -405,6 +452,9 @@ class SolverService:
         self._prewarmed: set = set()
         self._kernels_ready = False
         self._kernel_lock = threading.Lock()
+        # the fused tick's program (one captured graph per shape class),
+        # built on first use
+        self._fused_program = None
         self._stages: Dict[str, collections.deque] = {}
         self._stage_lock = threading.Lock()
         # worker-only state: batch-size EWMA (adaptive window), in-flight
@@ -626,7 +676,14 @@ class SolverService:
           solve  — 1 pod x 1 group, padded up to the floor rung
                    (256 pods x 8 groups), weight operand present;
           decide — 1 autoscaler x 1 metric, padded to the decision
-                   program's row bucket (ops/decision.pad_to).
+                   program's row bucket (ops/decision.pad_to);
+          forecast — 1 series x 1 sample, padded to the forecast
+                   ladders' floors (8 series x 16 samples);
+          cost / poolgroup — the smallest fleet row bucket / one group
+                   of two pools;
+          fused  — the fused tick with forecast, decide and cost
+                   present at the smallest rung of every ladder (on the
+                   card: one graph capture).
 
         A family already warmed is SKIPPED (reset_caches re-arms).
         Failures of a warm dispatch degrade, never block boot: the
@@ -661,10 +718,11 @@ class SolverService:
                 "skipped": False,
                 "ms": round(elapsed_ms, 3),
             }
-            if family == "solve":
-                # only the solve family counts keys in the service's
-                # cache counters; decide has no such counter, so no
-                # (meaningless) zero is reported for it
+            if family in ("solve", "forecast", "fused"):
+                # only the queue and fused families count keys in the
+                # service's cache counters; the synchronous families
+                # have no such counter, so no (meaningless) zero is
+                # reported for them
                 report[family]["fresh_compiles"] = (
                     self.stats.compile_cache_misses - misses_before
                 )
@@ -677,6 +735,18 @@ class SolverService:
             return
         if family == "decide":
             self.decide(_prewarm_decide_inputs())
+            return
+        if family == "forecast":
+            self.forecast(_prewarm_fused_inputs().forecast)
+            return
+        if family == "cost":
+            self.cost(_prewarm_cost_inputs())
+            return
+        if family == "poolgroup":
+            self.poolgroup(_prewarm_poolgroup_inputs())
+            return
+        if family == "fused":
+            self.fused_tick(_prewarm_fused_inputs())
             return
         raise ValueError(f"unknown pre-warm family {family!r}")
 
@@ -764,8 +834,11 @@ class SolverService:
         submitter's current span, so a tick-minted trace id follows the
         request across the worker-thread boundary). No-op — request.span
         stays None — when tracing is disabled."""
+        family = (
+            request.key[0] if isinstance(request.key[0], str) else "binpack"
+        )
         request.span = default_tracer().begin(
-            "solver.request", family="binpack", backend=request.backend,
+            "solver.request", family=family, backend=request.backend,
             tenant=request.tenant,
         )
 
@@ -829,15 +902,18 @@ class SolverService:
         surface and error accounting, no coalescing (the batch
         autoscaler already evaluates the whole fleet in one call).
         Single-card: runs the port's ops/decision.decide on the
-        service's device (numpy fields, or DecisionInputs on any
-        device, are moved there first). An injected `decider` gets the
+        service's device. Host operands (numpy fields) are answered as
+        host numpy in one fetch; DecisionInputs already holding tensors
+        keep tensors (_decide_dispatch). An injected `decider` gets the
         inputs as given."""
         self.stats.decide_calls += 1
         t0 = _time.perf_counter()
         try:
             with default_tracer().span("solver.decide"):
                 with solver_trace("solver.decide"):
-                    return self._decide_dispatch(inputs)
+                    out = self._decide_dispatch(inputs)
+            self._annotate_provenance("torch", "device")
+            return out
         except Exception:
             self.stats.decide_errors += 1
             raise
@@ -845,15 +921,437 @@ class SolverService:
             self._record_stage("decide", _time.perf_counter() - t0)
 
     def _decide_dispatch(self, inputs):
+        """Operands already held as tensors keep tensors (moved to the
+        service's device); host operands (numpy fields, a dict or the
+        reference's dataclass) are uploaded and answered as host numpy,
+        fetched in one copy — the BatchAutoscaler indexes the outputs row
+        by row, which on card tensors would sync once per element."""
         if self._decider is not None:
             return self._decider(inputs)
         from karpenter_tpu_torch.ops import decision as D
 
-        if isinstance(inputs, D.DecisionInputs):
-            operands = inputs.to(self.device)
-        else:
-            operands = D.DecisionInputs.from_numpy(inputs, self.device)
-        return D.decide(operands)
+        if isinstance(inputs, D.DecisionInputs) and isinstance(
+            inputs.metric_value, torch.Tensor
+        ):
+            return D.decide(inputs.to(self.device))
+        return host_seam(D.decide, D.DecisionInputs, self.device)(inputs)
+
+    def _family_backend(self, backend: Optional[str]) -> str:
+        """The rung a fleet-tick family runs: the service's resolution,
+        with `cuda` meaning the family's tensor program on the card (no
+        family has a hand-written kernel) and an injected device_solver
+        (a remote bin-pack wire) leaving these families to numpy."""
+        resolved = self._resolve_backend(backend)
+        if self.device_solver is not None:
+            return "numpy"
+        return "torch" if resolved == "cuda" else resolved
+
+    # -- forecast family ----------------------------------------------------
+
+    def forecast(self, inputs, backend: Optional[str] = None,
+                 timeout: Optional[float] = None):
+        """Batched metric forecasting through the service: one
+        ForecastInputs matrix of S series in (host arrays), one
+        ForecastOutputs of host arrays out. Requests ride the coalescing
+        queue: concurrent callers whose histories share a time-axis
+        bucket are concatenated along the series axis and answered by
+        ONE dispatch of forecast/models.forecast. On the CPU a full
+        queue, an expired deadline, a device failure or a degraded FSM
+        answers from the bit-identical numpy mirror (counted in
+        fallback_total); on the card each raises. `forecast.predict` is
+        the fault-injection point on the device path."""
+        from karpenter_tpu_torch.forecast import models as M
+
+        inputs = M.ForecastInputs.from_arrays(inputs)
+        n_series = int(inputs.values.shape[0])
+        self.stats.forecast_calls += 1
+        self.stats.forecast_series += n_series
+        if n_series == 0:
+            empty = np.zeros(0, np.float32)
+            return M.ForecastOutputs(
+                point=empty, sigma2=empty.copy(),
+                n_valid=np.zeros(0, np.int32),
+            )
+        if self._closed:
+            raise RuntimeError("solver service is closed")
+        timeout = self.default_timeout_s if timeout is None else timeout
+        request = self._forecast_request(inputs, n_series, backend, timeout)
+        try:
+            self._enqueue_one(request)
+        except SolverSaturated:
+            if not self._numpy_ladder:
+                raise
+            logger().warning(
+                "solver queue saturated; degrading one forecast to numpy"
+            )
+            return self._numpy_fallback(request.inputs, 0)
+        try:
+            return SolveFuture(request, self).result(
+                timeout if timeout else None
+            )
+        except SolverTimeout:
+            if self.on_timeout == "raise":
+                raise
+            logger().warning("forecast deadline expired; degrading to numpy")
+            return self._numpy_fallback(request.inputs, 0)
+
+    def _forecast_request(
+        self, inputs, n_series: int, backend: Optional[str], timeout
+    ) -> _Request:
+        """One queue-ready forecast request, padded up the history-length
+        ladder on the host."""
+        from karpenter_tpu_torch.forecast import models as M
+
+        resolved = self._family_backend(backend)
+        now = self._clock()
+        t_bucket = bucket_up(int(inputs.values.shape[1]), FORECAST_T_FLOOR)
+        return _Request(
+            inputs=M.pad_forecast_inputs(inputs, t_bucket),
+            buckets=0,
+            backend=resolved,
+            key=("forecast", t_bucket, resolved),
+            n_pods=n_series,
+            n_groups=0,
+            deadline=(now + timeout) if timeout else None,
+            enqueued_at=now,
+        )
+
+    def _forecast_group(self, key: tuple, live: List[_Request]) -> None:
+        """One coalesced forecast dispatch: same-T-bucket requests are
+        concatenated along the series axis, padded up the series ladder
+        and answered by ONE program; results slice back per request.
+        backend == "numpy" serves the mirror inline (the REQUESTED
+        backend, not a degradation). Device failures raise to
+        _dispatch_group, which feeds the FSM and answers the batch (from
+        numpy on the CPU, with the error on the card)."""
+        from karpenter_tpu_torch.forecast import models as M
+
+        t_bucket, backend = key[1], key[2]
+        # completes inline (forecast batches are small and latency-bound),
+        # so in-flight bin-pack work drains first to keep completion ordered
+        self._drain_inflight()
+        if backend == "numpy":
+            for request in live:
+                t0 = _time.perf_counter()
+                request.finish(result=M.forecast_numpy(request.inputs))
+                self._record_stage("dispatch", _time.perf_counter() - t0)
+            return
+        t0 = _time.perf_counter()
+        sizes = [request.n_pods for request in live]
+        s_bucket = bucket_up(sum(sizes), FORECAST_S_FLOOR)
+        stacked = M.concat_forecast_inputs(
+            [request.inputs for request in live], s_bucket
+        )
+        self._record_stage("pad", _time.perf_counter() - t0)
+        fresh = self._count_key(("forecast", s_bucket, t_bucket, backend))
+        t0 = _time.perf_counter()
+        with self._dispatch_span("solver.dispatch.forecast", live):
+            with self._device_section(
+                live, grace=COMPILE_GRACE_S if fresh else 0.0
+            ):
+                with solver_trace("solver.forecast"):
+                    # the forecast-path fault-injection point: an error
+                    # plan exercises the failure answer + FSM, a hang
+                    # plan the watchdog drain
+                    inject("forecast.predict")
+                    host = host_seam(
+                        M.forecast, M.ForecastInputs, self.device
+                    )(stacked)
+        if self._stale():
+            return  # the watchdog already answered these
+        self.stats.upload_bytes += sum(
+            np.asarray(getattr(stacked, f.name)).nbytes
+            for f in dataclasses.fields(stacked)
+        )
+        self._record_stage("dispatch", _time.perf_counter() - t0)
+        self._count_dispatch()
+        self.stats.forecast_dispatches += 1
+        t0 = _time.perf_counter()
+        offset = 0
+        for request, size in zip(live, sizes):
+            self._finish_device(
+                request, M.slice_forecast_outputs(host, offset, offset + size)
+            )
+            offset += size
+        self._record_stage("scatter", _time.perf_counter() - t0)
+
+    # -- cost family --------------------------------------------------------
+
+    def cost(self, inputs, backend: Optional[str] = None):
+        """The cost/SLO refinement through the service: one CostInputs
+        matrix for the whole fleet in, one CostOutputs of host arrays
+        out, ONE dispatch of ops/cost.cost_decide — synchronous like
+        decide(). The refinement is advisory, so: the numpy mirror
+        serves only as the REQUESTED backend; a device failure counts
+        toward the FSM and PROPAGATES (the CostEngine goes cost-blind
+        this tick); a DEGRADED FSM raises CostUnavailable without
+        touching the device (probes ride the normal recovery path). The
+        same on the card and the CPU. `cost.score` is the
+        fault-injection point."""
+        from karpenter_tpu_torch.ops import cost as C
+
+        self.stats.cost_calls += 1
+        resolved = self._family_backend(backend)
+        t0 = _time.perf_counter()
+        try:
+            if resolved == "numpy":
+                with default_tracer().span("solver.cost", backend="numpy"):
+                    out = C.cost_numpy(C.CostInputs.from_arrays(inputs))
+                self._annotate_provenance("numpy", "numpy")
+                return out
+            if not self._device_allowed():
+                raise CostUnavailable(
+                    "solver backend degraded; scaling cost-blind until "
+                    "a probe recovers the device path"
+                )
+            try:
+                with default_tracer().span("solver.cost", backend=resolved):
+                    with solver_trace("solver.cost"):
+                        inject("cost.score")
+                        out = host_seam(
+                            C.cost_decide, C.CostInputs, self.device
+                        )(inputs)
+            except Exception:
+                self._record_device_failure()
+                raise
+            self._record_device_success()
+            self.stats.cost_dispatches += 1
+            self._count_dispatch()
+            self._annotate_provenance(resolved, "device")
+            return out
+        except Exception:
+            self.stats.cost_errors += 1
+            raise
+        finally:
+            self._record_stage("cost", _time.perf_counter() - t0)
+
+    # -- poolgroup family ---------------------------------------------------
+
+    def poolgroup(self, inputs, backend: Optional[str] = None):
+        """The joint pool-group allocation through the service: every
+        PoolGroup's joint candidate ladder scored in ONE dispatch of
+        ops/poolgroup.poolgroup_decide, answered as host arrays. A
+        numpy-resolved backend serves the full JOINT mirror (the
+        REQUESTED backend). On the CPU the ladder is the reference's:
+        a device failure or a degraded FSM serves the INDEPENDENT
+        per-pool ladders (poolgroup_numpy(enforce=False): ratios and the
+        shared budget go advisory for the tick). On the card a device
+        failure raises, and a degraded FSM raises SolverDeviceError.
+        `poolgroup.solve` is the fault-injection point."""
+        from karpenter_tpu_torch.ops import poolgroup as PG
+
+        self.stats.poolgroup_calls += 1
+        resolved = self._family_backend(backend)
+        t0 = _time.perf_counter()
+        try:
+            if resolved == "numpy":
+                with default_tracer().span(
+                    "solver.poolgroup", backend="numpy"
+                ):
+                    out = PG.poolgroup_numpy(PG.PoolGroupInputs.from_arrays(inputs))
+                self._annotate_provenance("numpy", "numpy")
+                return out
+            if self._device_allowed():
+                try:
+                    with default_tracer().span(
+                        "solver.poolgroup", backend=resolved
+                    ):
+                        with solver_trace("solver.poolgroup"):
+                            inject("poolgroup.solve")
+                            out = host_seam(
+                                PG.poolgroup_decide, PG.PoolGroupInputs,
+                                self.device,
+                            )(inputs)
+                    self._record_device_success()
+                    self.stats.poolgroup_dispatches += 1
+                    self._count_dispatch()
+                    self._annotate_provenance(resolved, "device")
+                    return out
+                except Exception as error:  # noqa: BLE001 — the ladder
+                    self._record_device_failure()
+                    if not self._numpy_ladder:
+                        raise
+                    logger().warning(
+                        "joint poolgroup dispatch failed (%s: %s); "
+                        "serving INDEPENDENT per-pool ladders this tick "
+                        "(ratios advisory)",
+                        type(error).__name__, error,
+                    )
+            elif not self._numpy_ladder:
+                raise SolverDeviceError(
+                    "solver backend degraded: no device attempt until the "
+                    "next probe"
+                )
+            with default_tracer().span(
+                "solver.poolgroup", backend="independent"
+            ):
+                self.stats.poolgroup_independent_serves += 1
+                out = PG.poolgroup_numpy(
+                    PG.PoolGroupInputs.from_arrays(inputs), enforce=False
+                )
+            self._annotate_provenance("numpy", "numpy")
+            return out
+        except Exception:
+            self.stats.poolgroup_errors += 1
+            raise
+        finally:
+            self._record_stage("poolgroup", _time.perf_counter() - t0)
+
+    # -- fused tick family --------------------------------------------------
+
+    def fused_tick(self, inputs, backend: Optional[str] = None):
+        """The fused steady-state tick through the service: forecast ->
+        decide -> cost -> pool groups as ONE program
+        (ops/fusedtick.FusedTickProgram: one captured CUDA graph per
+        shape class on the card), host operands uploaded into its static
+        buffers and every output leaf fetched in one copy.
+
+        The forecast group is padded up the forecast family's T and S
+        ladders ONCE, at the door, so every rung consumes the same
+        operands and a steady fleet keeps one shape class. On the CPU
+        the ladder is the reference's: a fused failure falls back to the
+        chained per-stage path, a chained failure to the numpy floor,
+        and a degraded FSM to the floor. On the card a failure of the
+        program raises (counted by the FSM) and a degraded FSM raises
+        SolverDeviceError: no chained or numpy serve hides a broken
+        graph. `fused.tick` is the fault-injection point."""
+        from karpenter_tpu_torch.forecast import models as M
+        from karpenter_tpu_torch.ops import fusedtick as FT
+
+        self.stats.fused_calls += 1
+        resolved = self._family_backend(backend)
+        t_door = _time.perf_counter()
+        inputs = FT.FusedTickInputs.from_arrays(inputs)
+        t_bucket = s_bucket = n_series = 0
+        if inputs.forecast is not None:
+            n_series, t = inputs.forecast.values.shape
+            t_bucket = bucket_up(int(t), FORECAST_T_FLOOR)
+            s_bucket = bucket_up(int(n_series), FORECAST_S_FLOOR)
+            inputs = dataclasses.replace(
+                inputs,
+                forecast=M.pad_forecast_inputs(inputs.forecast, t_bucket),
+            )
+            inputs = FT.pad_series(inputs, s_bucket)
+        n = int(inputs.decision.spec_replicas.shape[0])
+        m = int(inputs.decision.metric_value.shape[1])
+        t0 = _time.perf_counter()
+        self._record_stage("fused_pad", t0 - t_door)
+        try:
+            if resolved != "numpy":
+                if self._device_allowed():
+                    out = self._fused_device(
+                        inputs, resolved, n, m, t_bucket, s_bucket
+                    )
+                    if out is not None:
+                        return self._fused_slice(out, n_series)
+                elif not self._numpy_ladder:
+                    raise SolverDeviceError(
+                        "solver backend degraded: no device attempt until "
+                        "the next probe"
+                    )
+            with default_tracer().span(
+                "solver.fused_tick", backend="numpy"
+            ):
+                out = FT.fused_tick_numpy(inputs)
+            if resolved != "numpy":
+                self.stats.fused_mirror_serves += 1
+            self._annotate_provenance("numpy", "numpy")
+            return self._fused_slice(out, n_series)
+        finally:
+            self._record_stage("fused", _time.perf_counter() - t0)
+
+    def fused_program(self):
+        """The service's FusedTickProgram (built on first use); its
+        `captures` and `replays` count the graphs."""
+        if self._fused_program is None:
+            from karpenter_tpu_torch.ops import fusedtick as FT
+
+            self._fused_program = FT.FusedTickProgram(self.device)
+        return self._fused_program
+
+    def _fused_device(
+        self, inputs, resolved: str, n: int, m: int,
+        t_bucket: int, s_bucket: int,
+    ):
+        """The fused rung, and on the CPU the chained rung after it;
+        None = both failed on the CPU (the caller serves the numpy
+        floor). On the card a failure raises."""
+        from karpenter_tpu_torch.ops import fusedtick as FT
+
+        key = (
+            "fused", n, m, t_bucket, s_bucket,
+            inputs.forecast is not None,
+            inputs.slo_valid is not None,
+            inputs.poolgroup is not None,
+            resolved,
+        )
+        try:
+            self._count_key(key)
+            with default_tracer().span("solver.fused_tick", backend=resolved):
+                with solver_trace("solver.fused_tick"):
+                    # the fused-path fault-injection point
+                    inject("fused.tick")
+                    out = self.fused_program()(inputs, host=True)
+            self._record_device_success()
+            self.stats.fused_dispatches += 1
+            self._count_dispatch()
+            self._annotate_provenance(resolved, "device")
+            return out
+        except Exception as error:  # noqa: BLE001 — the ladder
+            self._record_device_failure()
+            if not self._numpy_ladder:
+                raise
+            logger().warning(
+                "fused tick dispatch failed (%s: %s); falling back to the "
+                "chained per-stage path", type(error).__name__, error,
+            )
+        try:
+            with default_tracer().span("solver.fused_tick", backend="chained"):
+                with solver_trace("solver.fused_tick.chained"):
+                    out = FT.fused_tick_chained(inputs, device=self.device)
+            # a degraded serve: stage dispatches are counted (the
+            # dispatches-per-tick gauge must show the real program
+            # count) but the FSM keeps counting fused failures
+            self.stats.fused_chained_serves += 1
+            for _ in range(FT.programs(inputs)):
+                self._count_dispatch()
+            self._annotate_provenance("torch", "device")
+            return out
+        except Exception as error:  # noqa: BLE001 — the ladder
+            self._record_device_failure()
+            logger().warning(
+                "chained fused-tick fallback failed (%s: %s); serving the "
+                "bit-identical numpy floor", type(error).__name__, error,
+            )
+            return None
+
+    @staticmethod
+    def _fused_slice(out, n_series: int):
+        """Slice the forecast outputs back to the caller's S (padding
+        series are service-internal, exactly like the queue family)."""
+        if out.forecast is None:
+            return out
+        from karpenter_tpu_torch.forecast import models as M
+
+        return dataclasses.replace(
+            out,
+            forecast=M.slice_forecast_outputs(out.forecast, 0, n_series),
+        )
+
+    def _annotate_provenance(self, backend: str, rung: str) -> None:
+        """Provenance slice (observability/provenance.py): stamp the
+        backend + degradation rung that actually served onto the
+        CURRENT ledger batch — only for batches whose owner opted into
+        service-side stamping (the BatchAutoscaler flow). One attribute
+        read when the ledger is off."""
+        from karpenter_tpu_torch.observability import default_ledger
+
+        ledger = default_ledger()
+        if not ledger.enabled:
+            return
+        batch = ledger.current()
+        if batch is not None and batch.autosolver:
+            batch.annotate(solver_backend=backend, solver_rung=rung)
 
     def close(self) -> None:
         with self._cond:
@@ -1288,6 +1786,9 @@ class SolverService:
     def _solve_group(
         self, key: tuple, live: List[_Request], lone: bool = False
     ) -> None:
+        if key[0] == "forecast":
+            self._forecast_group(key, live)
+            return
         shape, buckets, backend = key[0], key[1], key[2]
         if backend == "numpy":
             # host program: no device dispatch, no padding, and no
@@ -1388,7 +1889,10 @@ class SolverService:
                             request.inputs, buckets=buckets, backend="cuda",
                             device=self.device,
                         )
-                    torch.cuda.synchronize(self.device)
+                    # the worker's own stream, never the whole device: a
+                    # device-wide sync would invalidate a fused-tick graph
+                    # capture running on another thread
+                    torch.cuda.current_stream(self.device).synchronize()
             grace = 0.0  # only the first call of the batch is a first launch
             if self._stale():
                 return  # the watchdog already answered these
@@ -1535,7 +2039,7 @@ class SolverService:
             placed[f.name] = _as_field(f.name, leaf, self.device)
             nbytes += placed[f.name].numel() * placed[f.name].element_size()
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
         self.stats.upload_bytes += nbytes
         self._record_stage("upload", _time.perf_counter() - t_up)
         return BinPackInputs(**placed)
@@ -1619,6 +2123,11 @@ class SolverService:
         return self._numpy_solve(inputs, buckets)
 
     def _numpy_solve(self, inputs, buckets: int):
+        from karpenter_tpu_torch.forecast import models as M
+
+        if isinstance(inputs, M.ForecastInputs):
+            # bit-identical mirror of the forecast program
+            return M.forecast_numpy(inputs)
         from karpenter_tpu_torch.ops.numpy_binpack import binpack_numpy
 
         return binpack_numpy(inputs, buckets=buckets)
@@ -1759,6 +2268,99 @@ def _prewarm_decide_inputs() -> dict:
         down_pvalue=col_i.copy(),
         down_pperiod=np.ones((n, 1), np.int32),
         down_pvalid=col_b.copy(),
+    )
+
+
+def _prewarm_fused_inputs():
+    """The fused tick with forecast, decide and cost engaged at the
+    smallest rung of every shape ladder: 1 series x 1 sample (padded to
+    8 x 16 inside fused_tick), the decide program's smallest row bucket,
+    1 metric column."""
+    from karpenter_tpu_torch.forecast.models import ForecastInputs
+    from karpenter_tpu_torch.ops import decision as D
+    from karpenter_tpu_torch.ops import fusedtick as FT
+
+    dec = D.DecisionInputs(**_prewarm_decide_inputs())
+    n = int(dec.spec_replicas.shape[0])
+    return FT.FusedTickInputs(
+        decision=dec,
+        forecast=ForecastInputs(
+            values=np.zeros((1, 1), np.float32),
+            valid=np.zeros((1, 1), bool),
+            times=np.zeros((1, 1), np.float32),
+            weights=np.ones((1, 1), np.float32),
+            horizon=np.ones(1, np.float32),
+            step_s=np.ones(1, np.float32),
+            model=np.zeros(1, np.int32),
+            season=np.zeros(1, np.int32),
+            alpha=np.full(1, 0.5, np.float32),
+            beta=np.full(1, 0.1, np.float32),
+            gamma=np.full(1, 0.1, np.float32),
+        ),
+        series_row=np.zeros(1, np.int32),
+        series_col=np.zeros(1, np.int32),
+        series_need=np.full(1, 2, np.int32),
+        series_blend=np.zeros(1, bool),
+        ha_min=np.zeros(n, np.int32),
+        ha_max=np.ones(n, np.int32),
+        unit_cost=np.zeros(n, np.float32),
+        slo_weight=np.zeros(n, np.float32),
+        max_hourly_cost=np.zeros(n, np.float32),
+        slo_valid=np.zeros(n, bool),
+        slo_target=np.ones((n, 1), np.float32),
+        observed=np.zeros((n, 1), np.float32),
+        demand_base_valid=np.zeros((n, 1), bool),
+        prior_point=np.zeros((n, 1), np.float32),
+        prior_sigma2=np.zeros((n, 1), np.float32),
+        prior_valid=np.zeros((n, 1), bool),
+    )
+
+
+def _prewarm_cost_inputs():
+    """The cost program at the decision program's smallest row bucket,
+    1 metric column, no SLO rows."""
+    from karpenter_tpu_torch.ops import cost as C
+    from karpenter_tpu_torch.ops import decision as D
+
+    n = D.pad_to(1)
+    return C.CostInputs(
+        base_desired=np.zeros(n, np.int32),
+        min_replicas=np.zeros(n, np.int32),
+        max_replicas=np.ones(n, np.int32),
+        unit_cost=np.zeros(n, np.float32),
+        slo_weight=np.zeros(n, np.float32),
+        max_hourly_cost=np.zeros(n, np.float32),
+        slo_valid=np.zeros(n, bool),
+        slo_target=np.ones((n, 1), np.float32),
+        demand_mu=np.zeros((n, 1), np.float32),
+        demand_sigma=np.zeros((n, 1), np.float32),
+        demand_valid=np.zeros((n, 1), bool),
+    )
+
+
+def _prewarm_poolgroup_inputs():
+    """One group of two pools (the smallest pool bucket), 1 metric."""
+    from karpenter_tpu_torch.ops import poolgroup as PG
+
+    g, p, r = 1, PG.POOL_BUCKETS[0], PG.RATIO_SLOTS
+    zi, zf, zb = (np.zeros((g, p), t) for t in (np.int32, np.float32, bool))
+    return PG.PoolGroupInputs(
+        base_desired=zi, min_replicas=zi.copy(), max_replicas=zi + 1,
+        unit_cost=zf, slo_weight=zf.copy(), max_hourly_cost=zf.copy(),
+        tier_penalty=zf.copy(), pool_valid=zb,
+        slo_target=np.ones((g, p, 1), np.float32),
+        demand_mu=np.zeros((g, p, 1), np.float32),
+        demand_sigma=np.zeros((g, p, 1), np.float32),
+        demand_valid=np.zeros((g, p, 1), bool),
+        ratio_a=np.zeros((g, r), np.int32),
+        ratio_b=np.zeros((g, r), np.int32),
+        ratio_min_num=np.zeros((g, r), np.int32),
+        ratio_min_den=np.ones((g, r), np.int32),
+        ratio_max_num=np.zeros((g, r), np.int32),
+        ratio_max_den=np.zeros((g, r), np.int32),
+        ratio_valid=np.zeros((g, r), bool),
+        group_budget=np.zeros(g, np.float32),
+        group_valid=np.zeros(g, bool),
     )
 
 

@@ -12,8 +12,16 @@ group) gets:
   nested groups recurse, and a field that is None or absent stays None.
   The device defaults to the CUDA card and raises without one.
 - `obj.to_numpy()`: a dict of numpy arrays, nested dicts for nested
-  groups, None kept.
+  groups, None kept (tensor leaves copied to the host, numpy leaves as
+  they are).
 - `obj.to(device)`: the same operands on another device.
+- `Cls.from_arrays(src)`: the same operands as host numpy arrays with
+  the dtypes pinned (the host view the numpy mirrors and the solve
+  service's families take).
+- `fetch(tree)`: a tree of device tensors as the same dataclasses of
+  numpy arrays, in ONE device->host copy (`FETCHES` counts the calls);
+  `host_seam(program, Cls)` wraps a tensor program as a host-operand
+  callable: upload, run on the device, fetch once.
 """
 
 from __future__ import annotations
@@ -27,6 +35,11 @@ import torch
 from karpenter_tpu_torch.utils.device import DeviceLike, resolve_device
 
 F32, I32, BOOL = torch.float32, torch.int32, torch.bool
+
+_NUMPY_DTYPES = {F32: np.float32, I32: np.int32, BOOL: np.bool_}
+
+# device->host fetches made by `fetch` (tests read the delta of one call)
+FETCHES = {"count": 0}
 
 
 def _is_group(kind) -> bool:
@@ -68,6 +81,26 @@ class Operands:
                 kwargs[name] = as_tensor(value, kind, dev)
         return cls(**kwargs)
 
+    @classmethod
+    def from_arrays(cls, src):
+        """The operands as host numpy arrays with the dtypes pinned (a
+        scalar such as `now` stays a numpy scalar); nested groups
+        recurse, None and absent fields stay None. Tensors are copied to
+        the host."""
+        kwargs = {}
+        for name, kind in cls.KINDS.items():
+            value = _field_of(src, name)
+            if value is None:
+                continue
+            if _is_group(kind):
+                kwargs[name] = kind.from_arrays(value)
+            else:
+                if isinstance(value, torch.Tensor):
+                    value = value.detach().cpu().numpy()
+                array = np.asarray(value, _NUMPY_DTYPES[kind])
+                kwargs[name] = array[()] if array.ndim == 0 else array
+        return cls(**kwargs)
+
     def to_numpy(self) -> dict:
         out = {}
         for f in dataclasses.fields(self):
@@ -76,8 +109,10 @@ class Operands:
                 out[f.name] = None
             elif isinstance(value, Operands):
                 out[f.name] = value.to_numpy()
-            else:
+            elif isinstance(value, torch.Tensor):
                 out[f.name] = value.detach().cpu().numpy()
+            else:  # already a host array (a fetched tree)
+                out[f.name] = np.asarray(value)
         return out
 
     def to(self, device: DeviceLike):
@@ -90,3 +125,68 @@ class Operands:
                 for f in dataclasses.fields(self)
             },
         )
+
+
+def _tensor_leaves(obj, out):
+    for f in dataclasses.fields(obj):
+        value = getattr(obj, f.name)
+        if isinstance(value, Operands):
+            _tensor_leaves(value, out)
+        elif isinstance(value, torch.Tensor):
+            out.append(value)
+    return out
+
+
+def _rebuild(obj, arrays):
+    kwargs = {}
+    for f in dataclasses.fields(obj):
+        value = getattr(obj, f.name)
+        if isinstance(value, Operands):
+            kwargs[f.name] = _rebuild(value, arrays)
+        elif isinstance(value, torch.Tensor):
+            kwargs[f.name] = arrays[id(value)]
+    return dataclasses.replace(obj, **kwargs)
+
+
+def fetch(tree):
+    """A tree of Operands holding f32 / i32 / bool tensors (any one
+    device) as the same dataclasses holding numpy arrays, in one
+    device->host copy: every
+    leaf is viewed as bytes and concatenated on its device, copied once,
+    and split back on the host (4-byte leaves first, so every slice
+    stays aligned). None stays None; a tree without tensors passes
+    through."""
+    leaves = _tensor_leaves(tree, [])
+    if not leaves:
+        return tree
+    FETCHES["count"] += 1
+    order = sorted(leaves, key=lambda t: -t.element_size())
+    packed = torch.cat([
+        t.detach().contiguous().reshape(-1).view(torch.uint8) for t in order
+    ]).cpu().numpy()
+    arrays = {}
+    offset = 0
+    for t in order:
+        nbytes = t.numel() * t.element_size()
+        chunk = packed[offset:offset + nbytes].view(_NUMPY_DTYPES[t.dtype])
+        arrays[id(t)] = chunk.reshape(tuple(t.shape))
+        offset += nbytes
+    return _rebuild(tree, arrays)
+
+
+def host_seam(program, in_cls, device: DeviceLike = None):
+    """`program` (a tensor program over `in_cls` operands) as a callable
+    that takes host operands (numpy leaves, or the reference's
+    dataclass) and answers host numpy: the operands are uploaded to
+    `device` (the card by default), the program runs there, and the
+    outputs come back in one fetch."""
+
+    def run(inputs):
+        return fetch(program(in_cls.from_numpy(inputs, device)))
+
+    run.__name__ = f"{getattr(program, '__name__', 'program')}_host"
+    run.__doc__ = (
+        f"{run.__name__}(inputs): host operands -> host outputs, "
+        f"through {run.__name__[:-5]} on the device (utils/operands.host_seam)."
+    )
+    return run

@@ -570,3 +570,453 @@ def churn_reconcile(
             c.store.create(pod)
 
     return apply
+
+
+# -- the HorizontalAutoscaler reconcile tick's world (runtime.py's wiring) ----
+
+# What the HA world needs, by module under the package root; `api=` takes
+# these names from either package (ha_api gives this package's).
+HA_API = {
+    "api.core": ("ObjectMeta",),
+    "api.horizontalautoscaler": (
+        "Behavior", "CrossVersionObjectReference", "ForecastSpec",
+        "HorizontalAutoscaler", "HorizontalAutoscalerSpec", "Metric",
+        "MetricTarget", "PrometheusMetricSource", "SLOSpec",
+        "ScalingPolicy", "ScalingRules",
+    ),
+    "api.poolgroup": (
+        "PoolGroup", "PoolGroupSpec", "PoolMember", "RatioConstraint",
+    ),
+    "api.scalablenodegroup": ("ScalableNodeGroup", "ScalableNodeGroupSpec"),
+    "autoscaler": ("BatchAutoscaler",),
+    "controllers.horizontalautoscaler": ("HorizontalAutoscalerController",),
+    "cost": ("CostEngine", "CostModel", "WarmPoolEngine"),
+    "forecast": ("FleetForecaster",),
+    "metrics.clients": ("MetricsClientFactory",),
+    "metrics.registry": ("GaugeRegistry",),
+    "poolgroups": ("PoolGroupEngine",),
+    "store": ("Store",),
+}
+
+
+def ha_api_namespace(modules: Dict[str, object]) -> ReconcileAPI:
+    """The names of HA_API taken from `modules`, which maps each of its
+    keys to a module object."""
+    return ReconcileAPI(
+        **{
+            attr: getattr(modules[module], attr)
+            for module, attrs in HA_API.items()
+            for attr in attrs
+        }
+    )
+
+
+def ha_api() -> ReconcileAPI:
+    """HA_API from this package."""
+    from karpenter_tpu_torch import autoscaler, cost, forecast, poolgroups, store
+    from karpenter_tpu_torch.api import (
+        core,
+        horizontalautoscaler,
+        poolgroup,
+        scalablenodegroup,
+    )
+    from karpenter_tpu_torch.controllers import (
+        horizontalautoscaler as ha_controller,
+    )
+    from karpenter_tpu_torch.metrics import clients, registry
+
+    return ha_api_namespace({
+        "api.core": core,
+        "api.horizontalautoscaler": horizontalautoscaler,
+        "api.poolgroup": poolgroup,
+        "api.scalablenodegroup": scalablenodegroup,
+        "autoscaler": autoscaler,
+        "controllers.horizontalautoscaler": ha_controller,
+        "cost": cost,
+        "forecast": forecast,
+        "metrics.clients": clients,
+        "metrics.registry": registry,
+        "poolgroups": poolgroups,
+        "store": store,
+    })
+
+
+# seconds between ticks (the HA controller's interval)
+TICK_S = 10.0
+# catalog instance types the world's node groups are priced at
+# (cost/model.py DEFAULT_CATALOG keys)
+_INSTANCE_TYPES = ("m5.large", "m5.xlarge", "m5.2xlarge", "n2-standard-8",
+                   "g5.xlarge", "ct5lp-hightpu-4t")
+
+
+@dataclass
+class HAFleet:
+    """A store of HorizontalAutoscalers and their ScalableNodeGroups, the
+    queue gauges they read, and the engines wired as runtime.py wires
+    them around one BatchAutoscaler (fields as built by build_ha_fleet).
+
+    `tick()` is one controller interval: `step_world()` moves the clock
+    and the queues and applies last tick's scale writes to the node
+    groups' status (the cloud provider's actuation), then `reconcile()`
+    hands the fleet to the controller (BatchAutoscaler.reconcile_batch)
+    and writes every HA's status back to the store."""
+
+    api: ReconcileAPI
+    store: object
+    registry: object
+    service: object
+    clock: dict
+    autoscaler: object
+    controller: object
+    forecaster: object
+    cost_engine: object
+    pool_engine: object
+    warmpool: object
+    has: List
+    queues: np.ndarray  # f32[n_has, metrics] current queue values
+    base: np.ndarray  # f32[n_has, metrics] level of each queue's walk
+    rng: object
+    gauge_of: List  # per HA: (gauge vector, [series name per metric])
+    actuate: set
+    ticks: int = 0
+
+    def step_world(self) -> None:
+        """The world between two reconciles: the clock advances one
+        interval, each queue takes a seeded random-walk step around its
+        level (with a slow daily-ish swell), and node groups whose
+        spec.replicas moved report it as status.replicas."""
+        self.clock["now"] += TICK_S
+        self.ticks += 1
+        n, m = self.queues.shape
+        swell = 1.0 + 0.3 * np.sin(self.ticks / 9.0 + np.arange(n) % 7)
+        step = self.rng.normal(0.0, 0.08, (n, m)) * self.base
+        self.queues = np.maximum(
+            0.0, 0.7 * self.queues + 0.3 * self.base * swell[:, None] + step
+        ).astype(np.float32)
+        for i, (vec, names) in enumerate(self.gauge_of):
+            ns = self.has[i].metadata.namespace
+            for j, name in enumerate(names):
+                vec.set(name, ns, float(self.queues[i, j]))
+        pending = sorted(self.actuate)
+        self.actuate.clear()
+        for ns, name in pending:
+            sng = self.store.get("ScalableNodeGroup", ns, name)
+            if sng.status.replicas != sng.spec.replicas:
+                sng.status.replicas = sng.spec.replicas
+                self.store.patch_status(sng)
+
+    def reconcile(self) -> dict:
+        """One HA reconcile over the fleet: {(namespace, name): error or
+        None}, every HA's status then written to the store. A failure of
+        the whole batch is every row's error, as the controller manager
+        records it (karpenter_tpu/controllers/engine.py `_dispatch`)."""
+        try:
+            errors = self.controller.reconcile_batch(self.has)
+        except Exception as error:  # noqa: BLE001 — batch-wide failure
+            errors = {
+                (ha.metadata.namespace, ha.metadata.name): error
+                for ha in self.has
+            }
+        for ha in self.has:
+            self.store.patch_status(ha)
+        return errors
+
+    def tick(self) -> dict:
+        self.step_world()
+        return self.reconcile()
+
+    def trail(self) -> List[int]:
+        """Every node group's spec.replicas, in HA order."""
+        return [
+            self.store.get(
+                "ScalableNodeGroup", ha.metadata.namespace,
+                ha.spec.scale_target_ref.name,
+            ).spec.replicas
+            for ha in self.has
+        ]
+
+    def statuses(self) -> List[tuple]:
+        """Every HA's status as plain values, in HA order."""
+        out = []
+        for ha in self.has:
+            st = ha.status
+            out.append((
+                st.desired_replicas, st.current_replicas, st.last_scale_time,
+                tuple(
+                    (c.type, c.status, c.reason, c.message)
+                    for c in st.conditions
+                ),
+                tuple(
+                    (
+                        ms.prometheus.query,
+                        ms.prometheus.current.value,
+                        ms.prometheus.current.average_value,
+                        ms.prometheus.current.average_utilization,
+                    )
+                    for ms in st.current_metrics
+                ),
+            ))
+        return out
+
+
+def build_ha_fleet(
+    n_has: int, metrics: int, seed: int, *, service,
+    forecast_share: float = 0.5, slo_share: float = 0.6, groups: int = 0,
+    pools: int = 4, fused: bool = False, history: int = 64,
+    queue_vectors: int = 1, api: Optional[ReconcileAPI] = None,
+) -> HAFleet:
+    """The world runtime.py:318-410 wires for the HorizontalAutoscaler
+    tick, drawn from np.random.default_rng(seed), with `service` (a
+    SolverService of either package) behind every device seam:
+
+    - `n_has` HorizontalAutoscalers in tenants of four (namespace
+      tenant-NNNN), each scaling its own ScalableNodeGroup (1-20
+      replicas, priced at a catalog instance type, a fifth of them spot);
+    - `metrics` queue metrics per HA, read by PromQL instant selector
+      from a GaugeRegistry through MetricsClientFactory(registry=...),
+      every series in the one `karpenter_queue_length` vector the
+      reference's runtime test and bench register; `queue_vectors` > 1
+      spreads the HAs in blocks over that many vectors
+      (`karpenter_queue_length_000`, ...), a layout no source has: the
+      in-process client scans the matched vector's series on every
+      query, so one vector costs a query time in the fleet's size;
+      about `forecast_share` of the HAs forecast instead (one metric,
+      with spec.behavior.forecast, `history` samples already observed);
+      about `slo_share` carry spec.behavior.slo; scale-up and scale-down
+      rules with Count/Percent policies and stabilization windows mixed;
+    - `groups` PoolGroups of `pools` members (one tenant's HAs each),
+      with a ratio band on about half and a shared budget on a third;
+    - FleetForecaster(forecast_fn=service.forecast), CostEngine(cost_fn=
+      service.cost), PoolGroupEngine(poolgroup_fn=service.poolgroup)
+      when `groups`, WarmPoolEngine, and BatchAutoscaler(decider=
+      service.decide, fused_tick_fn=service.fused_tick if `fused`)
+      behind a HorizontalAutoscalerController;
+    - an injected clock (`fleet.clock["now"]`, seconds).
+
+    `api` (ha_api) names the classes; the port's by default, so a test
+    builds the same world from the reference's modules."""
+    api = api if api is not None else ha_api()
+    rng = np.random.default_rng(seed)
+    clock = {"now": 1_000_000.0}
+    now = lambda: clock["now"]  # noqa: E731
+    store = api.Store()
+    registry = api.GaugeRegistry()
+    forecaster = api.FleetForecaster(
+        forecast_fn=service.forecast, registry=registry, clock=now,
+        capacity=history,
+    )
+    # every observed (HA, metric) series and every query's warm-pool
+    # series live in the history store: size it to the fleet (its
+    # default of 4,096 series would evict and reseed series every tick)
+    forecaster.history.max_series = max(
+        forecaster.history.max_series, 4 * n_has * metrics
+    )
+    clients = api.MetricsClientFactory(
+        registry=registry, observer=forecaster.observe_query
+    )
+    model = api.CostModel()
+    cost_engine = api.CostEngine(
+        store=store, cost_fn=service.cost, model=model,
+        forecaster=forecaster, registry=registry,
+    )
+    pool_engine = None
+    if groups:
+        pool_engine = api.PoolGroupEngine(
+            store=store, poolgroup_fn=service.poolgroup, model=model,
+            forecaster=forecaster, registry=registry,
+        )
+    warmpool = api.WarmPoolEngine(
+        headroom_source=cost_engine.headroom, registry=registry
+    )
+    autoscaler = api.BatchAutoscaler(
+        clients, store, clock=now, decider=service.decide,
+        forecaster=forecaster, cost_engine=cost_engine,
+        pool_engine=pool_engine,
+        fused_tick_fn=service.fused_tick if fused else None,
+    )
+    controller = api.HorizontalAutoscalerController(autoscaler, service)
+
+    # -- the draw ---------------------------------------------------------
+    forecasting = rng.random(n_has) < forecast_share
+    with_slo = rng.random(n_has) < slo_share
+    replicas = rng.integers(1, 21, n_has)
+    spot = rng.random(n_has) < 0.2
+    itype = rng.integers(0, len(_INSTANCE_TYPES), n_has)
+    kinds = rng.integers(0, 3, (n_has, metrics))  # AverageValue/Value/Util
+    # queue levels; a Utilization metric reads a fraction of capacity
+    base = rng.uniform(10.0, 200.0, (n_has, metrics))
+    base = np.where(kinds == 2, base / 250.0, base).astype(np.float32)
+    up_window = rng.choice([0, 0, 30], n_has)
+    down_window = rng.choice([0, 60, 300], n_has)
+    select = rng.integers(0, 3, (n_has, 2))
+    policy_mix = rng.integers(0, 4, (n_has, 2))
+    models = rng.integers(0, 2, n_has)
+    seasonal = rng.random(n_has) < 0.5
+    slo_target = rng.uniform(2.0, 12.0, n_has)
+    slo_weight = rng.choice([5.0, 25.0, 100.0], n_has)
+    slo_budget = rng.choice([0.0, 0.0, 50.0], n_has)
+    select_names = (None, "Max", "Min")
+
+    def rules(i, direction):
+        window = int(up_window[i] if direction == 0 else down_window[i])
+        mix = int(policy_mix[i, direction])
+        policies = None
+        if mix == 1:
+            policies = [api.ScalingPolicy(type="Count", value=4, period_seconds=60)]
+        elif mix == 2:
+            policies = [api.ScalingPolicy(type="Percent", value=50, period_seconds=60)]
+        elif mix == 3:
+            policies = [
+                api.ScalingPolicy(type="Count", value=2, period_seconds=30),
+                api.ScalingPolicy(type="Percent", value=100, period_seconds=60),
+            ]
+        return api.ScalingRules(
+            stabilization_window_seconds=window,
+            select_policy=select_names[int(select[i, direction])],
+            policies=policies,
+        )
+
+    vecs = {}
+    gauge_of = []
+    has = []
+    actuate: set = set()
+
+    def on_scale(event, obj):
+        if obj.spec.replicas != obj.status.replicas:
+            actuate.add((obj.metadata.namespace, obj.metadata.name))
+
+    store.watch("ScalableNodeGroup", on_scale)
+    for i in range(n_has):
+        ns = f"tenant-{i // 4:04d}"
+        name = f"ha-{i:05d}"
+        target = f"sng-{i:05d}"
+        store.create(api.ScalableNodeGroup(
+            metadata=api.ObjectMeta(
+                name=target, namespace=ns,
+                annotations={
+                    "cost.karpenter.sh/instance-type":
+                        _INSTANCE_TYPES[int(itype[i])],
+                },
+            ),
+            spec=api.ScalableNodeGroupSpec(
+                replicas=int(replicas[i]), type="FakeNodeGroup", id=target,
+                preemptible=bool(spot[i]),
+            ),
+        ))
+        sng = store.get("ScalableNodeGroup", ns, target)
+        sng.status.replicas = int(replicas[i])
+        store.patch_status(sng)
+        v = i * queue_vectors // n_has
+        vec = vecs.get(v)
+        if vec is None:
+            vec = vecs[v] = registry.register(
+                "queue", "length" if queue_vectors == 1 else f"length_{v:03d}"
+            )
+        n_metrics = 1 if forecasting[i] else metrics
+        names, specs = [], []
+        for j in range(n_metrics):
+            series = f"{name}-m{j}"
+            names.append(series)
+            kind = int(kinds[i, j])
+            if kind == 0:
+                mt = api.MetricTarget(type="AverageValue", value=float(
+                    np.float32(base[i, j] / 6.0)))
+            elif kind == 1:
+                mt = api.MetricTarget(type="Value", value=float(
+                    np.float32(base[i, j] * 2.0)))
+            else:
+                mt = api.MetricTarget(
+                    type="Utilization", average_utilization=70
+                )
+            specs.append(api.Metric(prometheus=api.PrometheusMetricSource(
+                query=(f'{vec.full_name}{{name="{series}",'
+                       f'namespace="{ns}"}}'),
+                target=mt,
+            )))
+        gauge_of.append((vec, names))
+        behavior = api.Behavior(scale_up=rules(i, 0), scale_down=rules(i, 1))
+        if forecasting[i]:
+            behavior.forecast = api.ForecastSpec(
+                horizon_seconds=60.0,
+                model="holt-winters" if models[i] else "linear",
+                season_seconds=120.0 if seasonal[i] else 0.0,
+                min_samples=6,
+            )
+        if with_slo[i]:
+            behavior.slo = api.SLOSpec(
+                target_value=float(np.float32(slo_target[i])),
+                violation_cost_weight=float(slo_weight[i]),
+                max_hourly_cost=float(slo_budget[i]),
+            )
+        has.append(api.HorizontalAutoscaler(
+            metadata=api.ObjectMeta(name=name, namespace=ns),
+            spec=api.HorizontalAutoscalerSpec(
+                scale_target_ref=api.CrossVersionObjectReference(
+                    kind="ScalableNodeGroup", name=target
+                ),
+                min_replicas=1,
+                max_replicas=int(100 if i % 3 else 40),
+                metrics=specs,
+                behavior=behavior,
+            ),
+        ))
+    for ha in has:
+        store.create(ha)
+    has = store.list("HorizontalAutoscaler")
+
+    # pool groups: one tenant's HAs each, spread over the fleet
+    n_tenants = (n_has + 3) // 4
+    for g, t in enumerate(
+        sorted(rng.choice(n_tenants, min(groups, n_tenants), replace=False))
+    ):
+        members = [h for h in has if h.metadata.namespace == f"tenant-{t:04d}"]
+        members = members[:pools]
+        if len(members) < 2:
+            continue
+        ratios = []
+        if rng.random() < 0.5:
+            ratios.append(api.RatioConstraint(
+                numerator=members[1].metadata.name,
+                denominator=members[0].metadata.name,
+                min_numerator=1, min_denominator=1,
+                max_numerator=4, max_denominator=1,
+            ))
+        store.create(api.PoolGroup(
+            metadata=api.ObjectMeta(
+                name=f"pg-{g:03d}", namespace=f"tenant-{t:04d}"
+            ),
+            spec=api.PoolGroupSpec(
+                pools=[api.PoolMember(name=h.metadata.name) for h in members],
+                ratios=ratios,
+                max_hourly_cost=float(
+                    rng.choice([0.0, 400.0]) if rng.random() < 0.35 else 0.0
+                ),
+            ),
+        ))
+
+    # the forecast series' history, observed before the fleet's first
+    # reconcile: `history` samples one interval apart
+    queues = base.copy()
+    past = np.maximum(
+        0.0,
+        base[:, :1] * (1.0 + 0.2 * np.sin(np.arange(history)[None, :] / 5.0))
+        + rng.normal(0.0, 0.05, (n_has, history)) * base[:, :1],
+    ).astype(np.float32)
+    for i in np.flatnonzero(forecasting):
+        ha = has[i]
+        key = ("ha", ha.metadata.namespace, ha.metadata.name, 0)
+        for k in range(history):
+            forecaster.history.append(
+                key, clock["now"] - TICK_S * (history - k), float(past[i, k])
+            )
+    fleet = HAFleet(
+        api=api, store=store, registry=registry, service=service,
+        clock=clock, autoscaler=autoscaler, controller=controller,
+        forecaster=forecaster, cost_engine=cost_engine,
+        pool_engine=pool_engine, warmpool=warmpool, has=has, queues=queues,
+        base=base, rng=rng, gauge_of=gauge_of, actuate=actuate,
+    )
+    for i, (vec, names) in enumerate(gauge_of):
+        for j, name in enumerate(names):
+            vec.set(name, has[i].metadata.namespace, float(queues[i, j]))
+    return fleet

@@ -241,5 +241,6 @@ def test_slice_modules_are_standalone(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root in {"__future__", "dataclasses", "typing", "numpy",
-                            "torch", "karpenter_tpu_torch"}, f"{path}: {name}"
+            assert root in {"__future__", "dataclasses", "threading", "time",
+                            "typing", "numpy", "torch",
+                            "karpenter_tpu_torch"}, f"{path}: {name}"

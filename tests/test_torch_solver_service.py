@@ -550,6 +550,35 @@ class TestWatchdog:
         finally:
             svc.close()
 
+    def test_new_worker_serves_while_the_hang_holds(self):
+        """A hang the watchdog gave up on is never released while the
+        next request arrives: the replacement worker answers it from the
+        device path (no numpy fallback, no timeout)."""
+        svc = new_service(backend="torch", watchdog_timeout_s=0.2,
+                          health_failure_threshold=10)
+        inputs = make_inputs(40, 4, seed=8)
+        want = direct(inputs)
+        try:
+            assert_outputs_equal(svc.solve(inputs), want)  # worker up
+            stale = svc._worker
+            with faults.injected_faults(seed=5) as reg:
+                reg.plan("solver.dispatch", mode="hang", times=1)
+                assert_outputs_equal(svc.solve(inputs, timeout=10.0), want)
+                assert svc.stats.watchdog_restarts == 1
+                assert svc.stats.fallbacks == 1
+                assert stale.is_alive()  # still hung
+                dispatches = svc.stats.dispatches
+                assert_outputs_equal(svc.solve(inputs, timeout=5.0), want)
+                assert svc._worker is not stale
+                assert stale.is_alive()
+                assert svc.stats.fallbacks == 1
+                assert svc.stats.deadline_expired == 0
+                assert svc.stats.dispatches == dispatches + 1
+            stale.join(5.0)
+            assert not stale.is_alive()
+        finally:
+            svc.close()
+
     def test_stale_worker_late_result_is_discarded(self):
         """A device call that wedges and later RETURNS: the watchdog has
         answered from numpy; the stale worker's late answer never
