@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (set-up, with ptxas's register,
-shared-memory and stack report), then runs eleven phases and fails (exit 1,
+shared-memory and stack report), then runs twelve phases and fails (exit 1,
 no result line) if any of them fails:
 
 1. fused kernel vs its plain version on the card: fused_assign against
@@ -108,12 +108,36 @@ no result line) if any of them fails:
    every row reports the error, no scale is written, nothing answers
    from numpy or the chained rung, the FSM degrades to SolverDeviceError
    and the probe (on an injected clock) heals it.
+12. the disruption path (`--consolidate --preempt`, runtime.py:409-501)
+   through SolverService() on the card: (a) workloads.
+   build_disruption_world(2000 nodes, 30000 bound pods, 64 pending
+   critical pods, seed 0; bench.py's fragmented consolidation cluster in
+   four node groups, the last preemptible) with the engines at their
+   defaults, driven for 9 rounds of 60 s by the ScalableNodeGroup
+   controller over a fake clock (launch counts set to 0 just before, read
+   just after): drains cordoned, verified, actuated through spec.replicas
+   and finished by on_scale_down, evictions planned and made; per round
+   the host time, the engines' eval gauges, candidates, drains planned /
+   vetoed / actuated, evictions, unplaceable, dispatches and the host
+   split; every consolidation plan launches each CUDA kernel once per
+   candidate with pods; a profiler window of the largest plan's
+   candidates (device kernels, launches, the fused instance, device ms
+   per launch at T = 2,000 with the forbidden operand, busy us); (b) the
+   same world on a CPU numpy service: equal error maps, store state,
+   node groups, provider replicas, engine tables and exposition every
+   round, and equal verdicts and plans; (c) service.preempt on bench.py's
+   eviction fleet at the victim ceiling (64 x 2,000 x 16,384) ==
+   preempt_numpy on every output, its p50 and the program's alone, device
+   kernels and busy us per call; (d) under solver.dispatch and
+   preempt.plan error plans the engines see FaultInjected, then
+   SolverDeviceError, nothing is cordoned or evicted, nothing answers
+   from numpy, and the probe (on an injected clock) heals the FSM.
 
 Then it profiles 20 main-path solves (torch.profiler: device time by
 kernel) and prints, before the last line, one JSON line of kernel records
 (`ms` is device time per launch from the profiler, and the smoke fails
 without it; `call_ms` is the wrapper's time by CUDA events around 50
-calls), and as the last line
+calls), and the script's wall time, and as the last line
 {"ok": true, "device": {...}}. Every line with a measured number ends
 with the card's name and power limit. Without a CUDA device, or without
 the rest of the repo beside it, it exits non-zero and prints no result.
@@ -1320,11 +1344,8 @@ def phase_service(torch, TB, TF, workloads, inputs, host_inputs, reconcile):
 # 2,048) over 64 observed samples; an SLO on about 60%; 64 pool groups x
 # 4 pools; --fused-tick. The queue series are spread over 125 gauge
 # vectors (32 HAs each), a layout no source has: the reference registers
-# one `karpenter_queue_length` vector, and the in-process metrics client
-# scans the matched vector's every series on each query, so at one vector
-# a tick of this fleet takes minutes of host time. (a) times one tick at
-# the reference's layout beside the spread one; every other tick of the
-# phase runs spread, so the phase fits the run.
+# one `karpenter_queue_length` vector. (a) also runs one tick at the
+# reference's layout and holds it to the spread layout's decisions.
 HA_SHAPE = dict(n_has=4000, metrics=3, seed=0, forecast_share=0.5,
                 slo_share=0.6, groups=64, pools=4, history=64,
                 queue_vectors=125)
@@ -1785,6 +1806,419 @@ def phase_ha_tick(torch, FT, M, workloads):
     _ha_failure_policy(workloads, S, GaugeRegistry)
 
 
+# -- phase 12: the disruption path (runtime.py:409-501) -----------------------
+
+# bench.py:3834's fragmented cluster at phase 9's node scale (2,000 nodes of
+# 16 CPU, 30,000 bound pods on the u**2 spread) with bench.py:4069's
+# priorities and 64 pending critical pods; the engines and node groups at
+# their defaults (max_candidates 64, max_victims 4,096, an eviction budget
+# of 1 per group, which defers every plan that needs more)
+DISRUPTION_SHAPE = dict(nodes=2000, pods=30000, pending_critical=64, seed=0)
+# rounds of 60 s: the cooldown (300 s) passes at round 6, the verify soak
+# (60 s) at round 7, and the drains finish in rounds 7-8
+DISRUPTION_ROUNDS = 9
+# (c): bench.py:4069's eviction fleet at the program's victim ceiling
+PREEMPT_SEAM = dict(candidates=64, nodes=2000, victims=16384, seed=0)
+# (d): a smaller world for the failure policy
+DISRUPTION_FAULT_SHAPE = dict(nodes=200, pods=3000, pending_critical=8,
+                              seed=1)
+
+
+def _disruption_rounds(world, svc, TF, rounds, timers, snaps):
+    """Run `rounds` rounds of `world`: per round (host ms, errors, host
+    split, engine gauges, service stats), and the world's snapshot after
+    it (in `snaps`, outside the timed region); per consolidation plan
+    (round, launches of each kernel, candidates solved, candidates
+    evaluated)."""
+    from karpenter_tpu_torch.consolidation import engine as CE
+    from karpenter_tpu_torch.preemption import engine as PE
+
+    plans = []
+    inner = world.consolidation.plan
+
+    def plan(now=None):
+        before = dict(TF.LAUNCHES)
+        c0 = svc.stats.consolidate_candidates
+        out = inner(now)
+        plans.append((world.rounds, {
+            k: TF.LAUNCHES[k] - before.get(k, 0) for k in TF.LAUNCHES
+        }, svc.stats.consolidate_candidates - c0, len(out)))
+        return out
+
+    world.consolidation.plan = plan
+    gauge = world.registry.gauge
+    out = []
+    try:
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            errors = world.round()
+            ms = (time.perf_counter() - t0) * 1e3
+            split = timers.take()
+            out.append({
+                "ms": ms,
+                "errors": _errors(errors),
+                "split": split,
+                "preempt_eval_ms": gauge(PE.SUBSYSTEM, PE.BATCH_EVAL_MS).get(
+                    "-", "-"),
+                "consolidate_eval_ms": gauge(
+                    CE.SUBSYSTEM, CE.BATCH_EVAL_MS).get("-", "-"),
+                "candidates": gauge(CE.SUBSYSTEM, CE.BATCH_CANDIDATES).get(
+                    "-", "-"),
+                "planned": gauge(CE.SUBSYSTEM, CE.DRAINS_PLANNED).get("-", "-"),
+                "vetoed": gauge(CE.SUBSYSTEM, CE.DRAINS_VETOED).get("-", "-"),
+                "actuated": gauge(CE.SUBSYSTEM, CE.DRAINS_ACTUATED).get(
+                    "-", "-"),
+                "preempt_plans": gauge(PE.SUBSYSTEM, PE.PLANS).get("-", "-"),
+                "deferred": gauge(PE.SUBSYSTEM, PE.DEFERRED).get("-", "-"),
+                "evictions": gauge(PE.SUBSYSTEM, PE.EVICTIONS).get("-", "-"),
+                "unplaceable": gauge(PE.SUBSYSTEM, PE.UNPLACEABLE).get(
+                    "-", "-"),
+                "dispatches": svc.stats.dispatches,
+                "in_flight": dict(world.consolidation.in_flight()),
+            })
+            snaps.append(world.snapshot())
+    finally:
+        world.consolidation.plan = inner
+    return out, plans
+
+
+def _disruption_timers(world, svc):
+    """Host-split hooks for a disruption round: the two engines' cluster
+    views, operand builds, service calls and actuation, and the
+    controller's provider writes."""
+    from karpenter_tpu_torch.consolidation import planner as CP
+    from karpenter_tpu_torch.preemption import engine as PE
+    from karpenter_tpu_torch.preemption import planner as PP
+
+    return _Timers([
+        (CP, "cluster_view", "cluster views"),
+        (PE, "cluster_view", "cluster views"),
+        (CP, "build_problems", "consolidation operands"),
+        (PP, "build_problem", "preemption operands"),
+        (svc, "consolidate", "service.consolidate"),
+        (svc, "preempt", "service.preempt"),
+        (world.preemption, "_resolve_and_actuate", "evictions + holds"),
+        (world.consolidation, "_advance_cordoned", "cordon/verify/actuate"),
+        (world.consolidation, "_cordon_drainable", "cordon/verify/actuate"),
+        (world.controller, "_set_replicas", "provider writes + finalize"),
+        (world.controller, "_finish_scale_down", "provider writes + finalize"),
+    ])
+
+
+def _plan_profile(torch, TF, CP, world, svc, verdicts):
+    """Device view of one consolidation plan: the largest plan's
+    candidates (those still in the store) rebuilt as operands and
+    answered by svc.consolidate under a profiler window of 3 plans:
+    device kernels, each CUDA kernel's launches and the fused instance,
+    device us per launch, busy us per plan."""
+    view = CP.cluster_view(world.store)
+    live = view.by_name()
+    names = [n for n in verdicts if n in live]
+    solved, inputs, _ = CP.build_problems(view, names)
+    need(inputs, "no candidate with pods to profile")
+    t = inputs[0].group_allocatable.shape[0]
+    pods = [x.pod_requests.shape[0] for x in inputs]
+    n = 3
+    TF.reset_launch_counts()
+    prof, _ = profile_window(torch, lambda: svc.consolidate(inputs), n,
+                             warmup=1)
+    launches = {k: v / (n + 1) for k, v in TF.LAUNCHES.items()}
+    need(launches == {"fused_assign": len(inputs), "shelf_bfd": len(inputs)},
+         f"a plan of {len(inputs)} candidates launched {launches}")
+    rows = device_rows(torch, prof)
+    need(rows, "profiler: no device rows for the consolidation plans")
+    instances = sorted({key[key.index("assign_kernel<"):].split(">")[0] + ">"
+                        for _, _, key in rows if "assign_kernel<" in key})
+    fused_rows = [(us, c) for us, c, key in rows
+                  if any(k in key for k in KERNEL_NAMES["fused_assign"])]
+    shelf_rows = [(us, c) for us, c, key in rows
+                  if any(k in key for k in KERNEL_NAMES["shelf_bfd"])]
+    need(fused_rows and shelf_rows, "profiler: a kernel of the plan is missing")
+    assign = [(us, c) for us, c, key in rows if "assign_kernel<" in key]
+    fused_ms = sum(us for us, _ in fused_rows) / sum(c for _, c in assign) / 1e3
+    shelf_ms = (sum(us for us, _ in shelf_rows)
+                / sum(c for _, c in shelf_rows) / 1e3)
+    kernels = sum(c for _, c, k in rows
+                  if not k.startswith(("Memcpy", "Memset"))) / n
+    busy = sum(us for us, _, _ in rows) / n
+    report(f"consolidation plan on the card (profiler, {n} plans of "
+           f"{len(inputs)} candidates with pods, T = {t} node columns, "
+           f"P = {min(pods)}-{max(pods)} pods, the forbidden operand): "
+           f"{kernels} device kernels and {busy} us busy per plan; launches "
+           f"per plan {launches}; fused instance {instances}; fused "
+           f"{fused_ms} ms per launch (assign + demand_reduce), shelf "
+           f"{shelf_ms} ms per launch")
+    for dev_us, count, key in rows[:8]:
+        report(f"  plan device row: {dev_us / n} us/plan x{count / n}/plan "
+               f"{key[:80]}")
+    return {"launches_per_plan": launches, "fused_ms": fused_ms,
+            "shelf_ms": shelf_ms, "instances": instances,
+            "candidates": len(inputs), "t": t}
+
+
+def _disruption_production(torch, TF, workloads, S, GaugeRegistry):
+    """(a) The production rounds through SolverService() on the card."""
+    from karpenter_tpu_torch.consolidation import planner as CP
+
+    svc = S.SolverService(registry=GaugeRegistry())
+    try:
+        need(svc.device.type == "cuda", f"default service on {svc.device}")
+        t0 = time.perf_counter()
+        world = workloads.build_disruption_world(service=svc,
+                                                 **DISRUPTION_SHAPE)
+        report(f"disruption world {DISRUPTION_SHAPE}: built in "
+               f"{time.perf_counter() - t0} s; "
+               f"{len(world.store.keys('ScalableNodeGroup'))} node groups "
+               f"(the last preemptible), engine defaults max_candidates "
+               f"{world.consolidation.config.max_candidates}, max_victims "
+               f"{world.preemption.config.max_victims}")
+        timers = _disruption_timers(world, svc)
+        snaps = []
+        torch.cuda.synchronize()
+        TF.reset_launch_counts()
+        try:
+            rounds, plans = _disruption_rounds(
+                world, svc, TF, DISRUPTION_ROUNDS, timers, snaps)
+        finally:
+            timers.remove()
+        launches = dict(TF.LAUNCHES)
+        need(all(v > 0 for v in launches.values()),
+             f"the disruption rounds launched {launches}")
+        for r, row in enumerate(rounds, 1):
+            need(all(e is None for e in row["errors"].values()),
+                 f"round {r} errored: {row['errors']}")
+            report(f"disruption round {r}: {row['ms']} ms (host clock, "
+                   f"snapshot excluded); consolidate eval "
+                   f"{row['consolidate_eval_ms']} ms, candidates "
+                   f"{row['candidates']}, drains planned / vetoed / actuated "
+                   f"{row['planned']} / {row['vetoed']} / {row['actuated']}, "
+                   f"in flight {row['in_flight']}; preempt eval "
+                   f"{row['preempt_eval_ms']} ms, plans / deferred / "
+                   f"evictions {row['preempt_plans']} / {row['deferred']} / "
+                   f"{row['evictions']} (totals), unplaceable "
+                   f"{row['unplaceable']}; "
+                   f"service dispatches {row['dispatches']}")
+        for r, per_kernel, solved, evaluated in plans:
+            need(per_kernel["fused_assign"] == per_kernel["shelf_bfd"]
+                 == solved,
+                 f"round {r}: {solved} candidates with pods launched "
+                 f"{per_kernel}")
+            if evaluated:
+                print(f"  consolidation plan, round {r}: {evaluated} "
+                      f"candidates evaluated, {solved} solved on the card, "
+                      f"launches {per_kernel}")
+        last = rounds[-1]
+        need(last["actuated"] and last["actuated"] > 0,
+             "no drain was actuated and finished")
+        need(last["evictions"] and last["evictions"] > 0, "nothing evicted")
+        final = snaps[-1]
+        need(sum(r for _, r in final["provider"])
+             == DISRUPTION_SHAPE["nodes"] - int(last["actuated"]),
+             f"provider replicas {final['provider']} after "
+             f"{last['actuated']} drains")
+        need(len(final["nodes"])
+             == DISRUPTION_SHAPE["nodes"] - int(last["actuated"]),
+             "the drained nodes are still in the store")
+        for label, key in (("preempt", "preempt_eval_ms"),
+                           ("consolidate", "consolidate_eval_ms")):
+            vals = [row[key] for row in rounds if row[key] is not None]
+            report(f"{label} eval (the engine's gauge, host clock): p50="
+                   f"{np.percentile(vals, 50)} ms p95="
+                   f"{np.percentile(vals, 95)} ms over {len(vals)} rounds")
+        ms = [row["ms"] for row in rounds]
+        report(f"disruption round: p50={np.percentile(ms, 50)} ms "
+               f"p95={np.percentile(ms, 95)} ms over {len(ms)} rounds")
+        total = {}
+        for row in rounds:
+            for k, v in row["split"].items():
+                total.setdefault(k, []).append(v * 1e3)
+        for k, v in sorted(total.items(), key=lambda kv: -sum(kv[1])):
+            report(f"  host split, ms per round (median / max): {k} "
+                   f"{np.median(v)} / {max(v)} ({100.0 * sum(v) / sum(ms)}% "
+                   f"of all rounds)")
+        stages = svc.stage_percentiles()
+        report("  service stages (ms): " + "; ".join(
+            f"{k} p50={v['p50_ms']} p99={v['p99_ms']} n={v['n']}"
+            for k, v in sorted(stages.items())))
+        st = svc.stats
+        need(st.fallbacks == 0, f"{st.fallbacks} numpy answers on the card")
+        need(st.preempt_dispatches == DISRUPTION_ROUNDS,
+             f"{st.preempt_dispatches} preempt dispatches in "
+             f"{DISRUPTION_ROUNDS} rounds")
+        need(svc.backend_health() == "healthy", "FSM not healthy")
+        biggest = max((v for _, v in world.verdicts), key=len)
+        profile = _plan_profile(torch, TF, CP, world, svc, biggest)
+        print(f"disruption on the card: {DISRUPTION_ROUNDS} rounds, "
+              f"{st.consolidate_calls} consolidate calls "
+              f"({st.consolidate_candidates} candidates), "
+              f"{st.preempt_dispatches} preempt dispatches, launches "
+              f"{launches}, fallbacks 0, FSM healthy")
+        return {"snaps": snaps, "errors": [row["errors"] for row in rounds],
+                "verdicts": world.verdicts, "plans": world.plans,
+                "launches": launches, "profile": profile}
+    finally:
+        svc.close()
+
+
+def _disruption_parity(workloads, S, GaugeRegistry, card):
+    """(b) The same world and rounds on a CPU numpy service: equal
+    verdicts, plans, evictions, cordons, deleted nodes and pods, node
+    groups, provider replicas, engine tables and exposition."""
+    svc = S.SolverService(registry=GaugeRegistry(), device="cpu",
+                          backend="numpy")
+    try:
+        world = workloads.build_disruption_world(service=svc,
+                                                 **DISRUPTION_SHAPE)
+        t0 = time.perf_counter()
+        for r in range(DISRUPTION_ROUNDS):
+            errors = _errors(world.round())
+            need(errors == card["errors"][r], f"round {r + 1}: error maps")
+            snap = world.snapshot()
+            for key, value in snap.items():
+                need(value == card["snaps"][r][key],
+                     f"round {r + 1}: {key} differs from the card's")
+        need(world.verdicts == card["verdicts"], "consolidation verdicts")
+        need(world.plans == card["plans"], "preemption plans")
+        evictions = sum(len(p["evictions"]) for _, plans in world.plans
+                        for p in plans.values() if p)
+        print(f"disruption parity: the CPU numpy service equals the card on "
+              f"{DISRUPTION_ROUNDS} rounds ({len(world.verdicts)} "
+              f"consolidation plans, {len(world.plans)} preemption plans, "
+              f"{evictions} evictions, every store object, node group, "
+              f"provider replica, engine table and "
+              f"{len(snap['exposition'])} bytes of exposition) in "
+              f"{time.perf_counter() - t0} s")
+    finally:
+        svc.close()
+
+
+def _preempt_seam(torch, workloads, S, GaugeRegistry):
+    """(c) The preempt seam at the victim ceiling: service.preempt on the
+    card == preempt_numpy on every output; its p50 and device view."""
+    from karpenter_tpu_torch.ops import preempt as P
+
+    inputs = workloads.build_preempt_inputs(**PREEMPT_SEAM)
+    svc = S.SolverService(registry=GaugeRegistry())
+    try:
+        got = svc.preempt(inputs)
+        want = P.preempt_numpy(inputs)
+        for field in ("chosen_node", "evict_count", "evict_mask",
+                      "unplaceable"):
+            a, b = np.asarray(getattr(got, field)), np.asarray(
+                getattr(want, field))
+            need(a.shape == b.shape and np.array_equal(a, b),
+                 f"preempt seam: {field} differs from preempt_numpy")
+        need(np.asarray(got.chosen_node).dtype == np.int32, "chosen_node dtype")
+        placed = int((np.asarray(got.chosen_node) >= 0).sum())
+        p50, p95 = host_ms(torch, lambda: svc.preempt(inputs), ITERS)
+        dev = P.PreemptInputs.from_numpy(inputs, "cuda")
+        d50, d95 = host_ms(torch, lambda: P.preempt_plan(dev), ITERS)
+        per_call = profile_per_call(torch, lambda: svc.preempt(inputs), n=5)
+        need(per_call is not None, "profiler: no device rows for preempt")
+        report(f"preempt seam {PREEMPT_SEAM}: service.preempt == "
+               f"preempt_numpy on every output ({placed} of "
+               f"{PREEMPT_SEAM['candidates']} placed, max evictions "
+               f"{int(np.asarray(got.evict_count).max())}); service p50="
+               f"{p50} ms p95={p95} ms, the program alone on resident "
+               f"operands p50={d50} ms p95={d95} ms ({ITERS} calls each); "
+               f"{per_call[1]} device kernels, {per_call[0]} device ops and "
+               f"{per_call[2]} us busy per call (profiler)")
+        return {"p50": p50, "program_p50": d50, "kernels": per_call[1],
+                "busy_us": per_call[2]}
+    finally:
+        svc.close()
+
+
+class _RunningClock:
+    """The monotonic clock plus an offset the phase moves forward: an
+    injected clock for the service's health FSM that still runs, since a
+    consolidation batch widens the service's gather window, which waits
+    on the service's clock."""
+
+    def __init__(self):
+        self.offset = 0.0
+
+    def __call__(self):
+        return time.monotonic() + self.offset
+
+
+def _disruption_failure_policy(workloads, S, GaugeRegistry):
+    """(d) Under error plans on solver.dispatch and preempt.plan the
+    engines see the errors (FaultInjected, then SolverDeviceError once the
+    FSM degrades), nothing is cordoned or evicted, nothing answers from
+    numpy; with the plans cleared the probe heals the FSM."""
+    from karpenter_tpu_torch import faults
+
+    clock = _RunningClock()
+    svc = S.SolverService(registry=GaugeRegistry(), clock=clock,
+                          health_failure_threshold=2,
+                          health_probe_interval_s=30.0)
+    try:
+        world = workloads.build_disruption_world(service=svc,
+                                                 **DISRUPTION_FAULT_SHAPE)
+        for _ in range(6):  # past the cooldown: consolidation has candidates
+            world.round()
+        seen = {"PreemptionEngine": [], "ConsolidationEngine": []}
+        for engine in (world.preemption, world.consolidation):
+            inner = engine.plan
+
+            def caught(now=None, inner=inner, log=seen[type(engine).__name__]):
+                try:
+                    return inner(now)
+                except Exception as exc:
+                    log.append(type(exc).__name__)
+                    raise
+
+            engine.plan = caught
+        before = world.snapshot()
+        with faults.injected_faults(seed=12) as reg:
+            reg.plan("solver.dispatch", mode="error")
+            reg.plan("preempt.plan", mode="error")
+            for _ in range(2):
+                world.round()
+        after = world.snapshot()
+        need(set(n for n, cordoned, _ in after["nodes"] if cordoned)
+             <= set(n for n, cordoned, _ in before["nodes"] if cordoned),
+             "a node was cordoned under the fault plans")
+        need(after["pods"] == before["pods"], "a pod was evicted")
+        need(seen["PreemptionEngine"] == ["FaultInjected", "SolverDeviceError"],
+             f"preemption saw {seen['PreemptionEngine']}")
+        need(seen["ConsolidationEngine"]
+             and set(seen["ConsolidationEngine"])
+             <= {"FaultInjected", "SolverDeviceError"},
+             f"consolidation saw {seen['ConsolidationEngine']}")
+        need(svc.backend_health() == "degraded", "FSM not degraded")
+        need(svc.stats.fallbacks == 0, "numpy answered on the card")
+        clock.offset += 31.0
+        n_before = {k: len(v) for k, v in seen.items()}
+        world.round()
+        need({k: len(v) for k, v in seen.items()} == n_before,
+             "the probe round errored")
+        need(svc.backend_health() == "healthy", "the probe did not heal")
+        print(f"disruption failure policy: under solver.dispatch and "
+              f"preempt.plan error plans preemption saw "
+              f"{seen['PreemptionEngine']}, consolidation saw "
+              f"{seen['ConsolidationEngine']}; nothing cordoned or evicted, "
+              f"no numpy answer; the probe healed the FSM (trips "
+              f"{svc.stats.fsm_trips}, recoveries {svc.stats.fsm_recoveries})")
+    finally:
+        svc.close()
+
+
+def phase_disruption(torch, TF, workloads):
+    """Phase 12: the disruption engines behind SolverService() on the
+    card, driven by the ScalableNodeGroup controller."""
+    from karpenter_tpu_torch.metrics.registry import GaugeRegistry
+    from karpenter_tpu_torch.solver import service as S
+
+    card = _disruption_production(torch, TF, workloads, S, GaugeRegistry)
+    _disruption_parity(workloads, S, GaugeRegistry, card)
+    seam = _preempt_seam(torch, workloads, S, GaugeRegistry)
+    _disruption_failure_policy(workloads, S, GaugeRegistry)
+    return {"launches": card["launches"], "profile": card["profile"],
+            "seam": seam}
+
+
 def profile_solves(torch, TB, inputs, n=ITERS):
     """Where a solve's time goes: the mean of back-to-back solves by CUDA
     events, then a torch.profiler window of n solves (device time by
@@ -1895,7 +2329,7 @@ def device_ms(profile, wrapper):
 
 
 def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
-                   service):
+                   service, disruption):
     """Per-kernel JSON records at the main path's shapes. `ms` is device
     time per launch from the profiler's rows of the kernel's own names
     (the fused row sums its two kernels); `call_ms` is the wrapper's time
@@ -1910,7 +2344,12 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
     wrapper's count over phase 10's one main-path request through
     SolverService(), `service_ms` its device time per launch there and
     `service_instance` the fused instance that ran (the cuda rung does not
-    pad, so R = 3 takes the narrow one)."""
+    pad, so R = 3 takes the narrow one). `disruption_launches` is the
+    wrapper's count over phase 12's rounds, `disruption_launches_per_plan`
+    its launches per consolidation plan in the profiled plan (one per
+    candidate with pods), `disruption_ms` its device time per launch
+    there (T = the cluster's nodes, with the forbidden operand) and
+    `disruption_instance` the fused instance(s) that ran."""
     from karpenter_tpu_torch.ops.fused_assign import _packed
 
     pods, n_res = inputs.pod_requests.shape
@@ -1979,6 +2418,13 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
                 "fused_ms" if name == "fused_assign" else "shelf_ms"],
             "service_instance": (service["instance"]
                                  if name == "fused_assign" else None),
+            "disruption_launches": disruption["launches"][name],
+            "disruption_launches_per_plan": disruption["profile"][
+                "launches_per_plan"][name],
+            "disruption_ms": disruption["profile"][
+                "fused_ms" if name == "fused_assign" else "shelf_ms"],
+            "disruption_instance": (disruption["profile"]["instances"]
+                                    if name == "fused_assign" else None),
             "max_abs_err": err,
             "ms": ms,
             "call_ms": call_ms,
@@ -2018,7 +2464,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
     CARD["line"] = card_info()["line"]
     print(f"card: {CARD['line']}")
-    t0 = time.perf_counter()
+    started = t0 = time.perf_counter()
     kernels.build(verbose=True)
     report(f"kernel build (nvcc, parallel): {time.perf_counter() - t0} s")
 
@@ -2052,6 +2498,7 @@ def main() -> int:
             torch, TB, TF, workloads, inputs, host_inputs,
             results["reconcile tick"])),
         ("HA tick", lambda: phase_ha_tick(torch, FT, M, workloads)),
+        ("disruption", lambda: phase_disruption(torch, TF, workloads)),
     ]
     for name, run in phases:
         try:
@@ -2070,7 +2517,10 @@ def main() -> int:
     profile = profile_solves(torch, TB, inputs)
     records = kernel_records(torch, TB, TF, inputs, launches, profile,
                              results["reconcile tick"],
-                             results["solve service"])
+                             results["solve service"],
+                             results["disruption"])
+    report(f"chip_smoke wall time: {time.perf_counter() - started} s "
+           f"(kernel build and all twelve phases)")
     print(f"card: {CARD['line']}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

@@ -1,8 +1,9 @@
 """The port's controllers package: the error taxonomy (errors.py, a copy
 of karpenter_tpu/controllers/errors.py) that the fault registry raises
-through, and the HorizontalAutoscaler controller that hands the fleet to
-the BatchAutoscaler. The controller engine and the other controllers
-come with a later slice."""
+through, the HorizontalAutoscaler controller that hands the fleet to
+the BatchAutoscaler, and the ScalableNodeGroup controller that actuates
+replicas and drives the disruption engines. The controller engine and
+the MetricsProducer controller come with a later slice."""
 
 from karpenter_tpu_torch.controllers.errors import (
     RetryableError,
@@ -12,10 +13,14 @@ from karpenter_tpu_torch.controllers.errors import (
 from karpenter_tpu_torch.controllers.horizontalautoscaler import (
     HorizontalAutoscalerController,
 )
+from karpenter_tpu_torch.controllers.scalablenodegroup import (
+    ScalableNodeGroupController,
+)
 
 __all__ = [
     "HorizontalAutoscalerController",
     "RetryableError",
+    "ScalableNodeGroupController",
     "error_code",
     "is_retryable",
 ]

@@ -36,7 +36,8 @@ ops/binpack calls element for element, and the ladder and the padding
 byte-equal to the reference's.
 
 The port's copy of the bin-pack half of karpenter_tpu/solver/bucketing.py
-(the preempt and mesh helpers come with their slices). Padding runs on
+and its eviction-planning half (the mesh helpers come with their
+slice). Padding runs on
 the host, in numpy: operands given as tensors are read back first, so a
 padded request always holds host arrays.
 """
@@ -287,4 +288,80 @@ def crop_outputs(out, n_pods: int, n_groups: int):
         assigned_count=out.assigned_count[:n_groups],
         nodes_needed=out.nodes_needed[:n_groups],
         lp_bound=out.lp_bound[:n_groups],
+    )
+
+
+# -- eviction-planning (ops/preempt.py) shape ladder --------------------------
+# Candidate counts are preemption-scale (a handful of high-priority
+# pending pods), victim counts are occupancy-scale; each gets its own
+# floor so both single-candidate probes and fleet-wide storms land on
+# stable rungs.
+CANDIDATE_FLOOR = 8
+VICTIM_FLOOR = 64
+
+
+def preempt_bucket_shape(inputs) -> Tuple[int, int, int, int]:
+    """(C, N, R, V) rounded up their ladders — the shape half of the
+    preempt dispatch key."""
+    c, r = inputs.pod_requests.shape
+    n = inputs.node_free.shape[0]
+    v = inputs.victim_requests.shape[0]
+    return (
+        bucket_up(c, CANDIDATE_FLOOR),
+        bucket_up(n, GROUP_FLOOR),
+        bucket_up(r, RESOURCE_FLOOR),
+        bucket_up(v, VICTIM_FLOOR),
+    )
+
+
+def pad_preempt_inputs(inputs, shape: Tuple[int, int, int, int]):
+    """Zero-pad a PreemptInputs up to the bucket `shape`, semantics-
+    preserving: padding candidates are invalid (excluded from every
+    aggregate), padding node columns are zero-free AND forbidden for
+    every candidate (never chosen), padding victims are invalid +
+    zero-request with the LAST node column (the sorted-victim contract
+    survives) and contribute nothing to prefix sums or maxima."""
+    from karpenter_tpu_torch.ops.preempt import PreemptInputs
+
+    c, n, r, v = shape
+    if (
+        tuple(inputs.pod_requests.shape) == (c, r)
+        and tuple(inputs.node_free.shape) == (n, r)
+        and tuple(inputs.victim_requests.shape) == (v, r)
+    ):
+        return inputs
+    c0, n0, v0 = (
+        inputs.pod_requests.shape[0],
+        inputs.node_free.shape[0],
+        inputs.victim_requests.shape[0],
+    )
+    forbidden = np.ones((c, n), bool)
+    forbidden[:c0, :n0] = _pad2(inputs.pod_node_forbidden, c0, n0)
+    victim_node = np.full(v, n - 1, np.int32)
+    victim_node[:v0] = _pad2(inputs.victim_node, v0)
+    return PreemptInputs(
+        pod_requests=_pad2(inputs.pod_requests, c, r),
+        pod_priority=_pad2(inputs.pod_priority, c),
+        pod_valid=_pad2(inputs.pod_valid, c),
+        pod_node_forbidden=forbidden,
+        node_free=_pad2(inputs.node_free, n, r),
+        node_tier=_pad2(inputs.node_tier, n),
+        victim_requests=_pad2(inputs.victim_requests, v, r),
+        victim_priority=_pad2(inputs.victim_priority, v),
+        victim_node=victim_node,
+        victim_valid=_pad2(inputs.victim_valid, v),
+        victim_evictable=_pad2(inputs.victim_evictable, v),
+    )
+
+
+def crop_preempt_outputs(out, n_candidates: int, n_victims: int):
+    """Slice a padded preempt solve back to the true candidate/victim
+    axes. Padding nodes are forbidden, so no real candidate's
+    chosen_node points past the real columns; padding candidates are
+    invalid, so `unplaceable` never counts them."""
+    return dataclasses.replace(
+        out,
+        chosen_node=out.chosen_node[:n_candidates],
+        evict_count=out.evict_count[:n_candidates],
+        evict_mask=out.evict_mask[:n_candidates, :n_victims],
     )

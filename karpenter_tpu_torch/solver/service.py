@@ -1,8 +1,9 @@
 """Shared solve service: one amortized device pipeline for every caller.
 
 The port's copy of karpenter_tpu/solver/service.py: the bin-pack,
-decide and fleet-tick families (forecast, cost, poolgroup, fused_tick)
-with the numpy floor rung. Every bin-pack caller — the pendingCapacity
+decide, fleet-tick (forecast, cost, poolgroup, fused_tick) and
+disruption (consolidate, preempt) families with the numpy floor rung.
+Every bin-pack caller — the pendingCapacity
 batch solve, and later simulate and the sidecar — goes through this
 single in-process front door, which turns independent calls into one
 production pipeline:
@@ -109,8 +110,21 @@ host numpy, fetched from the device in one copy per call):
     failure raises (counted by the FSM): a chained serve would hide a
     broken graph while ticks carry on.
 
+The disruption families (the consolidation and preemption engines):
+
+  * `consolidate` submits N masked bin-packs (one per drain candidate)
+    as one atomic batch (a shared batch marker lets it past max_batch),
+    which takes one slot of the bounded queue on either device (the
+    reference admits it candidate by candidate). On the torch rung the batch rides ONE dispatch under its own key
+    ("vmap"); on the cuda rung each candidate is one launch of each
+    CUDA kernel, one after another.
+  * `preempt` rides the queue on its own shape ladder and runs
+    ops/preempt.preempt_plan (PyTorch ops; no hand-written kernel) on
+    the service's device, padded, fetched in one copy; the numpy mirror
+    is bit-identical.
+
 Left out of this slice (each comes with its own): the shard route, the
-consolidate/preempt/sim families and the introspection plane.
+sim families and the introspection plane.
 """
 
 from __future__ import annotations
@@ -145,12 +159,15 @@ from karpenter_tpu_torch.solver.bucketing import (
     bucket_up,
     constraint_shape,
     crop_outputs,
+    crop_preempt_outputs,
+    pad_preempt_inputs,
     pad_to_bucket,
+    preempt_bucket_shape,
     presence,
 )
 from karpenter_tpu_torch.utils.device import DeviceLike, resolve_device
 from karpenter_tpu_torch.utils.log import logger
-from karpenter_tpu_torch.utils.operands import host_seam
+from karpenter_tpu_torch.utils.operands import fetch, host_seam
 
 SUBSYSTEM = "solver"
 
@@ -273,10 +290,17 @@ class SolverStatistics:
     poolgroup_errors: int = 0  # poolgroup() failures
     poolgroup_dispatches: int = 0  # joint device dispatches
     poolgroup_independent_serves: int = 0  # degraded independent-ladder serves
+    # batched drain-candidate evaluation (consolidation/)
+    consolidate_calls: int = 0  # consolidate() entries
+    consolidate_candidates: int = 0  # total candidates submitted across calls
     # forecast seam (forecast/)
     forecast_calls: int = 0  # forecast() entries
     forecast_series: int = 0  # total series submitted across calls
     forecast_dispatches: int = 0  # coalesced forecast device dispatches
+    # eviction-planning seam (ops/preempt.py, preemption/)
+    preempt_calls: int = 0  # preempt() entries
+    preempt_candidates: int = 0  # total candidates submitted across calls
+    preempt_dispatches: int = 0  # preempt device dispatches
     # fused steady-state tick (ops/fusedtick.py)
     fused_calls: int = 0  # fused_tick() entries
     fused_dispatches: int = 0  # ticks answered by the ONE fused program
@@ -319,6 +343,10 @@ class _Request:
     result: Optional[object] = None
     error: Optional[BaseException] = None
     abandoned: bool = False
+    # consolidate() batch marker: requests sharing an id were enqueued
+    # atomically and must ride ONE dispatch — _collect keeps draining the
+    # queue past max_batch while the head continues the same batch
+    coalesce_id: Optional[int] = None
     # reconcile-trace span opened at submit (observability.tracing):
     # covers queue wait through completion; the coalesced dispatch span
     # LINKS it, and the FSM-trip flight-recorder event backlinks its
@@ -492,6 +520,7 @@ class SolverService:
         self._tls = threading.local()
         # per-tick dispatch accounting (note_tick)
         self._tick_dispatch_mark = 0
+        self._coalesce_seq = 0  # consolidate() batch-marker source
         self._register_metrics()
         if self._resolve_backend(None) == "cuda":
             self._ensure_kernels()
@@ -842,12 +871,36 @@ class SolverService:
             tenant=request.tenant,
         )
 
+    def _record_rejected_span(self, backend: str) -> None:
+        """Open-and-close a rejected request span for a consolidate()
+        overflow slot that never became a _Request — a trace taken during
+        saturation must show the rejected candidates, not just rejected
+        singletons."""
+        span = default_tracer().begin(
+            "solver.request", family="binpack", backend=backend,
+        )
+        if span is not None:
+            span.close(ok=False, rejected=True)
+
+    def _slots(self) -> int:
+        """The queue's depth in admission slots, which max_queue bounds
+        (the caller holds _cond): a request is one slot, and so is a
+        whole consolidate() batch (its members are contiguous and share
+        one coalesce_id)."""
+        slots, last = 0, None
+        for request in self._queue:
+            cid = request.coalesce_id
+            if cid is None or cid != last:
+                slots += 1
+            last = cid
+        return slots
+
     def _enqueue_one(self, request: _Request) -> None:
         """Admit one request to the bounded queue (raises
         SolverSaturated when full) and wake the worker."""
         self._begin_request_span(request)
         with self._cond:
-            if len(self._queue) >= self.max_queue:
+            if self._slots() >= self.max_queue:
                 self.stats.rejected += 1
                 self._c_rejected.inc("-", "-")
                 if request.span is not None:
@@ -896,6 +949,169 @@ class SolverService:
                 "solve deadline expired; degrading one request to numpy"
             )
             return self._numpy_fallback(inputs, buckets)
+
+    # -- consolidate family -------------------------------------------------
+
+    def consolidate(
+        self,
+        inputs_list,
+        buckets: int = DEFAULT_BUCKETS,
+        backend: Optional[str] = None,
+        timeout: Optional[float] = None,
+    ) -> list:
+        """Batched candidate evaluation for the consolidation planner:
+        N masked bin-packs (one per drain candidate) submitted ATOMICALLY
+        and answered as a list of host outputs in input order.
+
+        The requests ride the normal pipeline (coalescing queue, shape
+        ladder, the rung's dispatch) but carry a shared batch marker, so
+        the worker drains the whole set past `max_batch`. On the torch
+        rung same-bucket candidates ride ONE batched dispatch, and
+        candidate-count jitter only moves along the batch ladder, so
+        steady-state consolidation meets no new dispatch key. On the
+        cuda rung the candidates are answered one after another, each
+        one launch of each CUDA kernel (the fused kernel has no batched
+        entry, as the reference's fused Mosaic kernel has none).
+
+        The batch takes one slot of the bounded queue and is admitted or
+        refused whole. On the CPU a refused batch is answered from numpy
+        inline and an expired deadline degrades (or raises, per
+        `on_timeout`) per candidate; on the card both raise, and the
+        rest of the batch is abandoned."""
+        if not inputs_list:
+            return []
+        if self._closed:
+            raise RuntimeError("solver service is closed")
+        self.stats.consolidate_calls += 1
+        self.stats.consolidate_candidates += len(inputs_list)
+        resolved = self._resolve_backend(backend)
+        timeout = self.default_timeout_s if timeout is None else timeout
+        requests = self._enqueue_batch(
+            inputs_list, buckets, resolved, timeout
+        )
+        return self._gather_batch(requests, inputs_list, buckets, timeout)
+
+    @staticmethod
+    def _abandon(requests) -> None:
+        """Nobody will wait on these batch members: the worker skips
+        them instead of burning a dispatch for dropped results."""
+        for request in requests:
+            if request is not None:
+                request.abandoned = True
+
+    def _gather_batch(
+        self, requests, inputs_list, buckets: int, timeout
+    ) -> list:
+        """Wait out a consolidate() batch in input order. A refused
+        batch (its slots None) and expired candidates degrade to numpy
+        on the CPU, per solve()'s semantics; on the card a refusal raises
+        SolverSaturated before any wait and an expiry SolverTimeout."""
+        if not self._numpy_ladder and any(r is None for r in requests):
+            self._abandon(requests)
+            raise SolverSaturated(
+                f"solver queue full ({self.max_queue}) for a "
+                f"{len(requests)}-candidate consolidation batch"
+            )
+        results = []
+        for i, request in enumerate(requests):
+            if request is None:
+                logger().warning(
+                    "solver queue saturated; degrading one consolidation "
+                    "candidate to numpy"
+                )
+                results.append(
+                    self._numpy_fallback(inputs_list[i], buckets)
+                )
+                continue
+            try:
+                results.append(
+                    SolveFuture(request, self).result(
+                        timeout if timeout else None
+                    )
+                )
+            except SolverTimeout:
+                if self.on_timeout == "raise":
+                    self._abandon(requests[i + 1:])
+                    raise
+                logger().warning(
+                    "consolidation candidate deadline expired; degrading "
+                    "to numpy"
+                )
+                results.append(
+                    self._numpy_fallback(inputs_list[i], buckets)
+                )
+        return results
+
+    def _consolidate_key(self, inputs, buckets: int, resolved: str):
+        """The dispatch key of one consolidate() candidate. The
+        6th key element ("vmap", the reference's name) keeps these groups
+        from mixing with plain solve() traffic: on the torch rung a
+        consolidation batch never splits into pipeline chunks and never
+        takes the resident singleton path."""
+        if resolved == "cuda" and self.device_solver is None:
+            if has_constraint_operands(inputs):
+                # the planner folds taints, selectors and affinity into
+                # pod_group_forbidden; the fused kernel has no constraint
+                # entry, and a drain verdict is never served by the plain
+                # program on the card
+                raise ValueError(
+                    "a consolidation candidate carries constraint "
+                    "operands, which the cuda rung does not take"
+                )
+            self._ensure_kernels()
+        return (
+            bucket_shape(inputs), buckets, resolved, presence(inputs),
+            constraint_shape(inputs), "vmap",
+        )
+
+    def _enqueue_batch(
+        self, inputs_list, buckets: int, resolved: str, timeout
+    ) -> List[Optional[_Request]]:
+        """Enqueue a consolidate() batch atomically under one lock hold
+        (contiguous in the deque, shared coalesce_id). Keys (and any
+        kernel build) resolve before the lock, so no submitter or worker
+        waits on them.
+
+        The batch takes ONE admission slot (_slots), as the worker drains
+        it as one group past max_batch: it is admitted whole when the
+        queue has a free slot, else refused whole, every slot coming back
+        as None (answered from numpy on the CPU, raised on the card)."""
+        now = self._clock()
+        keys = [
+            self._consolidate_key(inputs, buckets, resolved)
+            for inputs in inputs_list
+        ]
+        requests: List[Optional[_Request]] = []
+        with self._cond:
+            if self._slots() >= self.max_queue:
+                for _ in inputs_list:
+                    self.stats.rejected += 1
+                    self._c_rejected.inc("-", "-")
+                    self._record_rejected_span(resolved)
+                return [None] * len(inputs_list)
+            self._coalesce_seq += 1
+            cid = self._coalesce_seq
+            for inputs, key in zip(inputs_list, keys):
+                request = _Request(
+                    inputs=inputs,
+                    buckets=buckets,
+                    backend=resolved,
+                    key=key,
+                    n_pods=inputs.pod_requests.shape[0],
+                    n_groups=inputs.group_allocatable.shape[0],
+                    deadline=(now + timeout) if timeout else None,
+                    enqueued_at=now,
+                    coalesce_id=cid,
+                )
+                self._begin_request_span(request)
+                self._queue.append(request)
+                self.stats.requests += 1
+                self._c_requests.inc("-", "-")
+                requests.append(request)
+            self._ensure_worker()
+            self._g_queue.set("-", "-", float(len(self._queue)))
+            self._cond.notify_all()
+        return requests
 
     def decide(self, inputs):
         """The HPA decision program through the service: same metrics
@@ -1074,6 +1290,124 @@ class SolverService:
             )
             offset += size
         self._record_stage("scatter", _time.perf_counter() - t0)
+
+    # -- preempt family -----------------------------------------------------
+
+    def preempt(self, inputs, backend: Optional[str] = None,
+                timeout: Optional[float] = None):
+        """Fleet-wide placement-with-eviction through the service: one
+        PreemptInputs problem (C candidate pods x N node columns x V
+        victims; either package's dataclass or a dict of host arrays)
+        in, one PreemptOutputs of host arrays out, ONE dispatch of
+        ops/preempt.preempt_plan planning every candidate. Requests ride
+        the coalescing queue on the preempt shape ladder; the cuda rung
+        runs that PyTorch program on the service's device (there is no
+        hand-written preempt kernel). On the CPU a full queue, an expired
+        deadline, a device failure or a degraded FSM answers from the
+        bit-identical numpy mirror; on the card each raises.
+        `preempt.plan` is the fault-injection point on the device path."""
+        from karpenter_tpu_torch.ops import preempt as PK
+
+        inputs = PK.PreemptInputs.from_arrays(inputs)
+        n_candidates = int(inputs.pod_requests.shape[0])
+        n_victims = int(inputs.victim_requests.shape[0])
+        self.stats.preempt_calls += 1
+        self.stats.preempt_candidates += n_candidates
+        if n_candidates == 0:
+            return PK.PreemptOutputs(
+                chosen_node=np.zeros(0, np.int32),
+                evict_count=np.zeros(0, np.int32),
+                evict_mask=np.zeros((0, n_victims), bool),
+                unplaceable=np.int32(0),
+            )
+        if n_victims > PK.MAX_VICTIMS:
+            raise ValueError(
+                f"preempt solve supports at most {PK.MAX_VICTIMS} victims, "
+                f"got {n_victims}"
+            )
+        if self._closed:
+            raise RuntimeError("solver service is closed")
+        timeout = self.default_timeout_s if timeout is None else timeout
+        now = self._clock()
+        resolved = self._family_backend(backend)
+        request = _Request(
+            inputs=inputs,
+            buckets=0,
+            backend=resolved,
+            key=("preempt", preempt_bucket_shape(inputs), resolved),
+            n_pods=n_candidates,
+            n_groups=n_victims,
+            deadline=(now + timeout) if timeout else None,
+            enqueued_at=now,
+        )
+        try:
+            self._enqueue_one(request)
+        except SolverSaturated:
+            if not self._numpy_ladder:
+                raise
+            logger().warning(
+                "solver queue saturated; degrading one eviction plan to numpy"
+            )
+            return self._numpy_fallback(inputs, 0)
+        try:
+            return SolveFuture(request, self).result(
+                timeout if timeout else None
+            )
+        except SolverTimeout:
+            if self.on_timeout == "raise":
+                raise
+            logger().warning("eviction-plan deadline expired; degrading to numpy")
+            return self._numpy_fallback(inputs, 0)
+
+    def _preempt_group(self, key: tuple, live: List[_Request]) -> None:
+        """Eviction-planning dispatches: each request is already a
+        whole-fleet batched problem (the candidate axis IS the batch), so
+        same-key requests dispatch one after another, each padded up the
+        shape ladder and fetched in one copy. Completes inline, so
+        in-flight bin-pack work drains first. Device failures raise to
+        _dispatch_group, which feeds the FSM and answers the request
+        (from numpy on the CPU, with the error on the card)."""
+        from karpenter_tpu_torch.ops import preempt as PK
+
+        shape, backend = key[1], key[2]
+        self._drain_inflight()
+        if backend == "numpy":
+            # the REQUESTED backend, not a degradation: no padding
+            for request in live:
+                t0 = _time.perf_counter()
+                request.finish(result=PK.preempt_numpy(request.inputs))
+                self._record_stage("dispatch", _time.perf_counter() - t0)
+            return
+        fresh = self._count_key(("preempt", shape, backend))
+        grace = COMPILE_GRACE_S if fresh else 0.0
+        for request in live:
+            t0 = _time.perf_counter()
+            padded = pad_preempt_inputs(request.inputs, shape)
+            self._record_stage("pad", _time.perf_counter() - t0)
+            t0 = _time.perf_counter()
+            with self._dispatch_span("solver.dispatch.preempt", [request]):
+                with self._device_section([request], grace=grace):
+                    with solver_trace("solver.preempt"):
+                        # the preempt-path fault-injection point: an
+                        # error plan exercises the failure answer + FSM,
+                        # a hang plan the watchdog drain
+                        inject("preempt.plan")
+                        host = fetch(PK.preempt_plan(padded, self.device))
+            grace = 0.0  # only the first dispatch of the group is a first launch
+            if self._stale():
+                return  # the watchdog already answered these
+            self.stats.upload_bytes += sum(
+                np.asarray(getattr(padded, f.name)).nbytes
+                for f in dataclasses.fields(padded)
+            )
+            self._record_stage("dispatch", _time.perf_counter() - t0)
+            self._count_dispatch()
+            self.stats.preempt_dispatches += 1
+            t0 = _time.perf_counter()
+            self._finish_device(request, crop_preempt_outputs(
+                host, request.n_pods, request.n_groups
+            ))
+            self._record_stage("scatter", _time.perf_counter() - t0)
 
     # -- cost family --------------------------------------------------------
 
@@ -1635,6 +1969,7 @@ class SolverService:
                 while self._queue and len(batch) < self.max_batch:
                     batch.append(self._queue.popleft())
         with self._cond:
+            self._drain_batch_tail(batch)
             self._g_queue.set("-", "-", float(len(self._queue)))
         # worker-only EWMA of observed concurrency: decays back to 1 a
         # few idle batches after a burst, so steady singleton traffic
@@ -1668,6 +2003,21 @@ class SolverService:
         if backlog > 0 or self._load >= _LOAD_IDLE:
             return self.window_s
         return 0.0
+
+    def _drain_batch_tail(self, batch: List[_Request]) -> None:
+        """consolidate() batches are enqueued atomically (contiguous in
+        the deque) and must ride one dispatch: keep draining past
+        max_batch while the queue head continues a batch already
+        partially collected. Called under self._cond."""
+        taken = {
+            r.coalesce_id for r in batch if r.coalesce_id is not None
+        }
+        while (
+            self._queue
+            and self._queue[0].coalesce_id is not None
+            and self._queue[0].coalesce_id in taken
+        ):
+            batch.append(self._queue.popleft())
 
     def _filter_live(self, requests: List[_Request]) -> List[_Request]:
         """Drop abandoned and queue-expired requests; the survivors are
@@ -1789,6 +2139,9 @@ class SolverService:
         if key[0] == "forecast":
             self._forecast_group(key, live)
             return
+        if key[0] == "preempt":
+            self._preempt_group(key, live)
+            return
         shape, buckets, backend = key[0], key[1], key[2]
         if backend == "numpy":
             # host program: no device dispatch, no padding, and no
@@ -1835,10 +2188,14 @@ class SolverService:
             self._drain_inflight()
             self._solve_cuda(shape, buckets, live)
             return
-        self._begin_pipelined_torch(shape, buckets, live, lone=lone)
+        self._begin_pipelined_torch(
+            shape, buckets, live, lone=lone,
+            strategy=key[5] if len(key) > 5 else "map",
+        )
 
     def _begin_pipelined_torch(
         self, shape, buckets: int, live: List[_Request], lone: bool,
+        strategy: str = "map",
     ) -> None:
         """Dispatch a group, SPLITTING a lone batch into pipeline chunks:
         a lone coalesced batch with nothing in flight would dispatch
@@ -1848,15 +2205,17 @@ class SolverService:
         pad/stack/dispatch runs while chunk k computes, and chunk k's
         fetch/scatter overlaps chunk k+1's compute. The batch loop runs
         its items one after another on the device either way, so
-        splitting costs no device efficiency."""
+        splitting costs no device efficiency. A consolidation batch
+        ("vmap") never splits: it is one dispatch by contract."""
         split = (
-            lone
+            strategy == "map"
+            and lone
             and self.pipeline_depth > 0
             and not self._inflight
             and len(live) >= _PIPELINE_SPLIT_MIN
         )
         if not split:
-            self._begin_batched_torch(shape, buckets, live)
+            self._begin_batched_torch(shape, buckets, live, strategy)
             return
         n_chunks = min(self.pipeline_depth + 1, len(live) // 2)
         size = -(-len(live) // n_chunks)
@@ -1905,6 +2264,7 @@ class SolverService:
 
     def _begin_batched_torch(
         self, shape, buckets: int, live: List[_Request],
+        strategy: str = "map",
     ) -> None:
         """The coalesced path: pad each request to the shape bucket,
         stack along a new leading axis, pad the batch axis up its own
@@ -1923,18 +2283,20 @@ class SolverService:
         Singleton groups first consult the DEVICE-RESIDENT fleet state
         (solver/resident.py): an identity hit or changed-row scatter
         skips the pad/stack/upload entirely."""
-        resident = self._resident_stack(shape, live)
+        resident = (
+            self._resident_stack(shape, live) if strategy == "map" else None
+        )
         if resident is not None:
             stacked, n_batch = resident, 1
         else:
             stacked, n_batch = self._stack_group(shape, live)
         fresh = self._count_key((
             "torch", shape, n_batch, buckets, live[0].key[3],
-            live[0].key[4], "map",
+            live[0].key[4], strategy,
         ))
         t0 = _time.perf_counter()
         with self._dispatch_span(
-            "solver.dispatch", live, strategy="map", batch=n_batch,
+            "solver.dispatch", live, strategy=strategy, batch=n_batch,
         ):
             with self._device_section(
                 live, grace=COMPILE_GRACE_S if fresh else 0.0
@@ -2128,6 +2490,11 @@ class SolverService:
         if isinstance(inputs, M.ForecastInputs):
             # bit-identical mirror of the forecast program
             return M.forecast_numpy(inputs)
+        from karpenter_tpu_torch.ops.preempt import PreemptInputs, preempt_numpy
+
+        if isinstance(inputs, PreemptInputs):
+            # bit-identical mirror of the eviction program
+            return preempt_numpy(inputs)
         from karpenter_tpu_torch.ops.numpy_binpack import binpack_numpy
 
         return binpack_numpy(inputs, buckets=buckets)

@@ -12,6 +12,12 @@
 - `build_reconcile_cluster` / `churn_reconcile`: bench.py::run_e2e's
   cluster (pending pods, one node and one pendingCapacity producer per
   group) in a Store with its PendingFeed, and its per-tick churn.
+- `build_ha_fleet`: runtime.py's HorizontalAutoscaler world.
+- `build_disruption_world`: the `--consolidate --preempt` world
+  (bench.py's fragmented consolidation cluster with node groups, a fake
+  provider, pending critical pods, and the engines behind the
+  ScalableNodeGroup controller); `build_preempt_inputs`: bench.py's
+  eviction-planning fleet.
 
 The decision and tick builders return dicts of numpy arrays (nested for
 the operand groups) that the operand dataclasses' `from_numpy` take.
@@ -1020,3 +1026,343 @@ def build_ha_fleet(
         for j, name in enumerate(names):
             vec.set(name, has[i].metadata.namespace, float(queues[i, j]))
     return fleet
+
+
+# -- the disruption path (consolidation + preemption, runtime.py:409-501) -----
+
+DISRUPTION_API = {
+    "api.conditions": ("ACTIVE",),
+    "api.core": (
+        "Container", "Node", "NodeCondition", "NodeSpec", "NodeStatus",
+        "ObjectMeta", "Pod", "PodSpec",
+    ),
+    "api.metricsproducer": (
+        "MetricsProducer", "MetricsProducerSpec", "PendingCapacitySpec",
+    ),
+    "api.scalablenodegroup": (
+        "FAKE_NODE_GROUP", "ScalableNodeGroup", "ScalableNodeGroupSpec",
+    ),
+    "cloudprovider.fake": ("FakeFactory",),
+    "consolidation": ("ConsolidationEngine",),
+    "controllers.scalablenodegroup": ("ScalableNodeGroupController",),
+    "metrics.registry": ("GaugeRegistry",),
+    "preemption": ("PreemptionEngine",),
+    "store": ("Store",),
+    "utils.quantity": ("Quantity",),
+}
+
+
+def disruption_api_namespace(modules: Dict[str, object]) -> ReconcileAPI:
+    """The names of DISRUPTION_API taken from `modules`, which maps each of
+    its keys to a module object."""
+    return ReconcileAPI(
+        **{
+            attr: getattr(modules[module], attr)
+            for module, attrs in DISRUPTION_API.items()
+            for attr in attrs
+        }
+    )
+
+
+def disruption_api() -> ReconcileAPI:
+    """DISRUPTION_API from this package."""
+    from karpenter_tpu_torch import consolidation, preemption, store
+    from karpenter_tpu_torch.api import (
+        conditions,
+        core,
+        metricsproducer,
+        scalablenodegroup,
+    )
+    from karpenter_tpu_torch.cloudprovider import fake
+    from karpenter_tpu_torch.controllers import scalablenodegroup as sng
+    from karpenter_tpu_torch.metrics import registry
+    from karpenter_tpu_torch.utils import quantity
+
+    return disruption_api_namespace({
+        "api.conditions": conditions,
+        "api.core": core,
+        "api.metricsproducer": metricsproducer,
+        "api.scalablenodegroup": scalablenodegroup,
+        "cloudprovider.fake": fake,
+        "consolidation": consolidation,
+        "controllers.scalablenodegroup": sng,
+        "metrics.registry": registry,
+        "preemption": preemption,
+        "store": store,
+        "utils.quantity": quantity,
+    })
+
+
+# node pools of the disruption world; the last one is preemptible (spot).
+# No source gives a pool count: four keeps one pool of each engine's cases.
+DISRUPTION_POOLS = 4
+# seconds between rounds: the ScalableNodeGroup controller's interval
+ROUND_S = 60.0
+# priorities as bench.py:4069 (build_preempt_inputs) draws them: bound pods
+# (its victims) uniform on [0, 500), pending pods (its candidates) on
+# [100, 1000)
+BOUND_PRIORITY = (0, 500)
+PENDING_PRIORITY = (100, 1000)
+# exposition lines that carry host wall times (differ run to run)
+_TIMED_GAUGES = ("batch_eval_ms",)
+
+
+@dataclass
+class DisruptionWorld:
+    """A store of nodes, bound pods and pending critical pods, with one
+    pendingCapacity MetricsProducer and one ScalableNodeGroup per pool,
+    a FakeFactory whose replicas match the nodes, and the disruption
+    engines wired as runtime.py:409-501 wires them around one solve
+    service (fields as built by build_disruption_world).
+
+    `round()` is one controller interval: the clock moves ROUND_S, then
+    every ScalableNodeGroup (read fresh from the store, in key order) is
+    reconciled by the controller — whose first reconcile lets preemption
+    and then consolidation plan — and its status written back as the
+    controller manager does (Active condition, status patch)."""
+
+    api: ReconcileAPI
+    store: object
+    registry: object
+    service: object
+    clock: dict
+    provider: object
+    consolidation: object
+    preemption: object
+    controller: object
+    # (round, result) of every plan: consolidation verdicts, preemption
+    # results, appended by the engines' wrapped `plan`
+    verdicts: List = None
+    plans: List = None
+    rounds: int = 0
+
+    def round(self) -> dict:
+        """One interval: {(namespace, name): error or None} per node group."""
+        self.clock["now"] += ROUND_S
+        self.rounds += 1
+        errors = {}
+        for key in sorted(self.store.keys("ScalableNodeGroup")):
+            sng = self.store.get(*key)
+            error = None
+            try:
+                self.controller.reconcile(sng)
+            except Exception as exc:  # noqa: BLE001 — the manager's record
+                error = exc
+            mgr = sng.status_conditions()
+            if error is None:
+                mgr.mark_true(self.api.ACTIVE)
+            else:
+                mgr.mark_false(self.api.ACTIVE, "", str(error))
+            self.store.patch_status(sng)
+            errors[(key[1], key[2])] = error
+        return errors
+
+    def snapshot(self) -> dict:
+        """The world's observable state as plain values: nodes (cordon and
+        annotations), bound pods, node groups (replicas and conditions,
+        transition times aside), provider replicas, both engines' state
+        tables, and the registry's exposition without its timed lines."""
+        nodes = sorted(
+            (n.metadata.name, bool(n.spec.unschedulable),
+             tuple(sorted(n.metadata.annotations.items())))
+            for n in self.store.list("Node")
+        )
+        pods = sorted(
+            (p.metadata.namespace, p.metadata.name, p.spec.node_name)
+            for p in self.store.list("Pod")
+        )
+        groups = sorted(
+            (g.metadata.namespace, g.metadata.name, g.spec.replicas,
+             g.status.replicas,
+             tuple((c.type, c.status, c.reason, c.message)
+                   for c in g.status.conditions))
+            for g in self.store.list("ScalableNodeGroup")
+        )
+        exposition = "\n".join(
+            line for line in self.registry.expose_text().splitlines()
+            if not any(name in line for name in _TIMED_GAUGES)
+        )
+        return {
+            "nodes": nodes,
+            "pods": pods,
+            "groups": groups,
+            "provider": sorted(self.provider.node_replicas.items()),
+            "consolidation": self.consolidation.snapshot_state(),
+            "preemption": self.preemption.snapshot_state(),
+            "exposition": exposition,
+        }
+
+
+def _recorded(world: DisruptionWorld, engine, log: List) -> None:
+    """Wrap `engine.plan` (what maybe_plan calls) so each plan's result
+    lands in `log` with its round."""
+    plan = engine.plan
+
+    def recorded(now=None):
+        out = plan(now)
+        log.append((world.rounds, out))
+        return out
+
+    engine.plan = recorded
+
+
+def build_disruption_world(
+    nodes: int, pods: int, pending_critical: int, seed: int, *, service,
+    api: Optional[ReconcileAPI] = None,
+) -> DisruptionWorld:
+    """The `--consolidate --preempt` world, with `service` (a
+    SolverService of either package) behind both engines:
+
+    - bench.py:3834 (build_consolidation_cluster): `nodes` Ready nodes of
+      16 CPU / 64 Gi / 110 pods and `pods` bound pods, node index drawn
+      int(nodes * u**2) (the skewed spread: the head runs hot and vetoes,
+      the long tail drains) and CPU from {0.25, 0.5, 1, 2} with 2 GiB of
+      memory per CPU, drawn from np.random.default_rng(seed) in the
+      bench's order;
+    - node n in pool n % DISRUPTION_POOLS, each pool with a
+      pendingCapacity MetricsProducer (selector pool=<pool>) naming its
+      ScalableNodeGroup (replicas = the pool's nodes, no eviction budget
+      of its own); the last pool's group is spec.preemptible;
+    - from a second stream, np.random.default_rng([seed, 1]): each bound
+      pod's priority, uniform on BOUND_PRIORITY, then each pending pod's,
+      uniform on PENDING_PRIORITY (bench.py:4069's victims and
+      candidates);
+    - `pending_critical` pending pods, pod i selecting pool
+      i % DISRUPTION_POOLS and requesting a quarter CPU more (on a 0.25
+      grid, at most 16) than the largest free CPU in its pool: the pods
+      the scheduler cannot place, which are the ones left pending (no
+      source sizes them; bench.py:4069 draws its candidates so that most
+      need evictions);
+    - a FakeFactory with those replicas, the ConsolidationEngine and the
+      PreemptionEngine (engine defaults) wired both ways, and the
+      ScalableNodeGroupController over them, all on one injected clock
+      (`world.clock["now"]`, seconds).
+
+    `api` (disruption_api) names the classes; the port's by default, so a
+    test builds the same world from the reference's modules."""
+    api = api if api is not None else disruption_api()
+    rng = np.random.default_rng(seed)
+    extra = np.random.default_rng([seed, 1])
+    q = api.Quantity.parse
+    clock = {"now": 1_000_000.0}
+    now = lambda: clock["now"]  # noqa: E731
+    store = api.Store()
+    registry = api.GaugeRegistry()
+    provider = api.FakeFactory()
+    pool_of = [f"pool-{k}" for k in range(DISRUPTION_POOLS)]
+    for k, pool in enumerate(pool_of):
+        members = len(range(k, nodes, DISRUPTION_POOLS))
+        ref = f"sng-{pool}"
+        store.create(api.MetricsProducer(
+            metadata=api.ObjectMeta(name=f"pc-{pool}"),
+            spec=api.MetricsProducerSpec(
+                pending_capacity=api.PendingCapacitySpec(
+                    node_selector={"pool": pool}, node_group_ref=ref,
+                )
+            ),
+        ))
+        store.create(api.ScalableNodeGroup(
+            metadata=api.ObjectMeta(name=ref),
+            spec=api.ScalableNodeGroupSpec(
+                replicas=members, type=api.FAKE_NODE_GROUP, id=ref,
+                preemptible=k == DISRUPTION_POOLS - 1,
+            ),
+        ))
+        provider.node_replicas[ref] = members
+    for n in range(nodes):
+        store.create(api.Node(
+            metadata=api.ObjectMeta(
+                name=f"node-{n:04d}",
+                labels={"pool": pool_of[n % DISRUPTION_POOLS]},
+            ),
+            spec=api.NodeSpec(),
+            status=api.NodeStatus(
+                allocatable={"cpu": q("16"), "memory": q("64Gi"),
+                             "pods": q("110")},
+                conditions=[api.NodeCondition("Ready", "True")],
+            ),
+        ))
+    used = np.zeros(nodes)
+    for i in range(pods):
+        n = int(nodes * rng.random() ** 2) % nodes
+        cpu = float(rng.choice([0.25, 0.5, 1.0, 2.0]))
+        used[n] += cpu
+        store.create(api.Pod(
+            metadata=api.ObjectMeta(name=f"pod-{i:05d}"),
+            spec=api.PodSpec(
+                node_name=f"node-{n:04d}",
+                containers=[api.Container(requests={
+                    "cpu": q(str(cpu)), "memory": q(f"{int(cpu * 2048)}Mi"),
+                })],
+                priority=int(extra.integers(*BOUND_PRIORITY)),
+            ),
+        ))
+    free = np.maximum(16.0 - used, 0.0)
+    for i in range(pending_critical):
+        k = i % DISRUPTION_POOLS
+        pool_free = free[k::DISRUPTION_POOLS].max() if nodes > k else 0.0
+        cpu = min(16.0, (np.floor(pool_free * 4) + 1) / 4)
+        store.create(api.Pod(
+            metadata=api.ObjectMeta(name=f"critical-{i:03d}"),
+            spec=api.PodSpec(
+                containers=[api.Container(requests={
+                    "cpu": q(str(cpu)), "memory": q(f"{int(cpu * 2048)}Mi"),
+                })],
+                node_selector={"pool": pool_of[k]},
+                priority=int(extra.integers(*PENDING_PRIORITY)),
+            ),
+        ))
+    consolidation = api.ConsolidationEngine(
+        store, solver_service=service, registry=registry, clock=now,
+    )
+    preemption = api.PreemptionEngine(
+        store, solver_service=service, consolidation=consolidation,
+        registry=registry, clock=now,
+    )
+    consolidation.node_guard = preemption.active_nodes
+    controller = api.ScalableNodeGroupController(
+        provider, consolidator=consolidation, preemptor=preemption,
+        registry=registry, clock=now,
+    )
+    world = DisruptionWorld(
+        api=api, store=store, registry=registry, service=service,
+        clock=clock, provider=provider, consolidation=consolidation,
+        preemption=preemption, controller=controller,
+        verdicts=[], plans=[],
+    )
+    _recorded(world, consolidation, world.verdicts)
+    _recorded(world, preemption, world.plans)
+    return world
+
+
+def build_preempt_inputs(candidates: int, nodes: int, victims: int,
+                         seed: int):
+    """bench.py:4069's contended fleet for eviction planning, drawn in its
+    order: mostly-full node columns, priority-striped victim occupancy
+    sorted by (node, priority) (the program's contract), and
+    high-priority candidates big enough that most placements need
+    evictions. Returns the port's PreemptInputs holding numpy arrays."""
+    from karpenter_tpu_torch.ops.preempt import PreemptInputs
+
+    rng = np.random.default_rng(seed)
+    C, N, V, R = candidates, nodes, victims, 4
+    node_free = rng.uniform(0.0, 2.0, (N, R)).astype(np.float32)
+    node_tier = (rng.random(N) < 0.3).astype(np.int32)
+    victim_node = np.sort(rng.integers(0, N, V)).astype(np.int32)
+    victim_priority = np.zeros(V, np.int32)
+    for n in range(N):
+        seg = victim_node == n
+        victim_priority[seg] = np.sort(rng.integers(0, 500, seg.sum()))
+    return PreemptInputs(
+        pod_requests=rng.uniform(1.0, 6.0, (C, R)).astype(np.float32),
+        pod_priority=rng.integers(100, 1000, C).astype(np.int32),
+        pod_valid=np.ones(C, bool),
+        pod_node_forbidden=rng.random((C, N)) < 0.1,
+        node_free=node_free,
+        node_tier=node_tier,
+        victim_requests=rng.uniform(0.1, 2.0, (V, R)).astype(np.float32),
+        victim_priority=victim_priority,
+        victim_node=victim_node,
+        victim_valid=np.ones(V, bool),
+        victim_evictable=rng.random(V) < 0.95,
+    )

@@ -238,6 +238,50 @@ class TestTheWorld:
             svc.close()
 
 
+def filled(registry_cls):
+    """A registry of either package with one gauge vec of three series
+    and one histogram vec of one, set in the same order."""
+    registry = registry_cls()
+    gauge = registry.register("queue", "length")
+    for name, ns, value in (("a", "default", 3.0), ("b", "default", 7.5),
+                            ("a", "batch", 11.0)):
+        gauge.set(name, ns, value)
+    hist = registry.register("solve", "ms", kind="histogram")
+    for value in (0.4, 2.0, 9.0):
+        hist.observe("w", "default", value)
+    return registry
+
+
+def answer(client_cls, registry, query):
+    try:
+        metric = client_cls(registry)._evaluate(query)
+    except Exception as err:
+        return type(err).__name__, str(err)
+    return metric.name, metric.labels, metric.value
+
+
+@pytest.mark.parametrize("query", [
+    'karpenter_queue_length{name="a", namespace="default"}',
+    'karpenter_queue_length{namespace="batch",name="a"}',
+    'karpenter_queue_length{name="c", namespace="default"}',
+    'karpenter_queue_length{name="a"}',
+    'karpenter_queue_length{name="b"}',
+    'karpenter_queue_length{name="a", namespace="default", le="1"}',
+    'karpenter_queue_length',
+    'karpenter_solve_ms{name="w", namespace="default"}',
+    'karpenter_absent{name="a", namespace="default"}',
+])
+def test_registry_client_answers_as_the_reference(query):
+    """The port's in-process client reads a series named by exactly its
+    name and namespace by its key, where the reference scans the vec:
+    the same metric, labels and value, or the same error."""
+    from karpenter_tpu.metrics.clients import RegistryMetricsClient as Ref
+    from karpenter_tpu_torch.metrics.clients import RegistryMetricsClient
+
+    assert answer(RegistryMetricsClient, filled(GaugeRegistry), query) == (
+        answer(Ref, filled(RefRegistry), query))
+
+
 def test_port_walk_covers_the_ha_subpackages():
     """TestPortIsStandalone walks every module of the port; the HA
     slice's subpackages are among them, and none imports jax or the

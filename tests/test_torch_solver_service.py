@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -929,30 +930,37 @@ class TestCardFailurePolicy:
             svc.close()
 
     def test_saturation_and_deadline_raise(self):
-        release, started = threading.Event(), threading.Event()
+        # one permit lets one device call finish; `calls` counts entries
+        release, calls = threading.Semaphore(0), []
 
         def slow_device(inputs, buckets=32, backend="auto"):
-            started.set()
-            release.wait(5.0)
+            calls.append(inputs)
+            release.acquire(timeout=5.0)
             return binpack_numpy(inputs, buckets=buckets)
+
+        def wait_for_calls(n):
+            deadline = time.monotonic() + 2.0
+            while len(calls) < n:
+                assert time.monotonic() < deadline
+                time.sleep(0.001)
 
         svc = card_policy(new_service(device_solver=slow_device, max_queue=1,
                                       window_s=0.0))
         try:
             blocked = svc.submit(make_inputs(10, 2, seed=1))
-            assert started.wait(2.0)
+            wait_for_calls(1)
             svc.submit(make_inputs(10, 2, seed=2))
             with pytest.raises(SolverSaturated):
                 svc.solve(make_inputs(10, 2, seed=4))
-            release.set()
+            release.release()
             blocked.result(5.0)
-            release.clear()
+            wait_for_calls(2)  # the second request holds the device
             with pytest.raises(SolverTimeout):
                 svc.solve(make_inputs(20, 3), timeout=0.05)
             assert svc.stats.deadline_expired == 1
             assert svc.stats.fallbacks == 0
         finally:
-            release.set()
+            release.release(8)
             svc.close()
 
 
