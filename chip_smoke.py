@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (set-up, with ptxas's register,
-shared-memory and stack report), then runs twelve phases and fails (exit 1,
+shared-memory and stack report), then runs thirteen phases and fails (exit 1,
 no result line) if any of them fails:
 
 1. fused kernel vs its plain version on the card: fused_assign against
@@ -93,13 +93,13 @@ no result line) if any of them fails:
    observed samples, an SLO on about 60%, 64 pool groups x 4 pools,
    --fused-tick): (a) the first tick captures the fused program's CUDA
    graph while the service's worker answers bin-pack solves (each equal);
-   20 timed ticks: p50/p95 on the host clock, the host split (snapshot and
+   10 timed ticks: p50/p95 on the host clock, the host split (snapshot and
    metric queries, plans and operands, service.fused_tick with its
    upload / replay / fetch, commits, scale writes, status writes), the
    device rows, kernels and busy us per tick (profiler) and the forecast
    stage's share; fused_dispatches == ticks, no chained or numpy serve,
    one dispatch per tick, one graph capture, the FSM healthy; (b) the
-   same world for 12 ticks through the card's chained wire (forecast,
+   same world for 6 ticks through the card's chained wire (forecast,
    decide, cost, poolgroup families) and through a CPU service (numpy):
    the same replica trail, HA statuses, error maps and registry
    exposition as the fused tick's; (c) phase 8's batch through
@@ -132,6 +132,35 @@ no result line) if any of them fails:
    preempt.plan error plans the engines see FaultInjected, then
    SolverDeviceError, nothing is cordoned or evicted, nothing answers
    from numpy, and the probe (on an injected clock) heals the FSM.
+13. the controller binary (karpenter_tpu_torch.runtime and __main__):
+   (a) workloads.build_runtime_world (phase 9's 100k-pod x 300-group
+   cluster and phase 11's 4,000-autoscaler fleet with 64 pool groups,
+   the fleet reading karpenter_queue_length from ~7,900 queue
+   MetricsProducers over fake queues) written into a Store, then
+   KarpenterRuntime(Options(fused_tick, event_driven, prewarm_compile,
+   poolgroups)) over it on the card: the three controllers in the
+   reference's order; the first manager tick launches each kernel once
+   (the MetricsProducer controller's batched solve; counts set to 0 just
+   before, read just after) with RECONCILE_TOTALS and every object
+   Active; 4 ticks of 5 s with 1,000 pods churned each (the churn lands
+   under the pass lock; the event thread's pass follows it): tick
+   p50/p95, the split by controller / note_tick + publish_gauges / tick
+   hook, the event thread's passes, launches and dispatches per tick,
+   fused_dispatches == HA ticks, fallback_total 0, the FSM healthy, full
+   gc collections; a profiler window of 1 tick (device kernels, busy
+   us, each kernel's launches and ms per launch); (b) the same world,
+   options and first 2 ticks on a CPU runtime: equal objects (every
+   status), provider replicas and exposition (less timings and the
+   service's and manager's own counters); (c) the binary `python -m
+   karpenter_tpu_torch --profile production --cloud-provider fake
+   --data-dir D --journal-dir J` over a 10,000-pod x 300-group, 400-HA
+   world written with open_store: /readyz "ok", /metrics with solver
+   requests, no fallback and every producer's pending_capacity series,
+   exit 0 on SIGTERM, every producer with a status when D is reopened;
+   restarted on D and J it answers the recovery warm-up, then "ok", with
+   a higher fence generation; (d) with CUDA_VISIBLE_DEVICES="" the same
+   command exits non-zero with the reason, serves nothing and writes
+   nothing.
 
 Then it profiles 20 main-path solves (torch.profiler: device time by
 kernel) and prints, before the last line, one JSON line of kernel records
@@ -202,7 +231,7 @@ def need(ok, what: str) -> None:
 
 def report(line: str) -> None:
     """Print a line of measured numbers with the card it was measured on."""
-    print(f"{line} [card: {CARD['line']}]")
+    print(f"{line} [card: {CARD['line']}]", flush=True)
 
 
 def host_ms(torch, fn, iters=ITERS):
@@ -1350,8 +1379,9 @@ HA_SHAPE = dict(n_has=4000, metrics=3, seed=0, forecast_share=0.5,
                 slo_share=0.6, groups=64, pools=4, history=64,
                 queue_vectors=125)
 HA_WARMUP = 2  # ticks before the first recorded one (the graph capture)
-HA_PARITY_TICKS = 12  # ticks the card, its chained wire and the CPU share
-HA_TIMED_TICKS = 20
+# cut from 12 and 20 to make room for phase 13 in the time limit
+HA_PARITY_TICKS = 6  # ticks the card, its chained wire and the CPU share
+HA_TIMED_TICKS = 10
 HA_PAIRS = 10  # phase 8's batch through the service vs direct, in turns
 # the small world of the failure-policy check (d)
 HA_FAULT_SHAPE = dict(n_has=256, metrics=3, seed=1, groups=4, pools=4,
@@ -2219,6 +2249,594 @@ def phase_disruption(torch, TF, workloads):
             "seam": seam}
 
 
+# -- phase 13: the controller binary ------------------------------------------
+
+# the runtime world at full width: phase 9's cluster and phase 11's fleet
+# (BASELINE.json's 1000 tenants x 4 autoscalers, 3 metrics, 64 pool groups
+# x 4 pools), the fleet read through queue MetricsProducers
+RUNTIME_SHAPE = dict(pods=100_000, types=300, n_has=4000, metrics=3, seed=0,
+                     groups=64, pools=4)
+# what `--profile production --poolgroups` sets
+RUNTIME_OPTIONS = dict(fused_tick=True, event_driven=True,
+                       prewarm_compile=True, poolgroups=True)
+RUNTIME_DEVICE = None  # Options.device of the card runtime: the card
+# a manager tick of this world takes ~30 s on the host (PERF.md section
+# 5): the tick counts are what the script's time limit holds
+RUNTIME_TICKS = 4  # timed ticks after the first
+RUNTIME_PARITY_TICKS = 2  # ticks the CPU runtime repeats (the first included)
+RUNTIME_TICK_S = 5.0  # the MetricsProducer interval
+RUNTIME_PROFILED_TICKS = 1
+# the binary's world, written into a data dir
+BINARY_SHAPE = dict(pods=10_000, types=300, n_has=400, metrics=3, seed=0,
+                    groups=16, pools=4)
+BINARY_DURATION_S = 30
+BINARY_ARGS = ()  # extra flags of the binary (none: it runs on the card)
+
+
+class _StepClock:
+    """The runtime's injected clock, advanced between ticks."""
+
+    def __init__(self, now=1_000_000.0):
+        self.now = now
+
+    def __call__(self):
+        return self.now
+
+
+class _TickTimers:
+    """Host time of a manager tick's parts, on the tick's thread: each
+    controller's slice (its due sweep, batch reconcile and status writes;
+    its tracer span `reconcile.<Kind>`), the solver's note_tick +
+    publish_gauges, and the tick hook (recovery bookkeeping and the
+    self-SLO evaluation). The same slices run by the event thread's
+    passes are summed apart, with the passes' count."""
+
+    def __init__(self, runtime):
+        import threading
+
+        self.tick_thread = threading.current_thread()
+        self.parts = {}
+        self.event = {}
+        manager, svc = runtime.manager, runtime.solver_service
+        self._undo = []
+
+        def wrap(owner, attr, label_of):
+            real = getattr(owner, attr)
+            self._undo.append((owner, attr, vars(owner).get(attr)))
+
+            def timed(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return real(*args, **kwargs)
+                finally:
+                    dt = time.perf_counter() - t0
+                    into = (self.parts if threading.current_thread()
+                            is self.tick_thread else self.event)
+                    label = label_of(*args)
+                    into[label] = into.get(label, 0.0) + dt
+
+            setattr(owner, attr, timed)
+
+        wrap(manager, "_reconcile_controller",
+             lambda controller, *a: f"reconcile.{controller.kind()}")
+        wrap(svc, "note_tick", lambda *a: "note_tick + publish_gauges")
+        wrap(svc, "publish_gauges", lambda *a: "note_tick + publish_gauges")
+        wrap(manager, "_tick_hook", lambda *a: "tick hook")
+        self.ha_batches = 0
+        ha = next(c for c in manager._controllers
+                  if c.kind() == "HorizontalAutoscaler")
+        real_batch = ha.reconcile_batch
+
+        def counted(objs):
+            self.ha_batches += 1
+            return real_batch(objs)
+
+        self._undo.append((ha, "reconcile_batch", None))
+        ha.reconcile_batch = counted
+
+    def take(self):
+        parts, event = self.parts, self.event
+        self.parts, self.event = {}, {}
+        return parts, event
+
+    def remove(self):
+        """Put back what was wrapped: an instance attribute (the tick
+        hook) as it was, a method by dropping the wrapper."""
+        for owner, attr, own in reversed(self._undo):
+            if own is not None:
+                setattr(owner, attr, own)
+            else:
+                delattr(owner, attr)
+
+
+def _runtime_boot(workloads, device):
+    """(runtime, world, clock, provider, build s, boot s): the runtime
+    world written into a fresh Store first, then KarpenterRuntime over it
+    (so the world's creation is no watch event), on `device`."""
+    from karpenter_tpu_torch.cloudprovider.fake import FakeFactory
+    from karpenter_tpu_torch.runtime import KarpenterRuntime, Options
+    from karpenter_tpu_torch.store import Store
+
+    store, provider, clock = Store(), FakeFactory(), _StepClock()
+    t0 = time.perf_counter()
+    world = workloads.build_runtime_world(store, provider, **RUNTIME_SHAPE)
+    built = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runtime = KarpenterRuntime(
+        Options(device=device, **RUNTIME_OPTIONS), store=store,
+        cloud_provider_factory=provider, clock=clock,
+    )
+    return runtime, world, clock, provider, built, time.perf_counter() - t0
+
+
+def _runtime_step(workloads, runtime, world, clock):
+    """The world between two ticks: the clock moves one MetricsProducer
+    interval, the queues step, and RECONCILE_CHURN pods are replaced. The
+    churn lands under the manager's pass lock, as one watch burst between
+    passes: the event thread's pass over it starts after the burst."""
+    clock.now += RUNTIME_TICK_S
+    world.step_queues()
+    apply = workloads.churn_reconcile(world.cluster, RECONCILE_CHURN)
+    with runtime.manager._pass_lock:
+        apply()
+
+
+def _settled(manager, quiet_s=0.15, timeout=120.0):
+    """Wait until the event thread has run every pass the last tick
+    caused (no dirty key for `quiet_s`, three debounce windows), then
+    hold the pass lock: nothing reconciles while the caller reads."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        quiet_since = time.perf_counter()
+        while time.perf_counter() - quiet_since < quiet_s:
+            if manager.dirty_count():
+                quiet_since = time.perf_counter()
+            need(time.perf_counter() < deadline,
+                 "the event thread did not settle")
+            time.sleep(0.005)
+        manager._pass_lock.acquire()
+        if not manager.dirty_count():
+            return manager._pass_lock
+        manager._pass_lock.release()
+
+
+def _runtime_snapshot(workloads, runtime, provider):
+    from karpenter_tpu_torch.api.serialization import to_dict
+
+    # the event thread's pass counters and the solve service's own
+    # counters depend on how the work split between the threads and on
+    # the rung: left out
+    skip = workloads.RUNG_SKIP + ("karpenter_runtime_",)
+    lock = _settled(runtime.manager)
+    try:
+        return workloads.runtime_snapshot(
+            runtime.store, runtime.registry, provider, to_dict, skip=skip,
+            pods="fields")
+    finally:
+        lock.release()
+
+
+def _inactive(runtime) -> dict:
+    """{kind: objects whose Active condition is False}."""
+    out = {}
+    for kind in ("MetricsProducer", "ScalableNodeGroup",
+                 "HorizontalAutoscaler"):
+        bad = 0
+        for obj in runtime.store.list(kind):
+            active = obj.status_conditions().get("Active")
+            bad += int(active is not None and active.status == "False")
+        out[kind] = bad
+    return out
+
+
+def _runtime_production(torch, TF, workloads):
+    """(a) The runtime on the card: first tick, RUNTIME_TICKS timed
+    ticks, the split, the service's accounting, a profiler window."""
+    from karpenter_tpu_torch.solver.service import HEALTHY
+
+    runtime, world, clock, provider, built, boot = _runtime_boot(
+        workloads, RUNTIME_DEVICE)
+    try:
+        svc = runtime.solver_service
+        need(svc.device.type == "cuda", f"the runtime's service on {svc.device}")
+        kinds = [c.kind() for c in runtime.manager._controllers]
+        need(kinds == ["MetricsProducer", "ScalableNodeGroup",
+                       "HorizontalAutoscaler"], f"controllers {kinds}")
+        n_queue = sum(1 for mp in runtime.store.list("MetricsProducer")
+                      if mp.spec.queue is not None)
+        report(f"runtime world {RUNTIME_SHAPE}: written in {built} s "
+               f"({n_queue} queue producers); KarpenterRuntime(Options("
+               f"{RUNTIME_OPTIONS})) built in {boot} s (prewarm included)")
+        timers = _TickTimers(runtime)
+        snaps = []
+        try:
+            torch.cuda.synchronize()
+            TF.reset_launch_counts()
+            t0 = time.perf_counter()
+            runtime.manager.reconcile_all()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            first_launches = dict(TF.LAUNCHES)
+            need(first_launches == {"fused_assign": 1, "shelf_bfd": 1},
+                 f"the first tick launched {first_launches}")
+            pending = [runtime.store.get("MetricsProducer", "default",
+                                         f"mp{g}")
+                       for g in range(RUNTIME_SHAPE["types"])]
+            totals = _totals(pending)
+            need(totals == RECONCILE_TOTALS,
+                 f"runtime first tick totals {totals} != {RECONCILE_TOTALS}")
+            inactive = _inactive(runtime)
+            need(not any(inactive.values()),
+                 f"objects not Active after the first tick: {inactive}")
+            parts, event = timers.take()
+            report(f"runtime first tick: {first_ms} ms; launches "
+                   f"{first_launches} (the MetricsProducer controller's "
+                   f"batched solve); totals {totals}; split "
+                   + ", ".join(f"{k} {v * 1e3} ms" for k, v in parts.items()))
+            snaps.append(_runtime_snapshot(workloads, runtime, provider))
+            rows = []
+            gc_full = gc.get_stats()[2]["collections"]
+            ha_before = timers.ha_batches
+            fused_before = svc.stats.fused_dispatches
+            dispatches_before = svc.stats.dispatches
+            passes = runtime.registry.gauge("runtime", "event_passes_total")
+            for t in range(RUNTIME_TICKS):
+                passes_before = passes.get("manager", "-") or 0.0
+                TF.reset_launch_counts()
+                d0 = svc.stats.dispatches + svc.stats.fused_dispatches
+                _runtime_step(workloads, runtime, world, clock)
+                t0 = time.perf_counter()
+                runtime.manager.reconcile_all()
+                ms = (time.perf_counter() - t0) * 1e3
+                parts, event = timers.take()
+                rows.append(dict(
+                    ms=ms, launches=dict(TF.LAUNCHES), parts=parts,
+                    event=event,
+                    passes=(passes.get("manager", "-") or 0.0)
+                    - passes_before,
+                    dispatches=svc.stats.dispatches
+                    + svc.stats.fused_dispatches - d0,
+                ))
+                if len(snaps) < RUNTIME_PARITY_TICKS:
+                    snaps.append(_runtime_snapshot(workloads, runtime,
+                                                   provider))
+            gc_full = gc.get_stats()[2]["collections"] - gc_full
+            ha_ticks = timers.ha_batches - ha_before
+            fused = svc.stats.fused_dispatches - fused_before
+        finally:
+            timers.remove()
+        ms = [r["ms"] for r in rows]
+        report(f"runtime tick (manager.reconcile_all, host clock) over "
+               f"{RUNTIME_TICKS} ticks of {RUNTIME_TICK_S} s with "
+               f"{RECONCILE_CHURN} pods churned each: p50="
+               f"{np.percentile(ms, 50)} ms p95={np.percentile(ms, 95)} ms")
+        total = {}
+        for r in rows:
+            for k, v in r["parts"].items():
+                total.setdefault(k, []).append(v * 1e3)
+        for k, v in sorted(total.items(), key=lambda kv: -sum(kv[1])):
+            report(f"  tick split, ms per tick (median / max): {k} "
+                   f"{np.median(v)} / {max(v)} ({100.0 * sum(v) / sum(ms)}% "
+                   f"of all ticks)")
+        event_ms = {}
+        for r in rows:
+            for k, v in r["event"].items():
+                event_ms[k] = event_ms.get(k, 0.0) + v * 1e3
+        report(f"  event thread: {sum(r['passes'] for r in rows)} passes "
+               f"over the {RUNTIME_TICKS} ticks; their slices (ms, total): "
+               + (", ".join(f"{k} {v}" for k, v in event_ms.items())
+                  or "none"))
+        per_tick = {name: [r["launches"][name] for r in rows]
+                    for name in TF.LAUNCHES}
+        report(f"  launches per tick (churn -> event pass -> tick): "
+               + ", ".join(f"{k} {v}" for k, v in per_tick.items())
+               + f"; solver dispatches per tick "
+               f"{[r['dispatches'] for r in rows]}")
+        need(all(v >= 1 for v in per_tick["fused_assign"]),
+             f"a churned tick launched no fused_assign: {per_tick}")
+        need(per_tick["fused_assign"] == per_tick["shelf_bfd"],
+             f"launches per tick differ: {per_tick}")
+        need(fused == ha_ticks and ha_ticks > 0,
+             f"fused_dispatches {fused} != HA ticks {ha_ticks}")
+        st = svc.stats
+        need(st.fallbacks == 0, f"{st.fallbacks} numpy answers on the card")
+        need(svc.backend_health() == HEALTHY,
+             f"FSM {svc.backend_health()}")
+        report(f"  HA ticks {ha_ticks}, fused_dispatches {fused}, "
+               f"fallback_total 0, FSM healthy, full gc collections "
+               f"{gc_full} over {RUNTIME_TICKS} ticks, service requests "
+               f"{st.requests} dispatches {st.dispatches - dispatches_before}"
+               f" since the first tick")
+        profile = _runtime_profile(torch, TF, workloads, runtime, world,
+                                   clock)
+        return {"snaps": snaps, "first_launches": first_launches,
+                "launches_per_tick": per_tick, "profile": profile,
+                "p50_ms": float(np.percentile(ms, 50))}
+    finally:
+        runtime.close()
+
+
+def _runtime_profile(torch, TF, workloads, runtime, world, clock):
+    """A torch.profiler window of RUNTIME_PROFILED_TICKS ticks (each with
+    its step and churn): device kernels, busy us, each CUDA kernel's
+    launches and device ms per launch."""
+
+    def one_tick():
+        _runtime_step(workloads, runtime, world, clock)
+        runtime.manager.reconcile_all()
+
+    try:
+        prof, wall_us = profile_window(torch, one_tick,
+                                       RUNTIME_PROFILED_TICKS, warmup=1)
+    except RuntimeError as exc:
+        print(f"profiler: not available ({exc})")
+        return None
+    rows = device_rows(torch, prof)
+    need(rows, "the profiler shows no device rows for the runtime's ticks")
+    n = RUNTIME_PROFILED_TICKS
+    busy_us = sum(r[0] for r in rows)
+    kernels = sum(count for _, count, key in rows
+                  if not key.startswith(("Memcpy", "Memset")))
+    report(f"runtime profiler, {n} ticks: window {wall_us} us, device busy "
+           f"{busy_us} us ({100.0 * busy_us / wall_us}% of the window), "
+           f"{kernels / n} device kernels per tick")
+    out = {}
+    for name, names in KERNEL_NAMES.items():
+        hits = [(us, count, key) for us, count, key in rows
+                if any(k in key for k in names)]
+        need(hits, f"the runtime's profile shows no {name} kernel")
+        kernels_seen = sum(c for _, c, _ in hits)
+        # each of the wrapper's kernels runs once per wrapper launch
+        launches = max(c for _, c, _ in hits)
+        us = sum(u for u, _, _ in hits)
+        out[name] = {"launches": launches / n, "ms": us / launches / 1e3}
+        report(f"  {name}: {launches / n} launches per tick "
+               f"({kernels_seen / n} device kernels), {us / launches / 1e3} "
+               f"ms per launch")
+    for dev_us, count, key in rows[:10]:
+        report(f"  device {dev_us / n} us/tick  x{count / n}/tick  {key[:90]}")
+    return out
+
+
+def _runtime_parity(workloads, card_snaps):
+    """(b) The same world, options and ticks on a CPU runtime."""
+    runtime, world, clock, provider, _, _ = _runtime_boot(workloads, "cpu")
+    try:
+        for t in range(RUNTIME_PARITY_TICKS):
+            if t:
+                _runtime_step(workloads, runtime, world, clock)
+            runtime.manager.reconcile_all()
+            got = _runtime_snapshot(workloads, runtime, provider)
+            want = card_snaps[t]
+            need(got["objects"].keys() == want["objects"].keys(),
+                 f"tick {t}: the stores hold different objects")
+            diff = [k for k, v in want["objects"].items()
+                    if got["objects"][k] != v]
+            need(not diff, f"tick {t}: {len(diff)} objects differ, e.g. "
+                 f"{diff[:3]}")
+            need(got["replicas"] == want["replicas"],
+                 f"tick {t}: provider replicas differ")
+            need(got["exposition"] == want["exposition"],
+                 f"tick {t}: exposition differs")
+        print(f"runtime card == CPU runtime: {RUNTIME_PARITY_TICKS} ticks, "
+              f"{len(want['objects'])} objects, statuses, store, provider "
+              f"replicas and exposition equal")
+    finally:
+        runtime.close()
+
+
+class _Binary:
+    """`python -m karpenter_tpu_torch` as a subprocess, its stderr read by
+    a thread: `port` once it serves."""
+
+    def __init__(self, args, env=None):
+        import subprocess
+        import threading
+
+        self.lines = []
+        self.port = None
+        self.serving = threading.Event()
+        self.started = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "karpenter_tpu_torch", *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            env=env,
+        )
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        marker = "serving /metrics and /healthz on :"
+        for line in self.proc.stderr:
+            self.lines.append(line.rstrip())
+            if marker in line and self.port is None:
+                self.port = int(line.rsplit(":", 1)[1])
+                self.serving.set()
+
+    def get(self, path):
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(
+                f"http://127.0.0.1:{self.port}{path}", timeout=30
+            ) as response:
+                return response.status, response.read().decode()
+        except urllib.error.HTTPError as error:
+            return error.code, error.read().decode()
+
+    def wait_serving(self, timeout):
+        if not self.serving.wait(timeout):
+            need(False, f"the binary did not serve within {timeout} s: "
+                 f"{self.lines[-5:]}")
+
+    def stop(self, timeout=60):
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        self.reader.join(timeout=10)
+        return rc
+
+
+def _binary_run(args, recovered):
+    """Start the binary, poll /readyz until "ok" (noting any not-ready
+    answers), read /metrics, SIGTERM it: (readyz answers, metrics text,
+    seconds to ready, exit code, seconds from SIGTERM to exit)."""
+    binary = _Binary(args)
+    try:
+        binary.wait_serving(300)
+        answers = []
+        deadline = time.perf_counter() + 120
+        while time.perf_counter() < deadline:
+            status, body = binary.get("/readyz")
+            if not answers or answers[-1] != (status, body):
+                answers.append((status, body))
+            if status == 200:
+                break
+            time.sleep(0.02)
+        ready_s = time.perf_counter() - binary.started
+        need(answers and answers[-1] == (200, "ok"),
+             f"/readyz never answered ok: {answers}")
+        if recovered:
+            need(any(s == 503 and "recovery warm-up" in b for s, b in answers),
+                 f"the recovered boot answered no warm-up: {answers}")
+        # ready is not ticked: a first boot is ready before its first
+        # tick ends; /metrics is read once a tick has published the
+        # manager's tick time
+        while True:
+            status, metrics = binary.get("/metrics")
+            need(status == 200, f"/metrics answered {status}")
+            if (_metric(metrics, "karpenter_runtime_tick_seconds", "manager")
+                    or time.perf_counter() > deadline):
+                break
+            time.sleep(0.1)
+        t0 = time.perf_counter()
+        rc = binary.stop()
+        stop_s = time.perf_counter() - t0
+        need(rc == 0, f"the binary exited {rc} on SIGTERM: "
+             f"{binary.lines[-5:]}")
+        need(stop_s < BINARY_DURATION_S and ready_s + stop_s
+             < BINARY_DURATION_S + 300,
+             f"the binary took {stop_s} s to stop")
+        return answers, metrics, ready_s, rc, stop_s, binary.lines
+    finally:
+        binary.stop()
+
+
+def _metric(text, family, name="-", namespace="-"):
+    line = f'{family}{{name="{name}",namespace="{namespace}"}} '
+    for row in text.splitlines():
+        if row.startswith(line):
+            return float(row[len(line):])
+    return None
+
+
+def _runtime_binary(workloads):
+    """(c) The binary over a data dir and a journal dir, twice; (d) with
+    the card hidden. The dirs live in a temporary directory, removed
+    after."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="karpenter-binary-")
+    try:
+        _runtime_binary_in(workloads, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _runtime_binary_in(workloads, root):
+    from karpenter_tpu_torch.cloudprovider.fake import FakeFactory
+    from karpenter_tpu_torch.recovery.fence import read_generation
+    from karpenter_tpu_torch.store.persistence import open_store
+
+    data, journal = os.path.join(root, "data"), os.path.join(root, "journal")
+    store = open_store(data)
+    t0 = time.perf_counter()
+    workloads.build_runtime_world(store, FakeFactory(), **BINARY_SHAPE)
+    store.close()
+    report(f"binary world {BINARY_SHAPE} written into the data dir in "
+           f"{time.perf_counter() - t0} s")
+    command = ["--profile", "production", "--cloud-provider", "fake",
+               "--data-dir", data, "--journal-dir", journal,
+               "--metrics-port", "0", "--no-leader-elect", "--tick", "0.1",
+               "--duration", str(BINARY_DURATION_S)]
+    args = command + list(BINARY_ARGS)
+    answers, metrics, ready_s, rc, stop_s, lines = _binary_run(args, False)
+    requests = _metric(metrics, "karpenter_solver_requests_total")
+    fallbacks = _metric(metrics, "karpenter_solver_fallback_total") or 0.0
+    need(requests and requests > 0, "/metrics shows no solver request")
+    need(fallbacks == 0, f"/metrics shows {fallbacks} fallbacks")
+    device_line = [line for line in lines if line.startswith("solver device:")]
+    need(device_line and ("cuda" in device_line[0] or BINARY_ARGS),
+         f"the binary's device: {device_line}")
+    missing = [g for g in range(BINARY_SHAPE["types"])
+               if _metric(metrics, "karpenter_pending_capacity_pending_pods",
+                          f"mp{g}", "default") is None]
+    need(not missing, f"no pending_capacity series for {len(missing)} "
+         f"producers, e.g. mp{missing[:3]}")
+    generation = read_generation(journal)
+    report(f"binary: ready in {ready_s} s ({answers}), "
+           f"{device_line[0]}; solver requests {requests}, fallbacks 0, "
+           f"karpenter_pending_capacity_* for all {BINARY_SHAPE['types']} "
+           f"producers; SIGTERM -> exit {rc} in {stop_s} s; fence "
+           f"generation {generation}")
+    store = open_store(data)
+    try:
+        mps = store.list("MetricsProducer")
+        bare = [mp.metadata.name for mp in mps
+                if mp.status.pending_capacity is None
+                and mp.status.queue is None]
+        need(mps and not bare, f"{len(bare)} of {len(mps)} producers have "
+             f"no status in the data dir, e.g. {bare[:3]}")
+    finally:
+        store.close()
+    answers, metrics, ready_s, rc, stop_s, _ = _binary_run(args, True)
+    regenerated = read_generation(journal)
+    need(regenerated > generation,
+         f"fence generation {generation} -> {regenerated}")
+    report(f"binary restart on the same dirs: /readyz {answers} in "
+           f"{ready_s} s; SIGTERM -> exit {rc} in {stop_s} s; fence "
+           f"generation {generation} -> {regenerated}; all "
+           f"{len(mps)} producers had a status on reopen")
+    wal = os.path.join(data, "wal.jsonl")
+    wal_size = os.path.getsize(wal)
+    hidden = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    binary = _Binary(command, env=hidden)
+    rc = binary.proc.wait(timeout=300)
+    binary.reader.join(timeout=10)
+    text = "\n".join(binary.lines)
+    need(rc != 0, "the binary ran with the card hidden")
+    need("CUDA device requested" in text,
+         f"no reason given with the card hidden: {binary.lines[-3:]}")
+    need(binary.port is None, "the binary served with the card hidden")
+    need(os.path.getsize(wal) == wal_size,
+         "the data dir changed with the card hidden")
+    print(f"binary with CUDA_VISIBLE_DEVICES=\"\": exit {rc}, no tick, "
+          f"{[line for line in binary.lines if 'cannot start' in line]}",
+          flush=True)
+
+
+def phase_runtime(torch, TF, workloads):
+    t0 = time.perf_counter()
+    card = _runtime_production(torch, TF, workloads)
+    t1 = time.perf_counter()
+    report(f"phase 13 (a): {t1 - t0} s")
+    _runtime_parity(workloads, card.pop("snaps"))
+    t2 = time.perf_counter()
+    report(f"phase 13 (b): {t2 - t1} s")
+    _runtime_binary(workloads)
+    report(f"phase 13 (c), (d): {time.perf_counter() - t2} s")
+    return card
+
+
 def profile_solves(torch, TB, inputs, n=ITERS):
     """Where a solve's time goes: the mean of back-to-back solves by CUDA
     events, then a torch.profiler window of n solves (device time by
@@ -2329,7 +2947,7 @@ def device_ms(profile, wrapper):
 
 
 def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
-                   service, disruption):
+                   service, disruption, runtime):
     """Per-kernel JSON records at the main path's shapes. `ms` is device
     time per launch from the profiler's rows of the kernel's own names
     (the fused row sums its two kernels); `call_ms` is the wrapper's time
@@ -2349,7 +2967,12 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
     its launches per consolidation plan in the profiled plan (one per
     candidate with pods), `disruption_ms` its device time per launch
     there (T = the cluster's nodes, with the forbidden operand) and
-    `disruption_instance` the fused instance(s) that ran."""
+    `disruption_instance` the fused instance(s) that ran.
+    `runtime_launches_first_tick` is the wrapper's count over phase 13's
+    first manager tick, `runtime_launches_per_tick` its counts over the
+    churned ticks (each churn's event pass and the tick), and
+    `runtime_ms` the device time per kernel launch in the runtime's
+    profiled ticks."""
     from karpenter_tpu_torch.ops.fused_assign import _packed
 
     pods, n_res = inputs.pod_requests.shape
@@ -2425,6 +3048,10 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
                 "fused_ms" if name == "fused_assign" else "shelf_ms"],
             "disruption_instance": (disruption["profile"]["instances"]
                                     if name == "fused_assign" else None),
+            "runtime_launches_first_tick": runtime["first_launches"][name],
+            "runtime_launches_per_tick": runtime["launches_per_tick"][name],
+            "runtime_ms": (runtime["profile"][name]["ms"]
+                           if runtime["profile"] else None),
             "max_abs_err": err,
             "ms": ms,
             "call_ms": call_ms,
@@ -2499,6 +3126,7 @@ def main() -> int:
             results["reconcile tick"])),
         ("HA tick", lambda: phase_ha_tick(torch, FT, M, workloads)),
         ("disruption", lambda: phase_disruption(torch, TF, workloads)),
+        ("controller binary", lambda: phase_runtime(torch, TF, workloads)),
     ]
     for name, run in phases:
         try:
@@ -2518,9 +3146,10 @@ def main() -> int:
     records = kernel_records(torch, TB, TF, inputs, launches, profile,
                              results["reconcile tick"],
                              results["solve service"],
-                             results["disruption"])
+                             results["disruption"],
+                             results["controller binary"])
     report(f"chip_smoke wall time: {time.perf_counter() - started} s "
-           f"(kernel build and all twelve phases)")
+           f"(kernel build and all thirteen phases)")
     print(f"card: {CARD['line']}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

@@ -1,8 +1,8 @@
 """API group autoscaling.karpenter.sh/v1alpha1: the core objects (Pod,
 Node, ObjectMeta, selectors, affinity and spread shapes), conditions and
 the MetricsProducer, HorizontalAutoscaler, ScalableNodeGroup and
-PoolGroup kinds, copied from karpenter_tpu/api. The YAML manifest loader
-(serialization.py) is not ported yet."""
+PoolGroup kinds, and the manifest codec (serialization.py), copied from
+karpenter_tpu/api."""
 
 from karpenter_tpu_torch.api import conditions
 from karpenter_tpu_torch.api.core import (

@@ -1,10 +1,9 @@
-"""The port's controllers package: the error taxonomy (errors.py, a copy
-of karpenter_tpu/controllers/errors.py) that the fault registry raises
-through, the HorizontalAutoscaler controller that hands the fleet to
-the BatchAutoscaler, and the ScalableNodeGroup controller that actuates
-replicas and drives the disruption engines. The controller engine and
-the MetricsProducer controller come with a later slice."""
+"""The port's controllers package (a copy of karpenter_tpu/controllers):
+the reconcile engine and its Manager, the error taxonomy, and the
+MetricsProducer, ScalableNodeGroup and HorizontalAutoscaler
+controllers."""
 
+from karpenter_tpu_torch.controllers.engine import Controller, Manager
 from karpenter_tpu_torch.controllers.errors import (
     RetryableError,
     error_code,
@@ -13,14 +12,20 @@ from karpenter_tpu_torch.controllers.errors import (
 from karpenter_tpu_torch.controllers.horizontalautoscaler import (
     HorizontalAutoscalerController,
 )
+from karpenter_tpu_torch.controllers.metricsproducer import (
+    MetricsProducerController,
+)
 from karpenter_tpu_torch.controllers.scalablenodegroup import (
     ScalableNodeGroupController,
 )
 
 __all__ = [
-    "HorizontalAutoscalerController",
+    "Controller",
+    "Manager",
     "RetryableError",
-    "ScalableNodeGroupController",
     "error_code",
     "is_retryable",
+    "HorizontalAutoscalerController",
+    "MetricsProducerController",
+    "ScalableNodeGroupController",
 ]

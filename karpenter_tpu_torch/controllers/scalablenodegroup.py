@@ -1,7 +1,7 @@
 """ScalableNodeGroup controller: actuate replicas against the cloud provider
 (the port's copy of karpenter_tpu/controllers/scalablenodegroup.py; the
-RecoveryManager it takes as `recovery` comes with a later slice, so the
-port's callers pass none and every provider write is unfenced).
+runtime passes its RecoveryManager as `recovery` under --journal-dir, and
+every provider write is then fenced).
 
 reference: pkg/controllers/scalablenodegroup/v1alpha1/controller.go:48-95 —
 stabilization check, observe replicas into status, set replicas when spec

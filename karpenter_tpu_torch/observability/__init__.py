@@ -1,5 +1,6 @@
-"""Observability: reconcile tracing and the flight recorder (the part of
-karpenter_tpu/observability that the solve service needs).
+"""Observability: reconcile tracing, the flight recorder, the decision
+ledger, the self-SLO monitor and the HTTP surface (the port's copy of
+karpenter_tpu/observability, less device telemetry).
 
   tracing.py         per-reconcile trace IDs + spans, coalesced-dispatch
                      links, Chrome-trace/Perfetto JSONL export
@@ -9,12 +10,19 @@ karpenter_tpu/observability that the solve service needs).
   provenance.py      the decision provenance ledger: a bounded
                      columnar ring answering "why did this group scale
                      to N this tick" (default off)
-  profiler.py        solver_trace: a torch.profiler range around a
-                     device section
+  selfslo.py         the control plane's self-SLO monitor: multi-window
+                     burn rates over karpenter_reconcile_e2e_seconds +
+                     the solver FSM (/debug/selfslo)
+  server.py          /metrics, /healthz, /readyz and the /debug/*
+                     endpoints
+  profiler.py        solver_trace (a torch.profiler range around a
+                     device section) and /debug/profile's bounded
+                     single-flight torch.profiler capture
 
 Copies of the reference's modules of the same names, except
-profiler.py, which keeps only solver_trace. The self-SLO monitor, device
-telemetry and the HTTP server come with later slices.
+profiler.py, whose jax.profiler calls become torch.profiler ones (the
+remote xprof server has no counterpart). Device telemetry
+(devicetelemetry.py, --introspect) is not ported yet.
 """
 
 from karpenter_tpu_torch.observability.flightrecorder import (
@@ -30,6 +38,8 @@ from karpenter_tpu_torch.observability.provenance import (
     reset_default_ledger,
     set_default_ledger,
 )
+from karpenter_tpu_torch.observability.selfslo import SelfSLOMonitor
+from karpenter_tpu_torch.observability.server import MetricsServer
 from karpenter_tpu_torch.observability.tracing import (
     Tracer,
     default_tracer,
@@ -40,6 +50,8 @@ from karpenter_tpu_torch.observability.tracing import (
 __all__ = [
     "DecisionLedger",
     "FlightRecorder",
+    "MetricsServer",
+    "SelfSLOMonitor",
     "Tracer",
     "default_flight_recorder",
     "default_ledger",

@@ -13,6 +13,9 @@
   cluster (pending pods, one node and one pendingCapacity producer per
   group) in a Store with its PendingFeed, and its per-tick churn.
 - `build_ha_fleet`: runtime.py's HorizontalAutoscaler world.
+- `build_runtime_world`: the controller binary's world (the reconcile
+  cluster and the HA fleet, read through queue MetricsProducers), as
+  objects in a store, for a KarpenterRuntime to run.
 - `build_disruption_world`: the `--consolidate --preempt` world
   (bench.py's fragmented consolidation cluster with node groups, a fake
   provider, pending critical pods, and the engines behind the
@@ -296,16 +299,23 @@ class ReconcileAPI:
         self.__dict__.update(names)
 
 
-def api_namespace(modules: Dict[str, object]) -> ReconcileAPI:
-    """The names of RECONCILE_API taken from `modules`, which maps each
-    of its keys to a module object."""
+def _namespace(spec: Dict[str, tuple], modules: Dict[str, object]
+               ) -> ReconcileAPI:
+    """The names of `spec` ({module key: names}) taken from `modules`,
+    which maps each of its keys to a module object."""
     return ReconcileAPI(
         **{
             attr: getattr(modules[module], attr)
-            for module, attrs in RECONCILE_API.items()
+            for module, attrs in spec.items()
             for attr in attrs
         }
     )
+
+
+def api_namespace(modules: Dict[str, object]) -> ReconcileAPI:
+    """The names of RECONCILE_API taken from `modules`, which maps each
+    of its keys to a module object."""
+    return _namespace(RECONCILE_API, modules)
 
 
 def reconcile_api() -> ReconcileAPI:
@@ -423,6 +433,18 @@ def build_reconcile_cluster(
     rng = np.random.default_rng(seed)
     store = api.Store()
     feed = api.PendingFeed(store, api.group_profile)
+    cluster = _draw_reconcile(api, store, rng, pods, types, affinity, anti,
+                              spread)
+    cluster.feed = feed
+    cluster.registry = api.GaugeRegistry()
+    api.register_gauges(cluster.registry)
+    return cluster
+
+
+def _draw_reconcile(api, store, rng, pods: int, types: int, affinity: float,
+                    anti: float, spread: float) -> ReconcileCluster:
+    """build_reconcile_cluster's draw, written into `store` (feed and
+    registry left None)."""
     cpu_choices = [
         api.Quantity.parse(q) for q in ("100m", "250m", "500m", "1", "2", "4")
     ]
@@ -530,11 +552,9 @@ def build_reconcile_cluster(
         )
         for g in range(types)
     ]
-    registry = api.GaugeRegistry()
-    api.register_gauges(registry)
     return ReconcileCluster(
-        api=api, store=store, feed=feed, producers=producers,
-        registry=registry, pods=pods, types=types, bound_count=bound_count,
+        api=api, store=store, feed=None, producers=producers,
+        registry=None, pods=pods, types=types, bound_count=bound_count,
         make_pod=make_pod, make_bound=make_bound, next_id=pods,
         next_bound=bound_count,
     )
@@ -608,13 +628,7 @@ HA_API = {
 def ha_api_namespace(modules: Dict[str, object]) -> ReconcileAPI:
     """The names of HA_API taken from `modules`, which maps each of its
     keys to a module object."""
-    return ReconcileAPI(
-        **{
-            attr: getattr(modules[module], attr)
-            for module, attrs in HA_API.items()
-            for attr in attrs
-        }
-    )
+    return _namespace(HA_API, modules)
 
 
 def ha_api() -> ReconcileAPI:
@@ -765,6 +779,160 @@ class HAFleet:
         return out
 
 
+def _draw_ha(api, store, rng, n_has: int, metrics: int,
+             forecast_share: float, slo_share: float, groups: int,
+             pools: int, query_of: Callable):
+    """build_ha_fleet's draw of the fleet's objects, written into `store`:
+    the node groups, the HorizontalAutoscalers (metric j of HA i in
+    namespace ns reads the series `ha-<i>-m<j>` through the query
+    `query_of(i, ns, series)` gives) and the PoolGroups. Returns (the HAs
+    as stored, the queue levels f32[n_has, metrics], which HAs forecast,
+    each HA's series names)."""
+    forecasting = rng.random(n_has) < forecast_share
+    with_slo = rng.random(n_has) < slo_share
+    replicas = rng.integers(1, 21, n_has)
+    spot = rng.random(n_has) < 0.2
+    itype = rng.integers(0, len(_INSTANCE_TYPES), n_has)
+    kinds = rng.integers(0, 3, (n_has, metrics))  # AverageValue/Value/Util
+    # queue levels; a Utilization metric reads a fraction of capacity
+    base = rng.uniform(10.0, 200.0, (n_has, metrics))
+    base = np.where(kinds == 2, base / 250.0, base).astype(np.float32)
+    up_window = rng.choice([0, 0, 30], n_has)
+    down_window = rng.choice([0, 60, 300], n_has)
+    select = rng.integers(0, 3, (n_has, 2))
+    policy_mix = rng.integers(0, 4, (n_has, 2))
+    models = rng.integers(0, 2, n_has)
+    seasonal = rng.random(n_has) < 0.5
+    slo_target = rng.uniform(2.0, 12.0, n_has)
+    slo_weight = rng.choice([5.0, 25.0, 100.0], n_has)
+    slo_budget = rng.choice([0.0, 0.0, 50.0], n_has)
+    select_names = (None, "Max", "Min")
+
+    def rules(i, direction):
+        window = int(up_window[i] if direction == 0 else down_window[i])
+        mix = int(policy_mix[i, direction])
+        policies = None
+        if mix == 1:
+            policies = [api.ScalingPolicy(type="Count", value=4, period_seconds=60)]
+        elif mix == 2:
+            policies = [api.ScalingPolicy(type="Percent", value=50, period_seconds=60)]
+        elif mix == 3:
+            policies = [
+                api.ScalingPolicy(type="Count", value=2, period_seconds=30),
+                api.ScalingPolicy(type="Percent", value=100, period_seconds=60),
+            ]
+        return api.ScalingRules(
+            stabilization_window_seconds=window,
+            select_policy=select_names[int(select[i, direction])],
+            policies=policies,
+        )
+
+    has = []
+    names_of = []
+    for i in range(n_has):
+        ns = f"tenant-{i // 4:04d}"
+        name = f"ha-{i:05d}"
+        target = f"sng-{i:05d}"
+        store.create(api.ScalableNodeGroup(
+            metadata=api.ObjectMeta(
+                name=target, namespace=ns,
+                annotations={
+                    "cost.karpenter.sh/instance-type":
+                        _INSTANCE_TYPES[int(itype[i])],
+                },
+            ),
+            spec=api.ScalableNodeGroupSpec(
+                replicas=int(replicas[i]), type="FakeNodeGroup", id=target,
+                preemptible=bool(spot[i]),
+            ),
+        ))
+        sng = store.get("ScalableNodeGroup", ns, target)
+        sng.status.replicas = int(replicas[i])
+        store.patch_status(sng)
+        n_metrics = 1 if forecasting[i] else metrics
+        names, specs = [], []
+        for j in range(n_metrics):
+            series = f"{name}-m{j}"
+            names.append(series)
+            kind = int(kinds[i, j])
+            if kind == 0:
+                mt = api.MetricTarget(type="AverageValue", value=float(
+                    np.float32(base[i, j] / 6.0)))
+            elif kind == 1:
+                mt = api.MetricTarget(type="Value", value=float(
+                    np.float32(base[i, j] * 2.0)))
+            else:
+                mt = api.MetricTarget(
+                    type="Utilization", average_utilization=70
+                )
+            specs.append(api.Metric(prometheus=api.PrometheusMetricSource(
+                query=query_of(i, ns, series),
+                target=mt,
+            )))
+        names_of.append(names)
+        behavior = api.Behavior(scale_up=rules(i, 0), scale_down=rules(i, 1))
+        if forecasting[i]:
+            behavior.forecast = api.ForecastSpec(
+                horizon_seconds=60.0,
+                model="holt-winters" if models[i] else "linear",
+                season_seconds=120.0 if seasonal[i] else 0.0,
+                min_samples=6,
+            )
+        if with_slo[i]:
+            behavior.slo = api.SLOSpec(
+                target_value=float(np.float32(slo_target[i])),
+                violation_cost_weight=float(slo_weight[i]),
+                max_hourly_cost=float(slo_budget[i]),
+            )
+        has.append(api.HorizontalAutoscaler(
+            metadata=api.ObjectMeta(name=name, namespace=ns),
+            spec=api.HorizontalAutoscalerSpec(
+                scale_target_ref=api.CrossVersionObjectReference(
+                    kind="ScalableNodeGroup", name=target
+                ),
+                min_replicas=1,
+                max_replicas=int(100 if i % 3 else 40),
+                metrics=specs,
+                behavior=behavior,
+            ),
+        ))
+    for ha in has:
+        store.create(ha)
+    has = store.list("HorizontalAutoscaler")
+
+    # pool groups: one tenant's HAs each, spread over the fleet
+    n_tenants = (n_has + 3) // 4
+    for g, t in enumerate(
+        sorted(rng.choice(n_tenants, min(groups, n_tenants), replace=False))
+    ):
+        members = [h for h in has if h.metadata.namespace == f"tenant-{t:04d}"]
+        members = members[:pools]
+        if len(members) < 2:
+            continue
+        ratios = []
+        if rng.random() < 0.5:
+            ratios.append(api.RatioConstraint(
+                numerator=members[1].metadata.name,
+                denominator=members[0].metadata.name,
+                min_numerator=1, min_denominator=1,
+                max_numerator=4, max_denominator=1,
+            ))
+        store.create(api.PoolGroup(
+            metadata=api.ObjectMeta(
+                name=f"pg-{g:03d}", namespace=f"tenant-{t:04d}"
+            ),
+            spec=api.PoolGroupSpec(
+                pools=[api.PoolMember(name=h.metadata.name) for h in members],
+                ratios=ratios,
+                max_hourly_cost=float(
+                    rng.choice([0.0, 400.0]) if rng.random() < 0.35 else 0.0
+                ),
+            ),
+        ))
+
+    return has, base, forecasting, names_of
+
+
 def build_ha_fleet(
     n_has: int, metrics: int, seed: int, *, service,
     forecast_share: float = 0.5, slo_share: float = 0.6, groups: int = 0,
@@ -842,49 +1010,19 @@ def build_ha_fleet(
     )
     controller = api.HorizontalAutoscalerController(autoscaler, service)
 
-    # -- the draw ---------------------------------------------------------
-    forecasting = rng.random(n_has) < forecast_share
-    with_slo = rng.random(n_has) < slo_share
-    replicas = rng.integers(1, 21, n_has)
-    spot = rng.random(n_has) < 0.2
-    itype = rng.integers(0, len(_INSTANCE_TYPES), n_has)
-    kinds = rng.integers(0, 3, (n_has, metrics))  # AverageValue/Value/Util
-    # queue levels; a Utilization metric reads a fraction of capacity
-    base = rng.uniform(10.0, 200.0, (n_has, metrics))
-    base = np.where(kinds == 2, base / 250.0, base).astype(np.float32)
-    up_window = rng.choice([0, 0, 30], n_has)
-    down_window = rng.choice([0, 60, 300], n_has)
-    select = rng.integers(0, 3, (n_has, 2))
-    policy_mix = rng.integers(0, 4, (n_has, 2))
-    models = rng.integers(0, 2, n_has)
-    seasonal = rng.random(n_has) < 0.5
-    slo_target = rng.uniform(2.0, 12.0, n_has)
-    slo_weight = rng.choice([5.0, 25.0, 100.0], n_has)
-    slo_budget = rng.choice([0.0, 0.0, 50.0], n_has)
-    select_names = (None, "Max", "Min")
+    vecs: Dict[int, object] = {}
+    vec_of: Dict[int, object] = {}
 
-    def rules(i, direction):
-        window = int(up_window[i] if direction == 0 else down_window[i])
-        mix = int(policy_mix[i, direction])
-        policies = None
-        if mix == 1:
-            policies = [api.ScalingPolicy(type="Count", value=4, period_seconds=60)]
-        elif mix == 2:
-            policies = [api.ScalingPolicy(type="Percent", value=50, period_seconds=60)]
-        elif mix == 3:
-            policies = [
-                api.ScalingPolicy(type="Count", value=2, period_seconds=30),
-                api.ScalingPolicy(type="Percent", value=100, period_seconds=60),
-            ]
-        return api.ScalingRules(
-            stabilization_window_seconds=window,
-            select_policy=select_names[int(select[i, direction])],
-            policies=policies,
-        )
+    def query_of(i, ns, series):
+        v = i * queue_vectors // n_has
+        vec = vecs.get(v)
+        if vec is None:
+            vec = vecs[v] = registry.register(
+                "queue", "length" if queue_vectors == 1 else f"length_{v:03d}"
+            )
+        vec_of[i] = vec
+        return f'{vec.full_name}{{name="{series}",namespace="{ns}"}}'
 
-    vecs = {}
-    gauge_of = []
-    has = []
     actuate: set = set()
 
     def on_scale(event, obj):
@@ -892,113 +1030,11 @@ def build_ha_fleet(
             actuate.add((obj.metadata.namespace, obj.metadata.name))
 
     store.watch("ScalableNodeGroup", on_scale)
-    for i in range(n_has):
-        ns = f"tenant-{i // 4:04d}"
-        name = f"ha-{i:05d}"
-        target = f"sng-{i:05d}"
-        store.create(api.ScalableNodeGroup(
-            metadata=api.ObjectMeta(
-                name=target, namespace=ns,
-                annotations={
-                    "cost.karpenter.sh/instance-type":
-                        _INSTANCE_TYPES[int(itype[i])],
-                },
-            ),
-            spec=api.ScalableNodeGroupSpec(
-                replicas=int(replicas[i]), type="FakeNodeGroup", id=target,
-                preemptible=bool(spot[i]),
-            ),
-        ))
-        sng = store.get("ScalableNodeGroup", ns, target)
-        sng.status.replicas = int(replicas[i])
-        store.patch_status(sng)
-        v = i * queue_vectors // n_has
-        vec = vecs.get(v)
-        if vec is None:
-            vec = vecs[v] = registry.register(
-                "queue", "length" if queue_vectors == 1 else f"length_{v:03d}"
-            )
-        n_metrics = 1 if forecasting[i] else metrics
-        names, specs = [], []
-        for j in range(n_metrics):
-            series = f"{name}-m{j}"
-            names.append(series)
-            kind = int(kinds[i, j])
-            if kind == 0:
-                mt = api.MetricTarget(type="AverageValue", value=float(
-                    np.float32(base[i, j] / 6.0)))
-            elif kind == 1:
-                mt = api.MetricTarget(type="Value", value=float(
-                    np.float32(base[i, j] * 2.0)))
-            else:
-                mt = api.MetricTarget(
-                    type="Utilization", average_utilization=70
-                )
-            specs.append(api.Metric(prometheus=api.PrometheusMetricSource(
-                query=(f'{vec.full_name}{{name="{series}",'
-                       f'namespace="{ns}"}}'),
-                target=mt,
-            )))
-        gauge_of.append((vec, names))
-        behavior = api.Behavior(scale_up=rules(i, 0), scale_down=rules(i, 1))
-        if forecasting[i]:
-            behavior.forecast = api.ForecastSpec(
-                horizon_seconds=60.0,
-                model="holt-winters" if models[i] else "linear",
-                season_seconds=120.0 if seasonal[i] else 0.0,
-                min_samples=6,
-            )
-        if with_slo[i]:
-            behavior.slo = api.SLOSpec(
-                target_value=float(np.float32(slo_target[i])),
-                violation_cost_weight=float(slo_weight[i]),
-                max_hourly_cost=float(slo_budget[i]),
-            )
-        has.append(api.HorizontalAutoscaler(
-            metadata=api.ObjectMeta(name=name, namespace=ns),
-            spec=api.HorizontalAutoscalerSpec(
-                scale_target_ref=api.CrossVersionObjectReference(
-                    kind="ScalableNodeGroup", name=target
-                ),
-                min_replicas=1,
-                max_replicas=int(100 if i % 3 else 40),
-                metrics=specs,
-                behavior=behavior,
-            ),
-        ))
-    for ha in has:
-        store.create(ha)
-    has = store.list("HorizontalAutoscaler")
-
-    # pool groups: one tenant's HAs each, spread over the fleet
-    n_tenants = (n_has + 3) // 4
-    for g, t in enumerate(
-        sorted(rng.choice(n_tenants, min(groups, n_tenants), replace=False))
-    ):
-        members = [h for h in has if h.metadata.namespace == f"tenant-{t:04d}"]
-        members = members[:pools]
-        if len(members) < 2:
-            continue
-        ratios = []
-        if rng.random() < 0.5:
-            ratios.append(api.RatioConstraint(
-                numerator=members[1].metadata.name,
-                denominator=members[0].metadata.name,
-                min_numerator=1, min_denominator=1,
-                max_numerator=4, max_denominator=1,
-            ))
-        store.create(api.PoolGroup(
-            metadata=api.ObjectMeta(
-                name=f"pg-{g:03d}", namespace=f"tenant-{t:04d}"
-            ),
-            spec=api.PoolGroupSpec(
-                pools=[api.PoolMember(name=h.metadata.name) for h in members],
-                ratios=ratios,
-                max_hourly_cost=float(
-                    rng.choice([0.0, 400.0]) if rng.random() < 0.35 else 0.0
-                ),
-            ),
-        ))
+    has, base, forecasting, names_of = _draw_ha(
+        api, store, rng, n_has, metrics, forecast_share, slo_share, groups,
+        pools, query_of,
+    )
+    gauge_of = [(vec_of[i], names) for i, names in enumerate(names_of)]
 
     # the forecast series' history, observed before the fleet's first
     # reconcile: `history` samples one interval apart
@@ -1028,6 +1064,224 @@ def build_ha_fleet(
     return fleet
 
 
+# -- the controller binary's world (runtime.py's three controllers) ----------
+
+# What the runtime world needs, by module under the package root; `api=`
+# takes these names from either package (runtime_api gives this package's).
+RUNTIME_API = {
+    "api.core": RECONCILE_API["api.core"],
+    "api.horizontalautoscaler": HA_API["api.horizontalautoscaler"],
+    "api.metricsproducer": (
+        "MetricsProducer", "MetricsProducerSpec", "PendingCapacitySpec",
+        "QueueSpec",
+    ),
+    "api.poolgroup": HA_API["api.poolgroup"],
+    "api.scalablenodegroup": HA_API["api.scalablenodegroup"],
+    "utils.quantity": ("Quantity",),
+}
+
+
+def runtime_api_namespace(modules: Dict[str, object]) -> ReconcileAPI:
+    """The names of RUNTIME_API taken from `modules`, which maps each of
+    its keys to a module object."""
+    return _namespace(RUNTIME_API, modules)
+
+
+def runtime_api() -> ReconcileAPI:
+    """RUNTIME_API from this package."""
+    from karpenter_tpu_torch.api import (
+        core,
+        horizontalautoscaler,
+        metricsproducer,
+        poolgroup,
+        scalablenodegroup,
+    )
+    from karpenter_tpu_torch.utils import quantity
+
+    return runtime_api_namespace({
+        "api.core": core,
+        "api.horizontalautoscaler": horizontalautoscaler,
+        "api.metricsproducer": metricsproducer,
+        "api.poolgroup": poolgroup,
+        "api.scalablenodegroup": scalablenodegroup,
+        "utils.quantity": quantity,
+    })
+
+
+@dataclass
+class RuntimeWorld:
+    """The objects build_runtime_world wrote, and the draw state its
+    per-tick changes continue from: `cluster` is the pending-pods part
+    (churn it with churn_reconcile), `queue_ids[i]` the fake queues HA i
+    reads, whose lengths `step_queues` walks."""
+
+    cluster: ReconcileCluster
+    provider: object
+    has: List
+    queue_ids: List[List[str]]
+    queues: np.ndarray  # f32[n_has, metrics] current queue values
+    base: np.ndarray  # f32[n_has, metrics] level of each queue's walk
+    rng: object
+    steps: int = 0
+
+    def step_queues(self) -> None:
+        """Each queue takes HAFleet.step_world's seeded random-walk step
+        around its level, and its fake queue reports the new length,
+        rounded to a whole message count."""
+        self.steps += 1
+        n, m = self.queues.shape
+        swell = 1.0 + 0.3 * np.sin(self.steps / 9.0 + np.arange(n) % 7)
+        step = self.rng.normal(0.0, 0.08, (n, m)) * self.base
+        self.queues = np.maximum(
+            0.0, 0.7 * self.queues + 0.3 * self.base * swell[:, None] + step
+        ).astype(np.float32)
+        self._publish()
+
+    def _publish(self) -> None:
+        for i, ids in enumerate(self.queue_ids):
+            for j, queue_id in enumerate(ids):
+                self.provider.queue_lengths[queue_id] = int(
+                    np.rint(self.queues[i, j])
+                )
+
+
+def build_runtime_world(
+    store, provider, pods: int, types: int, n_has: int, metrics: int,
+    seed: int, *, groups: int = 0, pools: int = 4,
+    forecast_share: float = 0.5, slo_share: float = 0.6,
+    api: Optional[ReconcileAPI] = None,
+) -> RuntimeWorld:
+    """The world the controller binary runs, written into `store` (an
+    empty Store or DurableStore of either package) with `provider` (a
+    FakeFactory of the same package) behind its node groups and queues.
+    It writes objects only: the runtime builds every engine itself.
+
+    - build_reconcile_cluster(pods, types, seed)'s draw: `pods` pending
+      pods, `types` groups of one Ready node each, and one
+      pendingCapacity MetricsProducer per group;
+    - then, from np.random.default_rng(seed + 1), build_ha_fleet's draw
+      of `n_has` HorizontalAutoscalers (tenants of four, `metrics` queue
+      metrics each, forecasting ones one) with their ScalableNodeGroups
+      and `groups` PoolGroups of `pools` members. Metric j of HA i reads
+      `karpenter_queue_length{name="ha-<i>-m<j>",namespace=<tenant>}`,
+      which a queue MetricsProducer of that name publishes from the fake
+      queue `<tenant>/ha-<i>-m<j>` (the reference's own pipeline,
+      tests/test_e2e.py's queue scenario). Each node group's replicas
+      are set on the provider.
+
+    The HA part selects no pod and no node of the pending part, so the
+    pendingCapacity totals are build_reconcile_cluster's. `api`
+    (runtime_api) names the classes; the port's by default."""
+    api = api if api is not None else runtime_api()
+    cluster = _draw_reconcile(
+        api, store, np.random.default_rng(seed), pods, types, 0.0, 0.0, 0.0
+    )
+    rng = np.random.default_rng(seed + 1)
+
+    def query_of(i, ns, series):
+        return f'karpenter_queue_length{{name="{series}",namespace="{ns}"}}'
+
+    has, base, _, names_of = _draw_ha(
+        api, store, rng, n_has, metrics, forecast_share, slo_share, groups,
+        pools, query_of,
+    )
+    queue_ids = []
+    for ha, names in zip(has, names_of):
+        ns = ha.metadata.namespace
+        ids = [f"{ns}/{series}" for series in names]
+        queue_ids.append(ids)
+        for series, queue_id in zip(names, ids):
+            store.create(api.MetricsProducer(
+                metadata=api.ObjectMeta(name=series, namespace=ns),
+                spec=api.MetricsProducerSpec(
+                    queue=api.QueueSpec(type="FakeQueue", id=queue_id)
+                ),
+            ))
+        target = ha.spec.scale_target_ref.name
+        provider.node_replicas[target] = store.get(
+            "ScalableNodeGroup", ns, target
+        ).spec.replicas
+    world = RuntimeWorld(
+        cluster=cluster, provider=provider, has=has, queue_ids=queue_ids,
+        queues=base.copy(), base=base, rng=rng,
+    )
+    world._publish()
+    return world
+
+
+# kinds a runtime world's store holds
+RUNTIME_KINDS = ("Pod", "Node", "MetricsProducer", "ScalableNodeGroup",
+                 "HorizontalAutoscaler", "PoolGroup")
+# exposition families left out of a runtime snapshot: wall-clock timings
+# and what is computed from them (the self-SLO monitor burns budget on
+# the e2e-latency histogram and dumps the flight recorder when it does),
+# the process-wide tracer's span counts (shared by every runtime of one
+# process), and families only the reference registers (its device
+# telemetry, always built there, and its shard route's gauge)
+SNAPSHOT_SKIP = (
+    "karpenter_reconcile_e2e_seconds", "karpenter_runtime_tick_seconds",
+    "karpenter_solver_stage_", "karpenter_selfslo_",
+    "karpenter_flightrecorder_", "karpenter_trace_spans_",
+    "karpenter_device_", "karpenter_solver_compile_seconds",
+    "karpenter_solver_compile_storms_total",
+    "karpenter_solver_resident_entry_bytes", "karpenter_solver_shard_devices",
+)
+
+# a card runtime against a CPU runtime: the solve service's own counters
+# (dispatches, key caches, residency) depend on its rung, so they are
+# left out too
+RUNG_SKIP = SNAPSHOT_SKIP + ("karpenter_solver_",)
+
+
+def _family(line: str) -> str:
+    if line.startswith("#"):
+        parts = line.split()
+        return parts[2] if len(parts) > 2 else ""
+    return line.split("{", 1)[0].split(" ", 1)[0]
+
+
+def runtime_snapshot(store, registry, provider, to_dict,
+                     skip: tuple = SNAPSHOT_SKIP, pods: str = "manifest") -> dict:
+    """What a runtime tick leaves behind, as plain values: every object
+    of RUNTIME_KINDS as its manifest dict (`to_dict` of the store's
+    package; the uid and the conditions' wall-clock transition times
+    left out), the provider's node-group replicas, and the registry's
+    exposition_lines. pods="fields" records a Pod as its labels, node
+    and container requests instead (a tenth of the time at 100k pods),
+    for worlds whose runtime writes no pod."""
+    objects = {}
+    for kind in RUNTIME_KINDS:
+        for obj in store.list(kind):
+            if kind == "Pod" and pods == "fields":
+                objects[(kind, obj.metadata.namespace, obj.metadata.name)] = (
+                    tuple(sorted(obj.metadata.labels.items())),
+                    obj.spec.node_name,
+                    tuple(tuple((r, str(q)) for r, q in sorted(c.requests.items()))
+                          for c in obj.spec.containers),
+                )
+                continue
+            doc = to_dict(obj)
+            doc.get("metadata", {}).pop("uid", None)
+            for c in (doc.get("status") or {}).get("conditions") or []:
+                c.pop("lastTransitionTime", None)
+            objects[(kind, obj.metadata.namespace, obj.metadata.name)] = doc
+    return {
+        "objects": objects,
+        "replicas": dict(provider.node_replicas),
+        "exposition": exposition_lines(registry, skip),
+    }
+
+
+def exposition_lines(registry, skip: tuple = SNAPSHOT_SKIP) -> List[str]:
+    """The registry's exposition lines but those of the families in
+    `skip` and those ending in _ms (timings)."""
+    return [
+        line for line in registry.expose_text().splitlines()
+        if not (_family(line).startswith(skip)
+                or _family(line).endswith("_ms"))
+    ]
+
+
 # -- the disruption path (consolidation + preemption, runtime.py:409-501) -----
 
 DISRUPTION_API = {
@@ -1055,13 +1309,7 @@ DISRUPTION_API = {
 def disruption_api_namespace(modules: Dict[str, object]) -> ReconcileAPI:
     """The names of DISRUPTION_API taken from `modules`, which maps each of
     its keys to a module object."""
-    return ReconcileAPI(
-        **{
-            attr: getattr(modules[module], attr)
-            for module, attrs in DISRUPTION_API.items()
-            for attr in attrs
-        }
-    )
+    return _namespace(DISRUPTION_API, modules)
 
 
 def disruption_api() -> ReconcileAPI:

@@ -1,0 +1,337 @@
+"""The port's process entry point (`python -m karpenter_tpu_torch`), its
+HTTP surface and leader election, against the reference's, on the CPU.
+
+  * parse_args gives the reference's value for every flag both packages
+    have, with and without `--profile production`;
+  * `main(... --device cpu)` runs ticks and returns 0; without
+    `--device cpu` and with no card it exits non-zero with the reason and
+    runs no tick;
+  * each flag whose module is not ported exits 2 naming that module, and
+    each such runtime option raises NotPortedError;
+  * MetricsServer's routes and LeaderElector behave as in
+    tests/test_wiring.py, on both packages.
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import os
+import urllib.error
+import urllib.request
+
+import pytest
+import torch
+
+from karpenter_tpu_torch import __main__ as port_main
+from karpenter_tpu_torch import runtime as port_runtime
+from karpenter_tpu_torch.controllers.engine import Manager
+
+REF, PORT = "karpenter_tpu", "karpenter_tpu_torch"
+
+
+def mod(package: str, name: str):
+    return importlib.import_module(f"{package}.{name}")
+
+
+class FakeClock:
+    def __init__(self, start=1000.0):
+        self.now = start
+
+    def __call__(self):
+        return self.now
+
+    def advance(self, seconds):
+        self.now += seconds
+
+
+# -- flags -------------------------------------------------------------------
+
+
+class TestParseArgs:
+    @pytest.mark.parametrize("argv", [
+        [], ["--profile", "production"],
+        ["--profile", "production", "--no-event-driven", "--selfslo-objective",
+         "2.5"],
+        ["--event-driven", "--poolgroups", "--consolidate", "--preempt",
+         "--journal-dir", "j", "--data-dir", "d", "--backoff-base", "2"],
+    ], ids=["defaults", "production", "production_overrides", "explicit"])
+    def test_every_shared_flag_matches_the_reference(self, argv):
+        want = vars(mod(REF, "__main__").parse_args(argv))
+        got = vars(port_main.parse_args(argv))
+        assert got.pop("device") == "cuda"
+        assert got == want
+
+    @pytest.mark.parametrize("argv,message", [
+        (["--selfslo-target", "1.5"], "--selfslo-target must be in (0, 1)"),
+        (["--selfslo-objective", "0"], "--selfslo-objective must be > 0"),
+        (["--introspect-storm-threshold", "0"],
+         "--introspect-storm-threshold must be >= 1"),
+        (["--event-debounce", "-1"], "--event-debounce must be >= 0"),
+        (["--device", "tpu"], "invalid choice"),
+    ])
+    def test_usage_errors_exit_2(self, argv, message, capsys):
+        with pytest.raises(SystemExit) as exit_info:
+            port_main.parse_args(argv)
+        assert exit_info.value.code == 2
+        assert message in capsys.readouterr().err
+
+    @pytest.mark.parametrize("argv,module", [
+        (["--simulate"], "simlab"),
+        (["--simulate", "--list"], "simlab"),
+        (["--apiserver", "https://k8s"], "store/kube.py"),
+        (["--webhook-port", "9443"], "webhook.py"),
+        (["--solver-uri", "localhost:50051"], "sidecar"),
+        (["--tenant-config", "t.yaml"], "tenancy"),
+        (["--partitions", "2"], "replication"),
+        (["--introspect"], "observability/devicetelemetry.py"),
+        (["--profiler-port", "9999"], "jax.profiler server"),
+        (["--shard-mesh", "8x1"], "parallel/mesh.py"),
+        (["--cloud-provider", "aws"], "cloudprovider/aws.py"),
+        (["--cloud-provider", "tpu"], "cloudprovider/tpu.py"),
+    ])
+    def test_unported_flag_exits_2_naming_its_module(self, argv, module,
+                                                     capsys):
+        with pytest.raises(SystemExit) as exit_info:
+            port_main.main(argv + ["--device", "cpu"])
+        assert exit_info.value.code == 2
+        err = capsys.readouterr().err
+        assert module in err and "not ported" in err
+
+
+class TestNotPortedOptions:
+    @pytest.mark.parametrize("field,value,module", [
+        ("solver_uri", "localhost:1", "sidecar"),
+        ("tenant_config", "t.yaml", "tenancy"),
+        ("partitions", 2, "replication"),
+        ("introspect", True, "devicetelemetry"),
+        ("sim_seed", 7, "simlab"),
+        ("solver_shard_mesh", (2, 1), "parallel/mesh.py"),
+    ])
+    def test_option_raises_at_construction(self, field, value, module):
+        options = port_runtime.Options(device="cpu", **{field: value})
+        with pytest.raises(port_runtime.NotPortedError, match=module):
+            port_runtime.KarpenterRuntime(options)
+
+
+# -- main ----------------------------------------------------------------------
+
+
+class TestMain:
+    def test_cpu_run_ticks_and_returns_0(self, tmp_path, monkeypatch, capsys):
+        ticks = []
+        real = Manager.reconcile_all
+
+        def counted(self):
+            ticks.append(1)
+            return real(self)
+
+        monkeypatch.setattr(Manager, "reconcile_all", counted)
+        rc = port_main.main([
+            "--device", "cpu", "--duration", "0.3", "--tick", "0.05",
+            "--metrics-port", "0", "--data-dir", str(tmp_path / "d"),
+            "--journal-dir", str(tmp_path / "j"),
+        ])
+        assert rc == 0
+        assert ticks
+        err = capsys.readouterr().err
+        assert "serving /metrics and /healthz on :" in err
+        assert (tmp_path / "d" / "wal.jsonl").exists()
+
+    def test_production_profile_on_cpu(self, capsys):
+        rc = port_main.main([
+            "--device", "cpu", "--profile", "production", "--poolgroups",
+            "--duration", "0.3", "--tick", "0.05", "--metrics-port", "0",
+            "--no-leader-elect",
+        ])
+        assert rc == 0
+
+    @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
+    def test_no_card_no_cpu_no_tick(self, monkeypatch, capsys):
+        ticks = []
+        monkeypatch.setattr(
+            Manager, "reconcile_all", lambda self: ticks.append(1)
+        )
+        rc = port_main.main([
+            "--duration", "5", "--tick", "0.05", "--metrics-port", "0",
+        ])
+        assert rc != 0
+        assert not ticks
+        err = capsys.readouterr().err
+        assert "CUDA device requested" in err
+        assert "serving /metrics" not in err
+
+    def test_runtime_default_device_needs_the_card(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA device requested"):
+            port_runtime.KarpenterRuntime(port_runtime.Options())
+
+    def test_failed_prewarm_raises_at_boot(self, monkeypatch):
+        from karpenter_tpu_torch.solver.service import SolverService
+
+        def broken(self, family):
+            raise RuntimeError(f"warm {family} failed")
+
+        monkeypatch.setattr(SolverService, "_prewarm_dispatch", broken)
+        with pytest.raises(RuntimeError, match="pre-warm failed at boot"):
+            port_runtime.KarpenterRuntime(port_runtime.Options(
+                device="cpu", prewarm_compile=True
+            ))
+
+    def test_compile_cache_dir_names_the_kernel_build_dir(self, tmp_path,
+                                                          monkeypatch):
+        from karpenter_tpu_torch import kernels
+        from karpenter_tpu_torch.utils import backend
+
+        monkeypatch.setattr(kernels, "BUILD", kernels.BUILD)
+        assert backend.configure_compile_cache(str(tmp_path / "cache"))
+        assert kernels.BUILD == (tmp_path / "cache").resolve()
+        assert (tmp_path / "cache").is_dir()
+        assert not backend.configure_compile_cache("")
+
+
+# -- the HTTP surface ----------------------------------------------------------
+
+
+def get(port, path):
+    try:
+        with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}{path}", timeout=10
+        ) as response:
+            return response.status, response.read()
+    except urllib.error.HTTPError as error:
+        return error.code, error.read()
+
+
+class TestMetricsServer:
+    @pytest.mark.parametrize("package", [REF, PORT])
+    def test_routes(self, package, tmp_path):
+        registry = mod(package, "metrics.registry").GaugeRegistry()
+        registry.register("queue", "length").set(
+            name="q", namespace="default", value=41.0
+        )
+        ready = {"ok": False}
+        server = mod(package, "observability").MetricsServer(
+            registry, port=0, host="127.0.0.1",
+            readiness=lambda: (ready["ok"], "ok" if ready["ok"]
+                               else "recovery warm-up: 1 tick(s) remaining"),
+        )
+        port = server.start()
+        try:
+            status, body = get(port, "/metrics?format=prometheus")
+            assert status == 200
+            assert b'karpenter_queue_length{name="q",namespace="default"} 41' in body
+            assert get(port, "/healthz") == (200, b"ok")
+            status, body = get(port, "/readyz")
+            assert status == 503 and b"recovery warm-up" in body
+            ready["ok"] = True
+            assert get(port, "/readyz") == (200, b"ok")
+            for path in ("/debug/traces?limit=5", "/debug/flightrecorder",
+                         "/debug/decisions"):
+                status, body = get(port, path)
+                assert status == 200, path
+                json.loads(body)
+            for path in ("/debug/selfslo", "/debug/solver",
+                         "/debug/replicas"):
+                assert get(port, path) == (200, b'{"enabled": false}'), path
+            status, body = get(port, "/debug/profile?ms=5")
+            assert status == 503 and b"no --journal-dir" in body
+            assert get(port, "/nope")[0] == 404
+        finally:
+            server.stop()
+
+    def test_profile_capture_writes_a_chrome_trace(self, tmp_path):
+        from karpenter_tpu_torch.metrics.registry import GaugeRegistry
+        from karpenter_tpu_torch.observability import MetricsServer
+
+        server = MetricsServer(GaugeRegistry(), port=0, host="127.0.0.1",
+                               profile_dir=str(tmp_path))
+        port = server.start()
+        try:
+            assert get(port, "/debug/profile?ms=x")[0] == 400
+            status, body = get(port, "/debug/profile?ms=20")
+            assert status == 200, body
+            report = json.loads(body)
+            assert report["ms_requested"] == 20
+            assert os.path.exists(os.path.join(report["path"], "trace.json"))
+            with open(os.path.join(report["path"], "manifest.json")) as fh:
+                assert json.load(fh)["ms_requested"] == 20
+        finally:
+            server.stop()
+
+    def test_selfslo_scoreboard_from_a_runtime(self):
+        runtime = port_runtime.KarpenterRuntime(
+            port_runtime.Options(device="cpu"), clock=FakeClock()
+        )
+        from karpenter_tpu_torch.observability import MetricsServer
+
+        server = MetricsServer(runtime.registry, port=0, host="127.0.0.1",
+                               selfslo=runtime.selfslo,
+                               readiness=port_main._readiness(runtime))
+        port = server.start()
+        try:
+            runtime.manager.reconcile_all()
+            status, body = get(port, "/debug/selfslo")
+            board = json.loads(body)
+            assert status == 200 and board["enabled"] is True
+            assert get(port, "/readyz") == (200, b"ok")
+        finally:
+            server.stop()
+            runtime.close()
+
+
+# -- leader election -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("package", [REF, PORT])
+class TestLeaderElection:
+    def elector(self, package, store, clock, identity, **kw):
+        return mod(package, "leaderelection").LeaderElector(
+            store, identity=identity, clock=clock, **kw
+        )
+
+    def test_second_candidate_blocked_until_expiry(self, package):
+        store, clock = mod(package, "store").Store(), FakeClock()
+        a = self.elector(package, store, clock, "a", lease_duration=15)
+        b = self.elector(package, store, clock, "b", lease_duration=15)
+        assert a.try_acquire() and a.is_leader()
+        assert not b.try_acquire() and not b.is_leader()
+        clock.advance(10)
+        assert a.try_acquire()
+        clock.advance(10)
+        assert not b.try_acquire()
+        clock.advance(16)
+        assert b.try_acquire() and b.is_leader()
+        assert not a.is_leader() and not a.try_acquire()
+
+    def test_renew_is_throttled_while_fresh(self, package):
+        store, clock = mod(package, "store").Store(), FakeClock()
+        a = self.elector(package, store, clock, "a", lease_duration=15)
+        assert a.try_acquire()
+        rv = store.get("Lease", a.namespace, a.name).metadata.resource_version
+        clock.advance(1)
+        assert a.try_acquire()
+        assert store.get(
+            "Lease", a.namespace, a.name
+        ).metadata.resource_version == rv
+        clock.advance(5)
+        assert a.try_acquire()
+        assert store.get(
+            "Lease", a.namespace, a.name
+        ).metadata.resource_version != rv
+
+    def test_lease_survives_the_durable_store(self, package, tmp_path):
+        persistence = mod(package, "store.persistence")
+        clock = FakeClock()
+        store = persistence.open_store(str(tmp_path))
+        a = self.elector(package, store, clock, "a", lease_duration=15)
+        assert a.try_acquire()
+        store.close()
+        store = persistence.open_store(str(tmp_path))
+        try:
+            b = self.elector(package, store, clock, "b", lease_duration=15)
+            assert not b.try_acquire()
+            clock.advance(16)
+            assert b.try_acquire()
+        finally:
+            store.close()
