@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (set-up, with ptxas's register,
-shared-memory and stack report), then runs thirteen phases and fails (exit 1,
+shared-memory and stack report), then runs fourteen phases and fails (exit 1,
 no result line) if any of them fails:
 
 1. fused kernel vs its plain version on the card: fused_assign against
@@ -142,7 +142,7 @@ no result line) if any of them fails:
    reference's order; the first manager tick launches each kernel once
    (the MetricsProducer controller's batched solve; counts set to 0 just
    before, read just after) with RECONCILE_TOTALS and every object
-   Active; 4 ticks of 5 s with 1,000 pods churned each (the churn lands
+   Active; 2 ticks of 5 s with 1,000 pods churned each (the churn lands
    under the pass lock; the event thread's pass follows it): tick
    p50/p95, the split by controller / note_tick + publish_gauges / tick
    hook, the event thread's passes, launches and dispatches per tick,
@@ -161,6 +161,38 @@ no result line) if any of them fails:
    a higher fence generation; (d) with CUDA_VISIBLE_DEVICES="" the same
    command exits non-zero with the reason, serves nothing and writes
    nothing.
+14. the --simulate entry point and SimLab (simulate.py, simlab/): (a)
+   phase 9's 100k-pod x 300-group cluster written into a data dir
+   (workloads.write_reconcile_dir), then `python -m karpenter_tpu_torch
+   --simulate --data-dir D` on the card and with --device cpu, and the
+   same with --what-if (workloads.what_if_specs, two hypothetical
+   groups), each process over its own copy of the dir: card report ==
+   CPU report; the dry run's totals (nodes, LP bound, pending,
+   unschedulable) and both reports' crc32 equal the reference's
+   (SIMULATE_PINS); in process on a card runtime over the dir,
+   simulate() launches each kernel once and simulate_delta() twice
+   (counts set to 0 just before, read just after), with the host split
+   (store open, encode, service.solve, report assembly) and the kernels'
+   device ms per launch; (b) phase 12's 2,000-node x 30,000-pod world in
+   a data dir, `--simulate --consolidate` with --device cpu as a process
+   and on the card through main() in this process, beside the four (a)
+   processes: the reports equal, each kernel launched once per candidate
+   with pods (counts set to 0 just before the report's evaluate, read
+   just after), device ms per launch over 64 candidates; every wall time
+   printed; (c) SolverService().sim_rollout on bench.py's
+   256 clusters x 64 ticks x 8 rows (cost theme): == sim_rollout_numpy
+   bitwise on every field, clusters 0, 128, 255 unbatched == their rows,
+   no mirror serve, batched and sequential p50/p95 timed in turns; (d)
+   4,096 clusters x 1,440 ticks x 8 rows (workloads.
+   build_sim_rollout_inputs): three clusters == the numpy mirror, p50
+   through the service and of the program alone, device ops, kernels and
+   busy us per rollout (profiler), peak allocated memory; (e)
+   search_tuned_policy on the cost scenario at seed 0: every reward and
+   the winner == a CPU service's and the reference's (SEARCH_PIN); a
+   64-tick BatchedSimEnv.step loop over 256 clusters, card == CPU every
+   tick; (f) under a simlab.step error plan sim_step and sim_rollout
+   raise the injected error, no mirror serve, the FSM degrades to
+   SolverDeviceError and the probe (on an injected clock) heals it.
 
 Then it profiles 20 main-path solves (torch.profiler: device time by
 kernel) and prints, before the last line, one JSON line of kernel records
@@ -2262,7 +2294,7 @@ RUNTIME_OPTIONS = dict(fused_tick=True, event_driven=True,
 RUNTIME_DEVICE = None  # Options.device of the card runtime: the card
 # a manager tick of this world takes ~30 s on the host (PERF.md section
 # 5): the tick counts are what the script's time limit holds
-RUNTIME_TICKS = 4  # timed ticks after the first
+RUNTIME_TICKS = 2  # timed ticks after the first (4 until phase 14 came)
 RUNTIME_PARITY_TICKS = 2  # ticks the CPU runtime repeats (the first included)
 RUNTIME_TICK_S = 5.0  # the MetricsProducer interval
 RUNTIME_PROFILED_TICKS = 1
@@ -2837,6 +2869,595 @@ def phase_runtime(torch, TF, workloads):
     return card
 
 
+# -- phase 14: the --simulate entry point and SimLab ---------------------------
+
+# (a) the dry run over phase 9's cluster written into a data dir, and (b)
+# the consolidation report over phase 12's world written into another
+SIM_DRY_SHAPE = RECONCILE_SHAPE
+SIM_CONSOLIDATE_SHAPE = DISRUPTION_SHAPE
+# the reference's `python -m karpenter_tpu --simulate` on SIM_DRY_SHAPE's
+# data dir (written by its DurableStore; JAX on a CPU): crc32 of each JSON
+# report (json.dumps(sort_keys=True, separators=(",", ":"))), and the
+# plain report's totals over the 300 groups
+SIMULATE_PINS = dict(report_crc=1421211271, what_if_crc=3253814251, nodes=9263,
+                     lp_bound=8197, pending=100_000, unschedulable=0)
+# (c) bench.py:2237-2246's published SimLab size on the cost theme, timed
+# in turns; (d) a size SimLab's users would call real: one day at 60 s
+SIM_BATCH = dict(clusters=256, ticks=64, rows=8)
+SIM_TURNS = 3
+SIM_REAL = dict(clusters=4096, ticks=1440, rows=8, seed=0)
+SIM_REAL_ITERS = 3
+SIM_SAMPLED = (0, 128, 255)
+# (e) the reference's search_tuned_policy on the cost scenario's trails at
+# its default seed (karpenter_tpu, JAX on a CPU): the winner, its reward,
+# the reactive baseline's, and _report_crc of sorted((list(knobs), reward)
+# for every candidate)
+SEARCH_PIN = dict(knobs=(1.0, 0.0, 3.0), reward=-1187.3,
+                  baseline=-2296.5499999999997, candidates=64,
+                  rewards_crc=2075835504)
+SIM_GYM = dict(clusters=256, ticks=64)
+SIM_DEVICE = None  # Options.device / SolverService device of the card runs
+SIM_CARD_ARGS = ()  # extra flags of the card's --simulate processes (none)
+
+
+def _report_crc(report) -> int:
+    import zlib
+
+    return zlib.crc32(json.dumps(
+        report, sort_keys=True, separators=(",", ":")).encode())
+
+
+class _SimulateProcesses:
+    """`python -m karpenter_tpu_torch --simulate ARGS` for every {label:
+    ARGS}, started at once; `wait()` gives {label: (exit code, stdout,
+    stderr, wall s)} and `stop()` kills any still running."""
+
+    def __init__(self, runs):
+        import subprocess
+        import tempfile
+        import threading
+
+        self.started, self.ended = {}, {}
+        try:
+            for label, argv in runs.items():
+                out = tempfile.TemporaryFile("w+")
+                err = tempfile.TemporaryFile("w+")
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "karpenter_tpu_torch",
+                     "--simulate", *argv],
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    stdout=out, stderr=err, text=True,
+                )
+                self.started[label] = (proc, out, err, time.perf_counter())
+                # the exit time, taken when the process ends (not when
+                # wait() looks)
+                threading.Thread(target=self._watch, args=(label, proc),
+                                 daemon=True).start()
+        except BaseException:
+            self.stop()
+            raise
+
+    def _watch(self, label, proc):
+        proc.wait()
+        self.ended[label] = time.perf_counter()
+
+    def wait(self, timeout=900):
+        results = {}
+        deadline = time.perf_counter() + timeout
+        while len(results) < len(self.started):
+            for label, (proc, out, err, t0) in self.started.items():
+                if label not in results and label in self.ended:
+                    out.seek(0)
+                    err.seek(0)
+                    results[label] = (proc.returncode, out.read(), err.read(),
+                                      self.ended[label] - t0)
+            need(time.perf_counter() < deadline,
+                 f"--simulate processes still running after {timeout} s: "
+                 f"{sorted(set(self.started) - set(results))}")
+            time.sleep(0.05)
+        return results
+
+    def stop(self):
+        for proc, out, err, _ in self.started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+
+
+def _dry_run_totals(report) -> dict:
+    groups = report["groups"].values()
+    return dict(
+        nodes=sum(g["additional_nodes_needed"] for g in groups),
+        lp_bound=sum(g["lp_lower_bound"] for g in groups),
+        pending=sum(g["pending_pods"] for g in groups),
+        unschedulable=report["unschedulable_pods"],
+    )
+
+
+def _copy_dir(root, src, label):
+    """A copy of a data dir for one process (a data dir takes one
+    process's lock)."""
+    import shutil
+
+    copy = os.path.join(root, label)
+    shutil.copytree(os.path.join(root, src), copy)
+    return copy
+
+
+def _consolidate_on_card(torch, TF, copy):
+    """`--simulate --consolidate` on the card through the binary's main()
+    in this process, so its launches can be counted: the consolidation's
+    evaluate() is wrapped to profile 64 candidates' masked solves first
+    (device ms per launch), then the counts are set to 0 just before the
+    report's own evaluate and read just after it. Returns (report,
+    launches, candidates with pods, ms per launch, wall s)."""
+    import contextlib
+    import io
+
+    from karpenter_tpu_torch import __main__ as main_module
+    from karpenter_tpu_torch import consolidation as CONS
+
+    real_evaluate = CONS.evaluate
+    seen = {}
+
+    def evaluate(view, candidates, service, **kwargs):
+        with_pods = [nv.name for nv in view.nodes
+                     if nv.name in set(candidates) and nv.pods]
+        seen["with_pods"] = len(with_pods)
+        sample = with_pods[:64]
+        seen["ms"] = _kernel_ms(
+            torch, lambda: real_evaluate(view, sample, service, **kwargs),
+            n=1, warmup=1)
+        TF.reset_launch_counts()
+        out = real_evaluate(view, candidates, service, **kwargs)
+        seen["launches"] = dict(TF.LAUNCHES)
+        return out
+
+    out = io.StringIO()
+    CONS.evaluate = evaluate
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = main_module.main(["--simulate", "--consolidate",
+                                   "--data-dir", copy, "--no-leader-elect",
+                                   *SIM_CARD_ARGS])
+        wall = time.perf_counter() - t0
+    finally:
+        CONS.evaluate = real_evaluate
+    need(rc == 0, f"--simulate --consolidate on the card exited {rc}")
+    return (json.loads(out.getvalue()), seen["launches"], seen["with_pods"],
+            seen["ms"], wall)
+
+
+def _simulate_cli(torch, TF, workloads, root):
+    """(a), (b) through the binary: the dry-run data dir written, then
+    the card and CPU dry runs and what-if runs as four `--simulate`
+    processes; meanwhile the consolidation data dir written, the CPU's
+    `--simulate --consolidate` as a fifth process and the card's through
+    main() in this process (its launches counted). Returns the reports."""
+    t0 = time.perf_counter()
+    written = workloads.write_reconcile_dir(os.path.join(root, "dry"),
+                                            **SIM_DRY_SHAPE)
+    dry_s = time.perf_counter() - t0
+    what_if = os.path.join(root, "what-if.json")
+    with open(what_if, "w") as f:
+        json.dump(workloads.what_if_specs(), f)
+    runs = {}
+    for device in ("card", "cpu"):
+        extra = ["--device", "cpu"] if device == "cpu" else list(SIM_CARD_ARGS)
+        for kind, flags in (("plain", []), ("what-if", ["--what-if", what_if])):
+            copy = _copy_dir(root, "dry", f"{kind}-{device}")
+            runs[(kind, device)] = ["--data-dir", copy, "--no-leader-elect",
+                                    *flags, *extra]
+    dry_procs = _SimulateProcesses(runs)
+    cons_procs = None
+    try:
+        t1 = time.perf_counter()
+        written_cons = workloads.write_disruption_dir(
+            os.path.join(root, "cons"), **SIM_CONSOLIDATE_SHAPE)
+        cons_s = time.perf_counter() - t1
+        cons_procs = _SimulateProcesses({("consolidate", "cpu"): [
+            "--data-dir", _copy_dir(root, "cons", "consolidate-cpu"),
+            "--no-leader-elect", "--consolidate", "--device", "cpu"]})
+        card_cons = _consolidate_on_card(
+            torch, TF, _copy_dir(root, "cons", "consolidate-card"))
+        results = dry_procs.wait()
+        results.update(cons_procs.wait())
+    finally:
+        dry_procs.stop()
+        if cons_procs is not None:
+            cons_procs.stop()
+    report(f"simulate data dirs: {SIM_DRY_SHAPE} ({written} objects) in "
+           f"{dry_s} s, {SIM_CONSOLIDATE_SHAPE} ({written_cons} objects) in "
+           f"{cons_s} s (beside the four dry-run processes)")
+    reports = {}
+    for key, (rc, out, err, wall) in sorted(results.items()):
+        need(rc == 0, f"--simulate {key} exited {rc}: {err[-2000:]}")
+        device_line = [line for line in err.splitlines()
+                       if line.startswith("solver device:")]
+        on_card = device_line and "cuda" in device_line[0]
+        need(device_line and (on_card == (key[1] == "card")
+                              or (SIM_CARD_ARGS and key[1] == "card")),
+             f"--simulate {key} ran on {device_line}")
+        reports[key] = json.loads(out)
+        report(f"--simulate {' '.join(key)}: {wall} s wall (five processes "
+               f"and the card's consolidation at once), {len(out)} bytes of "
+               f"report, {device_line[0]}")
+    cons_report, launches, with_pods, cons_ms, cons_wall = card_cons
+    reports[("consolidate", "card")] = cons_report
+    for kind in ("plain", "what-if", "consolidate"):
+        need(reports[(kind, "card")] == reports[(kind, "cpu")],
+             f"--simulate {kind}: the card's report differs from the CPU's")
+    need(launches == {"fused_assign": with_pods, "shelf_bfd": with_pods},
+         f"consolidation launched {launches} for {with_pods} candidates "
+         f"with pods")
+    report(f"--simulate --consolidate on the card (main() in process, "
+           f"{cons_wall} s wall beside the processes): "
+           f"{cons_report['candidates_evaluated']} candidates, {with_pods} "
+           f"with pods, {len(cons_report['drainable'])} drainable; launches "
+           f"{launches} (once per candidate with pods); device ms per launch "
+           f"over 64 candidates' masked solves: {cons_ms}")
+    plain, delta = reports[("plain", "card")], reports[("what-if", "card")]
+    totals = _dry_run_totals(plain)
+    want = {k: SIMULATE_PINS[k] for k in totals}
+    need(totals == want, f"dry run totals {totals}, the reference's {want}")
+    need(delta["baseline"] == plain, "the what-if baseline != the dry run")
+    need(_report_crc(plain) == SIMULATE_PINS["report_crc"],
+         f"dry run report crc {_report_crc(plain)}, the reference's "
+         f"{SIMULATE_PINS['report_crc']}")
+    need(_report_crc(delta) == SIMULATE_PINS["what_if_crc"],
+         f"what-if report crc {_report_crc(delta)}, the reference's "
+         f"{SIMULATE_PINS['what_if_crc']}")
+    print(f"--simulate card == --device cpu on all three reports; dry run "
+          f"totals {totals} == the reference's, its report and the what-if "
+          f"report equal the reference's (crc32 {_report_crc(plain)}, "
+          f"{_report_crc(delta)}); what-if delta unschedulable "
+          f"{delta['delta']['unschedulable_pods']}, changed groups "
+          f"{ {k: v for k, v in delta['delta']['groups'].items() if any(v.values())} }",
+          flush=True)
+    consolidate = {"launches": launches, "candidates": with_pods,
+                   "ms": cons_ms}
+    return plain, delta, consolidate
+
+
+def _kernel_ms(torch, fn, n=5, warmup=2):
+    """{wrapper: device ms per launch} of the CUDA kernels `fn` launches,
+    from a torch.profiler window of n calls (None without device rows)."""
+    from karpenter_tpu_torch.ops import fused_assign as TF
+
+    TF.reset_launch_counts()
+    prof, _ = profile_window(torch, fn, n, warmup=warmup)
+    launches = dict(TF.LAUNCHES)
+    rows = device_rows(torch, prof)
+    out = {}
+    for name, kernels in KERNEL_NAMES.items():
+        us = sum(r[0] for r in rows if any(k in r[2] for k in kernels))
+        per = launches[name] * n / (n + warmup)
+        out[name] = us / 1e3 / per if us and per else None
+    return out
+
+
+def _simulate_in_process(torch, TF, workloads, root, plain, delta):
+    """(a) in process on a card runtime over a copy of the data dir: the
+    launches of one dry run and one what-if delta, the host split, the
+    kernels' device ms per launch at the dry run's shapes."""
+    from karpenter_tpu_torch import simulate as SIM
+    from karpenter_tpu_torch.runtime import KarpenterRuntime, Options
+
+    copy = _copy_dir(root, "dry", "in-process")
+    t0 = time.perf_counter()
+    runtime = KarpenterRuntime(Options(data_dir=copy, device=SIM_DEVICE))
+    store_open = time.perf_counter() - t0
+    real_encode = SIM.encode_snapshot
+    marks, captured = {}, []
+    svc = runtime.solver_service
+
+    def encode(*args, **kwargs):
+        out = real_encode(*args, **kwargs)
+        marks["encoded"] = time.perf_counter()
+        return out
+
+    def solver(inputs):
+        t = time.perf_counter()
+        out = svc.solve(inputs)
+        marks["solved"] = time.perf_counter()
+        marks["solve"] = marks["solved"] - t
+        captured.append(inputs)
+        return out
+
+    try:
+        resolver = runtime.producer_factory.template_resolver()
+        SIM.encode_snapshot = encode
+        try:
+            TF.reset_launch_counts()
+            t = time.perf_counter()
+            got = SIM.simulate(runtime.store, solver=solver,
+                               template_resolver=resolver,
+                               cost_model=runtime.cost_model)
+            end = time.perf_counter()
+            launches = dict(TF.LAUNCHES)
+        finally:
+            SIM.encode_snapshot = real_encode
+        need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+             f"the dry run launched {launches}")
+        need(got == plain, "the in-process dry run != the binary's report")
+        split = {
+            "store open": store_open,
+            "encode (pods, snapshot, census, operands)": marks["encoded"] - t,
+            "service.solve": marks["solve"],
+            "report assembly": end - marks["solved"],
+        }
+        report(f"dry run in process on the card: launches {launches}; "
+               f"host split (s) {split}, simulate() {end - t} s")
+        TF.reset_launch_counts()
+        got_delta = SIM.simulate_delta(
+            runtime.store, workloads.what_if_specs(), solver=svc.solve,
+            template_resolver=resolver, cost_model=runtime.cost_model)
+        what_if_launches = dict(TF.LAUNCHES)
+        need(what_if_launches == {"fused_assign": 2, "shelf_bfd": 2},
+             f"the what-if delta launched {what_if_launches}")
+        need(got_delta == delta, "the in-process delta != the binary's")
+        inputs = captured[0]
+        ms = _kernel_ms(torch, lambda: svc.solve(inputs))
+        report(f"what-if delta in process: launches {what_if_launches}; "
+               f"device ms per launch at the dry run's shapes "
+               f"({inputs.pod_requests.shape[0]} rows x "
+               f"{inputs.group_allocatable.shape[0]} groups): {ms}")
+        return {"launches": launches, "what_if_launches": what_if_launches,
+                "ms": ms, "split": split}
+    finally:
+        runtime.close()
+
+
+def _rollout_equal(got, want, what, index=None) -> None:
+    for name in ("replicas", "streak", "violation", "cost", "backlog",
+                 "target"):
+        a = np.asarray(getattr(got, name))
+        b = np.asarray(getattr(want, name))
+        if index is not None:
+            a = a[index]
+        need(a.shape == b.shape and a.tobytes() == b.tobytes(),
+             f"{what}: field {name} differs")
+
+
+def _sim_batch(torch, SK, svc, workloads):
+    """(c) bench.py's 256 x 64 x 8 cost-theme rollout through
+    SolverService().sim_rollout: == the numpy mirror, sampled clusters
+    unbatched == their rows, no mirror serve; batched and sequential
+    timed in turns."""
+    from karpenter_tpu_torch.simlab import BatchedSimEnv
+    from karpenter_tpu_torch.simlab.policy import FROZEN_KNOBS
+
+    c, t, r = SIM_BATCH["clusters"], SIM_BATCH["ticks"], SIM_BATCH["rows"]
+    env = BatchedSimEnv(workloads.simlab_trails(t, r), clusters=c, seed=0,
+                        service=svc)
+    p = env.params
+    inputs = SK.SimRolloutInputs(
+        replicas0=np.asarray(env.trails.replicas0, np.float32),
+        streak0=np.zeros((c, r), np.float32),
+        demand=env.trails.demand, forecast=env.trails.forecast,
+        price=env.trails.price, fault=env.trails.fault,
+        knobs=np.broadcast_to(FROZEN_KNOBS, (c, 3)).copy(),
+        cap=np.float32(p.cap), hourly=np.float32(p.hourly),
+        step_limit=np.float32(p.step_limit),
+        min_replicas=np.float32(p.min_replicas),
+        max_replicas=np.float32(p.max_replicas),
+    )
+    batched = svc.sim_rollout(inputs)
+    _rollout_equal(batched, SK.sim_rollout_numpy(inputs),
+                   "batched rollout vs the numpy mirror")
+    slices = [SK._cluster_slice(inputs, b) for b in range(c)]
+    for b in SIM_SAMPLED:
+        _rollout_equal(batched, svc.sim_rollout(slices[b]),
+                       f"cluster {b} unbatched vs its batch row", index=b)
+    need(svc.stats.sim_mirror_serves == 0, "the mirror served on the card")
+    batched_ms, seq_ms = [], []
+    for _ in range(SIM_TURNS):
+        t0 = time.perf_counter()
+        svc.sim_rollout(inputs)
+        batched_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        for one in slices:
+            svc.sim_rollout(one)
+        seq_ms.append((time.perf_counter() - t0) * 1e3)
+    need(svc.stats.sim_mirror_serves == 0, "the mirror served on the card")
+    b50, s50 = np.percentile(batched_ms, 50), np.percentile(seq_ms, 50)
+    days = c * t * 10.0 / 86_400.0
+    report(f"SimLab {c} clusters x {t} ticks x {r} rows (cost theme): "
+           f"batched == numpy mirror bitwise on every field, clusters "
+           f"{SIM_SAMPLED} unbatched == their rows, no mirror serve; "
+           f"batched p50 {b50} ms p95 {np.percentile(batched_ms, 95)} ms, "
+           f"sequential p50 {s50} ms p95 {np.percentile(seq_ms, 95)} ms "
+           f"({SIM_TURNS} turns), {s50 / b50}x; "
+           f"{days / (b50 / 1e3) * 60.0} cluster-days per minute at a 10 s "
+           f"tick")
+    return {"batched_p50_ms": float(b50), "sequential_p50_ms": float(s50)}
+
+
+def _sim_real(torch, SK, svc, workloads):
+    """(d) 4,096 clusters x 1,440 ticks x 8 rows: sampled clusters ==
+    the numpy mirror, p50 through the service and of the program alone,
+    device kernels and busy time per rollout, peak device memory."""
+    t0 = time.perf_counter()
+    fields = workloads.build_sim_rollout_inputs(**SIM_REAL)
+    host = SK.SimRolloutInputs(**fields)
+    made = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = svc.sim_rollout(host)
+    peak = torch.cuda.max_memory_allocated()
+    b = SIM_REAL["clusters"]
+    for i in (0, b // 2, b - 1):
+        _rollout_equal(out, SK.sim_rollout_numpy(SK._cluster_slice(host, i)),
+                       f"cluster {i} of {b} vs the numpy mirror", index=i)
+    times = []
+    for _ in range(SIM_REAL_ITERS):
+        t1 = time.perf_counter()
+        svc.sim_rollout(host)
+        times.append((time.perf_counter() - t1) * 1e3)
+    dev = SK.SimRolloutInputs.from_numpy(fields, SIM_DEVICE)
+    alone = host_ms(torch, lambda: SK.sim_rollout(dev), SIM_REAL_ITERS)
+    per_call = profile_per_call(torch, lambda: SK.sim_rollout(dev), n=1)
+    need(svc.stats.sim_mirror_serves == 0, "the mirror served on the card")
+    nbytes = sum(np.asarray(v).nbytes for v in fields.values()) + sum(
+        np.asarray(getattr(out, f)).nbytes
+        for f in ("replicas", "streak", "violation", "cost", "backlog",
+                  "target"))
+    report(f"SimLab {SIM_REAL}: drawn in {made} s; clusters 0, {b // 2}, "
+           f"{b - 1} == the numpy mirror bitwise; through the service p50 "
+           f"{np.percentile(times, 50)} ms ({SIM_REAL_ITERS} calls, upload "
+           f"and fetch of {nbytes / 1e9} GB included); the program alone "
+           f"p50/p95 {alone} ms; device ops, kernels, busy us per rollout "
+           f"{per_call}; peak allocated {peak / 2**30} GiB; "
+           f"{b * SIM_REAL['ticks'] * 60.0 / 86_400.0 / (np.percentile(times, 50) / 6e4)} "
+           f"cluster-days per minute at a 60 s tick")
+    return {"p50_ms": float(np.percentile(times, 50)), "alone": alone,
+            "per_call": per_call, "peak_gib": peak / 2**30}
+
+
+def _sim_search_and_gym(torch, svc, S, GaugeRegistry):
+    """(e) search_tuned_policy on the cost scenario's trails at the
+    default seed, card == CPU == the pinned reference; a 64-tick batched
+    gym loop over 256 clusters, card == CPU every tick."""
+    from karpenter_tpu_torch.simlab import BatchedSimEnv, get_scenario
+    from karpenter_tpu_torch.simlab.policy import search_tuned_policy
+
+    trails = get_scenario("cost").trails
+    cpu = S.SolverService(registry=GaugeRegistry(), device="cpu")
+    try:
+        t0 = time.perf_counter()
+        card_result = search_tuned_policy(trails, seed=0, service=svc)
+        card_s = time.perf_counter() - t0
+        cpu_result = search_tuned_policy(trails, seed=0, service=cpu,
+                                         backend="torch")
+        need(card_result.rewards == cpu_result.rewards,
+             "search rewards: the card's differ from the CPU's")
+        got = dict(
+            knobs=tuple(float(k) for k in card_result.knobs),
+            reward=card_result.reward, baseline=card_result.baseline_reward,
+            candidates=card_result.candidates,
+            rewards_crc=_report_crc(sorted(
+                (list(k), v) for k, v in card_result.rewards.items())),
+        )
+        need(got == SEARCH_PIN, f"search {got}, the reference's {SEARCH_PIN}")
+        envs = [BatchedSimEnv(trails, clusters=SIM_GYM["clusters"], seed=0,
+                              service=service, backend=backend)
+                for service, backend in ((svc, None), (cpu, "torch"))]
+        cap = np.float32(envs[0].params.cap)
+        t1 = time.perf_counter()
+        for t in range(SIM_GYM["ticks"]):
+            obs = envs[0]._obs()
+            # the reactive target on even ticks, one replica over it on odd
+            action = None if t % 2 == 0 else (
+                np.ceil(obs["demand"] / cap) + np.float32(1.0))
+            steps = [env.step(action) for env in envs]
+            (card_obs, card_r, _, _), (cpu_obs, cpu_r, _, _) = steps
+            need(card_r.tobytes() == cpu_r.tobytes()
+                 and card_obs["replicas"].tobytes()
+                 == cpu_obs["replicas"].tobytes(),
+                 f"gym tick {t}: the card's step differs from the CPU's")
+        gym_s = time.perf_counter() - t1
+        need(svc.stats.sim_mirror_serves == 0, "the mirror served on the card")
+        report(f"search_tuned_policy (cost scenario, seed 0) on the card "
+               f"in {card_s} s: winner {got['knobs']} reward {got['reward']} "
+               f"over the reactive {got['baseline']}, {got['candidates']} "
+               f"candidates in 2 dispatches, every reward == the CPU's and "
+               f"the reference's; {SIM_GYM['ticks']}-tick gym loop over "
+               f"{SIM_GYM['clusters']} clusters card == CPU every tick "
+               f"({gym_s} s for both)")
+    finally:
+        cpu.close()
+
+
+def _sim_failure_policy(SK, S, GaugeRegistry, workloads):
+    """(f) Under a simlab.step error plan the card's sim_step and
+    sim_rollout raise the injected error with no mirror serve; the FSM
+    degrades and the next call raises SolverDeviceError; with the plan
+    cleared the probe (on an injected clock) heals it."""
+    from karpenter_tpu_torch import faults
+
+    fields = workloads.build_sim_rollout_inputs(4, 16, 8, 1)
+    rollout = SK.SimRolloutInputs(**fields)
+    scalars = {k: fields[k] for k in ("cap", "hourly", "step_limit",
+                                      "min_replicas", "max_replicas")}
+    step = SK.SimStepInputs(
+        replicas=fields["replicas0"], target=fields["demand"][:, 0],
+        demand=fields["demand"][:, 0], price=fields["price"][:, 0],
+        fault=fields["fault"][:, 0], **scalars,
+    )
+    clock = _RunningClock()
+    svc = S.SolverService(registry=GaugeRegistry(), clock=clock,
+                          health_failure_threshold=2,
+                          health_probe_interval_s=30.0, device=SIM_DEVICE)
+    try:
+        raised = []
+        with faults.injected_faults(seed=14) as reg:
+            reg.plan("simlab.step", mode="error")
+            for call in (lambda: svc.sim_step(step),
+                         lambda: svc.sim_rollout(rollout),
+                         lambda: svc.sim_rollout(rollout)):
+                try:
+                    call()
+                    raised.append(None)
+                except Exception as exc:  # noqa: BLE001 — the policy under test
+                    raised.append(type(exc).__name__)
+        need(raised == ["FaultInjected", "FaultInjected", "SolverDeviceError"],
+             f"under the plan the sim family raised {raised}")
+        need(svc.stats.sim_mirror_serves == 0, "the mirror served on the card")
+        need(svc.backend_health() == "degraded", "FSM not degraded")
+        clock.offset += 31.0
+        healed = svc.sim_rollout(rollout)
+        need(svc.backend_health() == "healthy", "the probe did not heal")
+        _rollout_equal(healed, SK.sim_rollout_numpy(rollout),
+                       "the probe's rollout vs the numpy mirror")
+        print(f"sim failure policy: under a simlab.step error plan the card "
+              f"raised {raised}, no mirror serve; the probe healed the FSM "
+              f"(trips {svc.stats.fsm_trips}, recoveries "
+              f"{svc.stats.fsm_recoveries})", flush=True)
+    finally:
+        svc.close()
+
+
+def phase_simulate(torch, TF, workloads):
+    """Phase 14: the --simulate entry point (the binary's dry run, what-if
+    and consolidation reports) and SimLab's sim families on the card."""
+    import shutil
+    import tempfile
+
+    from karpenter_tpu_torch.metrics.registry import GaugeRegistry
+    from karpenter_tpu_torch.ops import simstep as SK
+    from karpenter_tpu_torch.solver import service as S
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="karpenter-simulate-")
+    try:
+        plain, delta, consolidate = _simulate_cli(torch, TF, workloads, root)
+        t1 = time.perf_counter()
+        dry_run = _simulate_in_process(torch, TF, workloads, root, plain,
+                                       delta)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t2 = time.perf_counter()
+    report(f"phase 14 (a), (b): {t2 - t0} s ({t1 - t0} s of it the data "
+           f"dirs, the five --simulate processes and the card's "
+           f"consolidation)")
+    svc = S.SolverService(registry=GaugeRegistry(), device=SIM_DEVICE)
+    try:
+        batch = _sim_batch(torch, SK, svc, workloads)
+        real = _sim_real(torch, SK, svc, workloads)
+        _sim_search_and_gym(torch, svc, S, GaugeRegistry)
+        need(svc.stats.sim_mirror_serves == 0 and svc.stats.fallbacks == 0,
+             "the card's service answered from numpy")
+    finally:
+        svc.close()
+    _sim_failure_policy(SK, S, GaugeRegistry, workloads)
+    report(f"phase 14 (c)-(f): {time.perf_counter() - t2} s")
+    return {"dry_run": dry_run, "consolidate": consolidate, "batch": batch,
+            "real": real}
+
+
 def profile_solves(torch, TB, inputs, n=ITERS):
     """Where a solve's time goes: the mean of back-to-back solves by CUDA
     events, then a torch.profiler window of n solves (device time by
@@ -2947,7 +3568,7 @@ def device_ms(profile, wrapper):
 
 
 def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
-                   service, disruption, runtime):
+                   service, disruption, runtime, simulate):
     """Per-kernel JSON records at the main path's shapes. `ms` is device
     time per launch from the profiler's rows of the kernel's own names
     (the fused row sums its two kernels); `call_ms` is the wrapper's time
@@ -2972,7 +3593,14 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
     first manager tick, `runtime_launches_per_tick` its counts over the
     churned ticks (each churn's event pass and the tick), and
     `runtime_ms` the device time per kernel launch in the runtime's
-    profiled ticks."""
+    profiled ticks. `simulate_launches` is the wrapper's count over phase
+    14's in-process dry run on a card runtime (one solve),
+    `simulate_what_if_launches` over its what-if delta (two solves),
+    `simulate_ms` its device time per launch at the dry run's shapes;
+    `simulate_consolidate_launches` over `--simulate --consolidate`'s
+    report on the card (one per candidate with pods,
+    `simulate_consolidate_candidates` of them) and
+    `simulate_consolidate_ms` its device time per launch."""
     from karpenter_tpu_torch.ops.fused_assign import _packed
 
     pods, n_res = inputs.pod_requests.shape
@@ -3052,6 +3680,15 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
             "runtime_launches_per_tick": runtime["launches_per_tick"][name],
             "runtime_ms": (runtime["profile"][name]["ms"]
                            if runtime["profile"] else None),
+            "simulate_launches": simulate["dry_run"]["launches"][name],
+            "simulate_what_if_launches": simulate["dry_run"][
+                "what_if_launches"][name],
+            "simulate_ms": simulate["dry_run"]["ms"][name],
+            "simulate_consolidate_launches": simulate["consolidate"][
+                "launches"][name],
+            "simulate_consolidate_candidates": simulate["consolidate"][
+                "candidates"],
+            "simulate_consolidate_ms": simulate["consolidate"]["ms"][name],
             "max_abs_err": err,
             "ms": ms,
             "call_ms": call_ms,
@@ -3127,6 +3764,7 @@ def main() -> int:
         ("HA tick", lambda: phase_ha_tick(torch, FT, M, workloads)),
         ("disruption", lambda: phase_disruption(torch, TF, workloads)),
         ("controller binary", lambda: phase_runtime(torch, TF, workloads)),
+        ("simulate", lambda: phase_simulate(torch, TF, workloads)),
     ]
     for name, run in phases:
         try:
@@ -3147,9 +3785,10 @@ def main() -> int:
                              results["reconcile tick"],
                              results["solve service"],
                              results["disruption"],
-                             results["controller binary"])
+                             results["controller binary"],
+                             results["simulate"])
     report(f"chip_smoke wall time: {time.perf_counter() - started} s "
-           f"(kernel build and all thirteen phases)")
+           f"(kernel build and all fourteen phases)")
     print(f"card: {CARD['line']}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

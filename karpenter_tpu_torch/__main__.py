@@ -11,6 +11,11 @@ one, or when a kernel does not build, it exits non-zero with the reason
 and starts no tick — it never degrades to the CPU, which runs only when
 `--device cpu` names it. Flags whose modules are not ported yet
 (NOT_PORTED_FLAGS) exit 2 with a usage error naming the module.
+
+`--simulate` runs the operator's dry run or a seeded SimLab world
+(simlab/, simulate.py) instead of the control loop, on the same device
+check; `--simulate --list` prints the scenario catalog and touches no
+device.
 """
 
 from __future__ import annotations
@@ -27,9 +32,6 @@ from karpenter_tpu_torch.utils.log import setup as log_setup
 # flag -> (is it set?, the reference's module it needs, by its path under
 # the package root): each exits 2
 NOT_PORTED_FLAGS = (
-    ("--simulate", lambda a: a.simulate,
-     "simlab/ and simulate.py"),
-    ("--list", lambda a: a.list, "simlab/"),
     ("--apiserver", lambda a: bool(a.apiserver), "store/kube.py"),
     ("--webhook-port", lambda a: bool(a.webhook_port),
      "webhook.py"),
@@ -690,6 +692,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def _run_simulation(args, store) -> int:
+    """Registry-driven simulation dispatch (docs/simulator.md): the
+    SimLab scenario catalog (karpenter_tpu_torch/simlab) owns both the
+    selection predicates and the replay runners, so `--simulate --list`
+    and this dispatch can never disagree about what a flag runs.
+    `--sim-seed` threads through every seeded scenario inside the
+    runners; the default reproduces each world's pinned digests."""
+    from karpenter_tpu_torch.simlab import catalog_text, select_for
+
+    if args.list:
+        print(catalog_text())
+        return 0
+    return int(select_for(args).run(args, store) or 0)
+
+
 def _export_trace(args) -> None:
     """Flush the reconcile-span ring as Chrome-trace JSONL when
     --trace-export names a file (docs/observability.md), and the
@@ -801,16 +818,13 @@ def _setup_backend(args) -> str:
 def main(argv=None) -> int:
     args = parse_args(argv)
     log_setup(verbose=args.verbose)
+    if args.simulate:
+        return _simulate_main(args)
     try:
         note = _setup_backend(args)
         runtime = _build_runtime(args)
     except Exception as error:  # noqa: BLE001 — reported, exit non-zero
-        print(
-            f"karpenter_tpu_torch: cannot start: {type(error).__name__}: "
-            f"{error}",
-            file=sys.stderr,
-        )
-        return 1
+        return _cannot_start(error)
     print(f"solver device: {note}", file=sys.stderr)
     metrics_server = MetricsServer(
         runtime.registry,
@@ -835,6 +849,32 @@ def main(argv=None) -> int:
         metrics_server.stop()
         runtime.close()
     return 0
+
+
+def _cannot_start(error: Exception) -> int:
+    print(
+        f"karpenter_tpu_torch: cannot start: {type(error).__name__}: "
+        f"{error}",
+        file=sys.stderr,
+    )
+    return 1
+
+
+def _simulate_main(args) -> int:
+    """`--simulate`: the device check of the control loop (exit 1 with
+    the reason when the card is missing or a kernel does not build),
+    then the selected world, then the exit-time trace export. `--list`
+    runs no device program and skips the check."""
+    if not args.list:
+        try:
+            note = _setup_backend(args)
+        except Exception as error:  # noqa: BLE001 — reported, exit non-zero
+            return _cannot_start(error)
+        print(f"solver device: {note}", file=sys.stderr)
+    try:
+        return _run_simulation(args, None)
+    finally:
+        _export_trace(args)
 
 
 def _build_runtime(args) -> KarpenterRuntime:

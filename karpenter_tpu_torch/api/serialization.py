@@ -15,12 +15,16 @@ for the places the reference's JSON tag differs from the Go field
 
 The port's copy of karpenter_tpu/api/serialization.py. PyYAML is
 imported only by load_yaml and dump_yaml, so the durable store's JSON
-records need none.
+records need none. The key mappings and each class's resolved field
+types are memoized (pure functions of a name or a class): resolving the
+type hints per decoded object made opening a 100k-pod data dir take
+minutes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 import typing
 from typing import Any, Dict, List, Type
@@ -69,15 +73,18 @@ _FIELD_TO_KEY = {v: k for k, v in _KEY_TO_FIELD.items()}
 _CAMEL_RE = re.compile(r"(?<!^)(?=[A-Z])")
 
 
+@functools.lru_cache(maxsize=1024)
 def camel_to_snake(name: str) -> str:
     return _CAMEL_RE.sub("_", name).lower()
 
 
+@functools.lru_cache(maxsize=1024)
 def snake_to_camel(name: str) -> str:
     head, *rest = name.split("_")
     return head + "".join(part.capitalize() for part in rest)
 
 
+@functools.lru_cache(maxsize=None)
 def _field_types(cls: type) -> Dict[str, Any]:
     return typing.get_type_hints(cls)
 

@@ -34,8 +34,7 @@ lazily past a census threshold like Trend's windows, so deleted
 autoscalers age out instead of leaking.
 
 The port's copy of karpenter_tpu/autoscaler/algorithms/simlab_policy.py,
-changed only in its imports and as noted. FROZEN_KNOBS is copied in from
-the reference's simlab/policy.py.
+changed only in its imports.
 """
 
 from __future__ import annotations
@@ -43,15 +42,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-import numpy as np
-
 from karpenter_tpu_torch.autoscaler.algorithms.proportional import Proportional
-
-# the shipped default knob vector, copied from the reference's
-# simlab/policy.py FROZEN_KNOBS (the port has no simlab package yet):
-# provision to the full forecast preview, shed half the spike-priced
-# surplus, hold scale-downs for two ticks
-FROZEN_KNOBS = np.asarray([1.0, 0.5, 2.0], np.float32)
 
 # lazy key pruning, the Trend discipline: when the census exceeds this,
 # drop keys whose newest sample is older than the staleness horizon
@@ -65,6 +56,8 @@ class SimlabPolicy:
             # the shipped frozen winner (simlab/policy.py FROZEN_KNOBS);
             # register_algorithm("my-simlab", lambda:
             # SimlabPolicy(knobs=...)) pins a re-searched vector
+            from karpenter_tpu_torch.simlab.policy import FROZEN_KNOBS
+
             knobs = FROZEN_KNOBS
         self.blend_floor = float(knobs[0])
         self.cost_weight = float(knobs[1])  # introspection only (docstring)

@@ -73,10 +73,10 @@ Registries also export `karpenter_faults_{attempts,injected}_total`
 volume is visible on the same /metrics surface as the resilience
 counters it provokes.
 
-The port's copy of karpenter_tpu/faults/registry.py. The points the
-port instruments so far: solver.dispatch (solver/service.py),
-encoder.encode and constraints.mask (the pending-capacity encoder) and
-store.patch_status (store/store.py).
+The port's copy of karpenter_tpu/faults/registry.py. The port
+instruments the points above (and simlab.step, the service's sim_step /
+sim_rollout, and constraints.mask, the constraint encoder), less those
+of modules it does not have yet: sidecar.rpc, lease.*, replica.crash.*.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ The port's copy of karpenter_tpu/runtime.py. What differs:
     "cpu" runs the plain PyTorch and numpy programs on the host.
   * Options whose modules are not ported yet raise NotPortedError at
     construction (solver_uri, tenant_config, partitions, introspect,
-    sim_seed, solver_shard_mesh): nothing stands in for them. The
+    solver_shard_mesh): nothing stands in for them. The
     service has no shard route, so on one card it serves exactly as the
     reference's does (whose mesh needs two devices).
   * The solver introspection plane is not built: the self-SLO monitor's
@@ -264,7 +264,6 @@ _NOT_PORTED = (
     ("partitions", lambda v: v > 0, "replication/"),
     ("introspect", lambda v: bool(v),
      "observability/devicetelemetry.py"),
-    ("sim_seed", lambda v: v is not None, "simlab/"),
     ("solver_shard_mesh", lambda v: v is not None,
      "the sharded dispatch of parallel/mesh.py"),
 )

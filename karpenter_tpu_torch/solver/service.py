@@ -123,8 +123,21 @@ The disruption families (the consolidation and preemption engines):
     the service's device, padded, fetched in one copy; the numpy mirror
     is bit-identical.
 
-Left out of this slice (each comes with its own): the shard route, the
-sim families and the introspection plane.
+The simlab families (simlab/env.py, simlab/policy.py):
+
+  * `sim_step` / `sim_rollout` are synchronous: one upload, one run of
+    ops/simstep's tensor program on the service's device (a batched
+    rollout is one program over the leading cluster axis), one fetch.
+    `cuda` means the tensor program on the card (there is no
+    hand-written sim kernel); `numpy` serves the bit-identical mirror.
+    On the CPU the reference's never-block ladder holds: a failure
+    serves the mirror and counts toward the FSM. On the card a failure
+    raises and a degraded FSM raises SolverDeviceError; the mirror
+    answers only when `numpy` is requested. `simlab.step` is the
+    fault-injection point.
+
+Left out of this slice (each comes with its own): the shard route and
+the introspection plane.
 """
 
 from __future__ import annotations
@@ -306,6 +319,10 @@ class SolverStatistics:
     fused_dispatches: int = 0  # ticks answered by the ONE fused program
     fused_chained_serves: int = 0  # ticks served by the per-stage rung
     fused_mirror_serves: int = 0  # ticks served by the numpy floor
+    # simlab cluster-stepping seam (ops/simstep.py, simlab/)
+    sim_calls: int = 0  # sim_step() + sim_rollout() entries
+    sim_dispatches: int = 0  # sim device dispatches (1 per batched call)
+    sim_mirror_serves: int = 0  # sim calls served by the numpy mirror
     # cuda-resolved requests carrying constraint operands rerouted to the
     # torch rung (the fused kernel has no constraint entry — counted,
     # never silently dropped)
@@ -1530,6 +1547,73 @@ class SolverService:
             raise
         finally:
             self._record_stage("poolgroup", _time.perf_counter() - t0)
+
+    # -- simlab families ----------------------------------------------------
+
+    def sim_step(self, inputs, backend: Optional[str] = None):
+        """One simulated-cluster tick through the service (ops/simstep.py):
+        elementwise over any leading batch shape, so a BatchedSimEnv's N
+        clusters advance as ONE dispatch. Host operands in, host numpy
+        out (SimStepOutputs)."""
+        from karpenter_tpu_torch.ops import simstep as SK
+
+        return self._sim_dispatch(
+            "solver.sim_step", SK.sim_step, SK.SimStepInputs,
+            SK.sim_step_numpy, inputs, backend,
+        )
+
+    def sim_rollout(self, inputs, backend: Optional[str] = None):
+        """A whole simulated episode (the in-program tuned policy) through
+        the service: batched trails [B, T, R] ride one program over the
+        cluster axis — N clusters x T ticks in one dispatch."""
+        from karpenter_tpu_torch.ops import simstep as SK
+
+        return self._sim_dispatch(
+            "solver.sim_rollout", SK.sim_rollout, SK.SimRolloutInputs,
+            SK.sim_rollout_numpy, inputs, backend,
+        )
+
+    def _sim_dispatch(self, span, program, in_cls, numpy_fn, inputs, backend):
+        """The simlab family's one door: tracing, stats, backend
+        resolution (`cuda` = the tensor program on the card) and the
+        failure policy of the module docstring. `simlab.step` is the
+        fault-injection point."""
+        self.stats.sim_calls += 1
+        resolved = self._family_backend(backend)
+        t0 = _time.perf_counter()
+        try:
+            if resolved != "numpy":
+                if self._device_allowed():
+                    try:
+                        with default_tracer().span(span, backend=resolved):
+                            with solver_trace(span):
+                                inject("simlab.step")
+                                out = host_seam(
+                                    program, in_cls, self.device
+                                )(inputs)
+                        self._record_device_success()
+                        self.stats.sim_dispatches += 1
+                        self._count_dispatch()
+                        return out
+                    except Exception as error:  # noqa: BLE001 — the ladder
+                        self._record_device_failure()
+                        if not self._numpy_ladder:
+                            raise
+                        logger().warning(
+                            "sim device dispatch failed (%s: %s); serving "
+                            "the bit-identical numpy mirror",
+                            type(error).__name__, error,
+                        )
+                elif not self._numpy_ladder:
+                    raise SolverDeviceError(
+                        "solver backend degraded: no device attempt until "
+                        "the next probe"
+                    )
+            with default_tracer().span(span, backend="numpy"):
+                self.stats.sim_mirror_serves += 1
+                return numpy_fn(inputs)
+        finally:
+            self._record_stage("sim", _time.perf_counter() - t0)
 
     # -- fused tick family --------------------------------------------------
 

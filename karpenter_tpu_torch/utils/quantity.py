@@ -22,6 +22,7 @@ via .to_float() / unit helpers, never this class.
 
 from __future__ import annotations
 
+import functools
 import re
 from fractions import Fraction
 
@@ -130,28 +131,35 @@ class Quantity:
         return f"Quantity({str(self)!r})"
 
     def __str__(self) -> str:
-        v = self.value
-        if v == 0:
-            return "0"
-        sign = "-" if v < 0 else ""
-        if v < 0:
-            v = -v
-        if self.format == BINARY_SI:
-            text = _binary_str(v, sign)
-            if text is not None:
-                return text
-            # fractional binary quantities fall back to milli, like k8s
-            # does when forced below base units
-        # decimal canonicalization: largest engineering exponent with an
-        # integer mantissa
-        for suffix in ("E", "P", "T", "G", "M", "k", "", "m", "u", "n"):
-            unit = _DECIMAL_SUFFIXES[suffix]
-            scaled = v / unit
-            if scaled.denominator == 1:
-                return f"{sign}{scaled}{suffix}"
-        # sub-nano: round up to nano (k8s rounds up when precision is lost)
-        scaled = v / _DECIMAL_SUFFIXES["n"]
-        return f"{sign}{int(scaled) + 1}n"
+        return _render(self.value, self.format)
+
+
+@functools.lru_cache(maxsize=4096)
+def _render(v: Fraction, fmt: str) -> str:
+    """String() of a value in a format (Quantity.__str__), memoized:
+    clusters repeat a handful of request and allocatable values, and the
+    store's codec renders each one per object."""
+    if v == 0:
+        return "0"
+    sign = "-" if v < 0 else ""
+    if v < 0:
+        v = -v
+    if fmt == BINARY_SI:
+        text = _binary_str(v, sign)
+        if text is not None:
+            return text
+        # fractional binary quantities fall back to milli, like k8s
+        # does when forced below base units
+    # decimal canonicalization: largest engineering exponent with an
+    # integer mantissa
+    for suffix in ("E", "P", "T", "G", "M", "k", "", "m", "u", "n"):
+        unit = _DECIMAL_SUFFIXES[suffix]
+        scaled = v / unit
+        if scaled.denominator == 1:
+            return f"{sign}{scaled}{suffix}"
+    # sub-nano: round up to nano (k8s rounds up when precision is lost)
+    scaled = v / _DECIMAL_SUFFIXES["n"]
+    return f"{sign}{int(scaled) + 1}n"
 
 
 def _binary_str(v, sign: str):

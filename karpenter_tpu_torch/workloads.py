@@ -21,6 +21,11 @@
   provider, pending critical pods, and the engines behind the
   ScalableNodeGroup controller); `build_preempt_inputs`: bench.py's
   eviction-planning fleet.
+- `write_reconcile_dir` / `write_disruption_dir`: the reconcile cluster
+  and the disruption world written into a durable store, the data dirs
+  `--simulate` and `--simulate --consolidate` read; `what_if_specs`: a
+  `--what-if` list; `simlab_trails` (bench.py's cost theme) and
+  `build_sim_rollout_inputs` (a SimLab fleet drawn in bulk).
 
 The decision and tick builders return dicts of numpy arrays (nested for
 the operand groups) that the operand dataclasses' `from_numpy` take.
@@ -1489,14 +1494,44 @@ def build_disruption_world(
     `api` (disruption_api) names the classes; the port's by default, so a
     test builds the same world from the reference's modules."""
     api = api if api is not None else disruption_api()
-    rng = np.random.default_rng(seed)
-    extra = np.random.default_rng([seed, 1])
-    q = api.Quantity.parse
     clock = {"now": 1_000_000.0}
     now = lambda: clock["now"]  # noqa: E731
     store = api.Store()
     registry = api.GaugeRegistry()
     provider = api.FakeFactory()
+    _draw_disruption(api, store, provider, nodes, pods, pending_critical,
+                     seed)
+    consolidation = api.ConsolidationEngine(
+        store, solver_service=service, registry=registry, clock=now,
+    )
+    preemption = api.PreemptionEngine(
+        store, solver_service=service, consolidation=consolidation,
+        registry=registry, clock=now,
+    )
+    consolidation.node_guard = preemption.active_nodes
+    controller = api.ScalableNodeGroupController(
+        provider, consolidator=consolidation, preemptor=preemption,
+        registry=registry, clock=now,
+    )
+    world = DisruptionWorld(
+        api=api, store=store, registry=registry, service=service,
+        clock=clock, provider=provider, consolidation=consolidation,
+        preemption=preemption, controller=controller,
+        verdicts=[], plans=[],
+    )
+    _recorded(world, consolidation, world.verdicts)
+    _recorded(world, preemption, world.plans)
+    return world
+
+
+def _draw_disruption(api, store, provider, nodes: int, pods: int,
+                     pending_critical: int, seed: int) -> None:
+    """build_disruption_world's objects, written into `store`, with each
+    node group's replicas set on `provider` (the draws of its
+    docstring)."""
+    rng = np.random.default_rng(seed)
+    extra = np.random.default_rng([seed, 1])
+    q = api.Quantity.parse
     pool_of = [f"pool-{k}" for k in range(DISRUPTION_POOLS)]
     for k, pool in enumerate(pool_of):
         members = len(range(k, nodes, DISRUPTION_POOLS))
@@ -1560,27 +1595,6 @@ def build_disruption_world(
                 priority=int(extra.integers(*PENDING_PRIORITY)),
             ),
         ))
-    consolidation = api.ConsolidationEngine(
-        store, solver_service=service, registry=registry, clock=now,
-    )
-    preemption = api.PreemptionEngine(
-        store, solver_service=service, consolidation=consolidation,
-        registry=registry, clock=now,
-    )
-    consolidation.node_guard = preemption.active_nodes
-    controller = api.ScalableNodeGroupController(
-        provider, consolidator=consolidation, preemptor=preemption,
-        registry=registry, clock=now,
-    )
-    world = DisruptionWorld(
-        api=api, store=store, registry=registry, service=service,
-        clock=clock, provider=provider, consolidation=consolidation,
-        preemption=preemption, controller=controller,
-        verdicts=[], plans=[],
-    )
-    _recorded(world, consolidation, world.verdicts)
-    _recorded(world, preemption, world.plans)
-    return world
 
 
 def build_preempt_inputs(candidates: int, nodes: int, victims: int,
@@ -1613,4 +1627,142 @@ def build_preempt_inputs(candidates: int, nodes: int, victims: int,
         victim_node=victim_node,
         victim_valid=np.ones(V, bool),
         victim_evictable=rng.random(V) < 0.95,
+    )
+
+
+# -- the --simulate dry run and SimLab ----------------------------------------
+
+
+def _port_open_store(data_dir):
+    from karpenter_tpu_torch.store.persistence import open_store
+
+    return open_store(data_dir, compact_every=1 << 62)
+
+
+def _write_dir(data_dir, open_store, draw) -> int:
+    """`draw(store)` into a durable store at `data_dir`, journaled with
+    no snapshot (each object is encoded once; a reader replays the WAL).
+    Returns the objects written."""
+    store = (open_store or _port_open_store)(data_dir)
+    try:
+        draw(store)
+        return sum(len(store.keys(kind)) for kind in (
+            "Pod", "Node", "MetricsProducer", "ScalableNodeGroup"))
+    finally:
+        store.close()
+
+
+def write_reconcile_dir(data_dir: str, pods: int, types: int, seed: int, *,
+                        open_store: Optional[Callable] = None,
+                        api: Optional[ReconcileAPI] = None) -> int:
+    """build_reconcile_cluster(pods, types, seed)'s draw written into a
+    durable store at `data_dir` (the dry run's data dir: `pods` pending
+    pods, `types` one-node groups, one pendingCapacity MetricsProducer
+    each). `open_store` (data_dir -> an empty durable store) and `api`
+    name the package that writes it (the port's by default). Returns the
+    objects written."""
+    api = api if api is not None else reconcile_api()
+    return _write_dir(data_dir, open_store, lambda store: _draw_reconcile(
+        api, store, np.random.default_rng(seed), pods, types, 0.0, 0.0, 0.0
+    ))
+
+
+def write_disruption_dir(data_dir: str, nodes: int, pods: int,
+                         pending_critical: int, seed: int, *,
+                         open_store: Optional[Callable] = None,
+                         api: Optional[ReconcileAPI] = None) -> int:
+    """build_disruption_world's objects (nodes, bound and pending pods,
+    a pendingCapacity MetricsProducer and a ScalableNodeGroup per pool)
+    written into a durable store at `data_dir`: the `--simulate
+    --consolidate` data dir. Returns the objects written."""
+    api = api if api is not None else disruption_api()
+    return _write_dir(data_dir, open_store, lambda store: _draw_disruption(
+        api, store, api.FakeFactory(), nodes, pods, pending_critical, seed
+    ))
+
+
+def what_if_specs() -> List[dict]:
+    """The `--what-if` file's hypothetical node groups (a list, as the
+    flag requires): a large ssd-labelled metal group and a small group
+    tainted in the cloud-API dialect."""
+    return [
+        {"name": "metal",
+         "allocatable": {"cpu": "96", "memory": "384Gi", "pods": "110"},
+         "labels": {"disk": "ssd"}},
+        {"name": "spot-small",
+         "allocatable": {"cpu": "4", "memory": "16Gi"},
+         "taints": [{"key": "spot", "value": "true",
+                     "effect": "NO_SCHEDULE"}]},
+    ]
+
+
+# bench.py:2237-2246 (run_simlab): the cost theme, diurnal demand with
+# spot spikes and a seeded fault schedule
+SIMLAB_COST_THEME = dict(diurnal=True, amplitude=96.0, price_spike=1.5,
+                         fault_probability=0.05)
+
+
+def simlab_trails(ticks: int, rows: int, theme: Optional[dict] = None):
+    """`trails(seed)` of simlab/builtin.make_trails at `ticks` x `rows`
+    under `theme` (the bench's cost theme by default)."""
+    from karpenter_tpu_torch.simlab.builtin import make_trails
+
+    theme = SIMLAB_COST_THEME if theme is None else theme
+
+    def trails(seed: int):
+        return make_trails(seed, ticks=ticks, rows=rows, **theme)
+
+    return trails
+
+
+def build_sim_rollout_inputs(clusters: int, ticks: int, rows: int,
+                             seed: int) -> Dict[str, np.ndarray]:
+    """A SimRolloutInputs fleet drawn in bulk from
+    np.random.default_rng(seed), one numpy array per field: make_trails'
+    cost-theme shapes vectorized over the clusters (per-cluster row
+    scales and diurnal phase, a one-day wave over `ticks`, next-tick
+    forecasts with unit noise, 1 + 1.5 price spikes on ticks // 8 ticks,
+    faults with probability 0.05, and a fault-free constant tail of
+    ticks // 4), each cluster's knobs drawn from simlab/policy.py's
+    search grid. SimParams' defaults give the scalars."""
+    from karpenter_tpu_torch.simlab.env import SimParams
+    from karpenter_tpu_torch.simlab.policy import _grid_candidates
+
+    p = SimParams()
+    rng = np.random.default_rng(seed)
+    tail = ticks // 4
+    row_scale = 0.5 + rng.random((clusters, 1, rows))
+    phase = rng.random((clusters, 1, 1))
+    wave = np.clip(np.sin(
+        2.0 * np.pi * (np.arange(ticks)[None, :, None] / ticks + phase)
+    ), 0.0, None)
+    demand = (8.0 + rng.random((clusters, ticks, rows)) * 96.0 * row_scale) \
+        * (0.25 + wave)
+    demand[:, ticks - tail:] = demand[:, ticks - tail - 1:ticks - tail]
+    demand = np.clip(demand, 0.0, 0.85 * p.max_replicas * p.cap)
+    forecast = np.empty_like(demand)
+    forecast[:, :-1] = demand[:, 1:] + rng.normal(
+        0.0, 1.0, (clusters, ticks - 1, rows))
+    forecast[:, -1] = demand[:, -1]
+    forecast = np.clip(forecast, 0.0, None)
+    price = np.ones((clusters, ticks))
+    hot = rng.integers(0, ticks - tail, size=(clusters, max(2, ticks // 8)))
+    np.put_along_axis(price, hot, 2.5, axis=1)
+    fault = (rng.random((clusters, ticks)) < 0.05).astype(np.float64)
+    fault[:, ticks - tail:] = 0.0
+    grid = _grid_candidates()
+    knobs = grid[rng.integers(0, len(grid), size=clusters)]
+    replicas0 = np.clip(np.ceil(demand[:, 0] / p.cap), p.min_replicas,
+                        p.max_replicas)
+    f32 = np.float32
+    return dict(
+        replicas0=replicas0.astype(f32),
+        streak0=np.zeros((clusters, rows), f32),
+        demand=demand.astype(f32),
+        forecast=forecast.astype(f32),
+        price=price.astype(f32),
+        fault=fault.astype(f32),
+        knobs=knobs.astype(f32),
+        cap=f32(p.cap), hourly=f32(p.hourly), step_limit=f32(p.step_limit),
+        min_replicas=f32(p.min_replicas), max_replicas=f32(p.max_replicas),
     )

@@ -7,7 +7,9 @@ HTTP surface and leader election, against the reference's, on the CPU.
     `--device cpu` and with no card it exits non-zero with the reason and
     runs no tick;
   * each flag whose module is not ported exits 2 naming that module, and
-    each such runtime option raises NotPortedError;
+    each such runtime option raises NotPortedError; `--simulate`,
+    `--list` and `--sim-seed` parse as the reference's and run, and
+    Options.sim_seed is carried;
   * MetricsServer's routes and LeaderElector behave as in
     tests/test_wiring.py, on both packages.
 """
@@ -77,8 +79,6 @@ class TestParseArgs:
         assert message in capsys.readouterr().err
 
     @pytest.mark.parametrize("argv,module", [
-        (["--simulate"], "simlab"),
-        (["--simulate", "--list"], "simlab"),
         (["--apiserver", "https://k8s"], "store/kube.py"),
         (["--webhook-port", "9443"], "webhook.py"),
         (["--solver-uri", "localhost:50051"], "sidecar"),
@@ -105,13 +105,49 @@ class TestNotPortedOptions:
         ("tenant_config", "t.yaml", "tenancy"),
         ("partitions", 2, "replication"),
         ("introspect", True, "devicetelemetry"),
-        ("sim_seed", 7, "simlab"),
         ("solver_shard_mesh", (2, 1), "parallel/mesh.py"),
     ])
     def test_option_raises_at_construction(self, field, value, module):
         options = port_runtime.Options(device="cpu", **{field: value})
         with pytest.raises(port_runtime.NotPortedError, match=module):
             port_runtime.KarpenterRuntime(options)
+
+    def test_sim_seed_is_carried(self):
+        rt = port_runtime.KarpenterRuntime(
+            port_runtime.Options(device="cpu", sim_seed=7))
+        try:
+            assert rt.options.sim_seed == 7
+        finally:
+            rt.close()
+
+
+class TestSimulateFlags:
+    """The flags that used to exit 2 (simlab/ and simulate.py are ported):
+    they parse as the reference's and run."""
+
+    @pytest.mark.parametrize("argv", [
+        ["--simulate"], ["--simulate", "--list"],
+        ["--simulate", "--constraints", "--sim-seed", "8"],
+        ["--simulate", "--what-if", "w.json", "--consolidate"],
+    ], ids=["simulate", "list", "sim_seed", "what_if"])
+    def test_parse_as_the_reference(self, argv):
+        want = vars(mod(REF, "__main__").parse_args(argv))
+        got = vars(port_main.parse_args(argv))
+        assert got.pop("device") == "cuda"
+        assert got == want
+
+    def test_simulate_runs_on_the_cpu(self, tmp_path, capsys):
+        rc = port_main.main(["--simulate", "--device", "cpu", "--data-dir",
+                             str(tmp_path / "d"), "--no-leader-elect"])
+        assert rc == 0
+        report = json.loads(capsys.readouterr().out)
+        assert report == {"groups": {}, "rows": [], "unschedulable_pods": 0}
+
+    def test_list_prints_the_catalog(self, capsys):
+        assert port_main.main(["--simulate", "--list"]) == 0
+        out = capsys.readouterr().out
+        assert out.startswith("Registered simulation scenarios")
+        assert "--sim-seed" in out
 
 
 # -- main ----------------------------------------------------------------------
