@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (set-up, with ptxas's register,
-shared-memory and stack report), then runs fourteen phases and fails (exit 1,
+shared-memory and stack report), then runs fifteen phases and fails (exit 1,
 no result line) if any of them fails:
 
 1. fused kernel vs its plain version on the card: fused_assign against
@@ -142,7 +142,7 @@ no result line) if any of them fails:
    reference's order; the first manager tick launches each kernel once
    (the MetricsProducer controller's batched solve; counts set to 0 just
    before, read just after) with RECONCILE_TOTALS and every object
-   Active; 2 ticks of 5 s with 1,000 pods churned each (the churn lands
+   Active; 1 tick of 5 s with 1,000 pods churned (the churn lands
    under the pass lock; the event thread's pass follows it): tick
    p50/p95, the split by controller / note_tick + publish_gauges / tick
    hook, the event thread's passes, launches and dispatches per tick,
@@ -193,6 +193,39 @@ no result line) if any of them fails:
    tick; (f) under a simlab.step error plan sim_step and sim_rollout
    raise the injected error, no mirror serve, the FSM degrades to
    SolverDeviceError and the probe (on an injected clock) heals it.
+
+15. real-cluster mode (store/kube.py, webhook.py): (a) phase 9's
+   100k-pod x 300-group cluster plus 4 node groups, each scaled by an
+   autoscaler on its producer's additional-nodes gauge, seeded into two
+   fake kube-apiservers (tests/fake_apiserver.py); KarpenterRuntime over
+   KubeStore(KubeClient(url)) on the card with --profile production's
+   options, and a CPU runtime over the second fake: the initial sync time
+   (a chunked relist of 100,000 pods); the first tick launches each
+   kernel once with RECONCILE_TOTALS; then 3 churned ticks (1,000 pods
+   replaced through the fake's delete_object / put_object, a wait until
+   the mirror holds exactly the server's pods at the churn's last
+   resourceVersion, reconcile_all) and one more under the profiler, each
+   launching each kernel exactly once (counts set to 0 just before the
+   churn, read once the event thread settles); after every tick the
+   producers', node groups' and autoscalers' documents on the card's fake
+   equal those the CPU runtime wrote (less resourceVersion, uid,
+   creationTimestamp and transition times); tick p50/p95 and its split
+   (churn writes, watch lag to quiescence, watch decode, mirror apply,
+   encode, service.solve, status patches over HTTP, the controllers'
+   slices), REST requests per tick, the profiled tick's device busy time
+   and kernels, device ms per launch (the profiler over 5 cuda solves of
+   the last tick's operands); (c)
+   `--simulate --apiserver URL` (main() in process, before the churn):
+   totals and groups equal the --data-dir dry run's (phase 14), each
+   kernel launched once; (b) two `python -m
+   karpenter_tpu_torch --apiserver URL --kube-insecure --leader-elect
+   --webhook-port P` over a 10,000-pod fake: one leader writes every
+   producer's status while the standby solves nothing; both webhooks
+   answer valid and invalid HorizontalAutoscaler and MetricsProducer
+   reviews as the CPU's review_validate / review_mutate; SIGTERM to the
+   leader exits 0, the standby takes the lease within the lease duration
+   plus its skew tolerance and ticks on its card; with
+   CUDA_VISIBLE_DEVICES="" the command exits 1 before any LIST or watch.
 
 Then it profiles 20 main-path solves (torch.profiler: device time by
 kernel) and prints, before the last line, one JSON line of kernel records
@@ -2294,7 +2327,7 @@ RUNTIME_OPTIONS = dict(fused_tick=True, event_driven=True,
 RUNTIME_DEVICE = None  # Options.device of the card runtime: the card
 # a manager tick of this world takes ~30 s on the host (PERF.md section
 # 5): the tick counts are what the script's time limit holds
-RUNTIME_TICKS = 2  # timed ticks after the first (4 until phase 14 came)
+RUNTIME_TICKS = 1  # timed ticks after the first (4 until phase 14, 2 until 15)
 RUNTIME_PARITY_TICKS = 2  # ticks the CPU runtime repeats (the first included)
 RUNTIME_TICK_S = 5.0  # the MetricsProducer interval
 RUNTIME_PROFILED_TICKS = 1
@@ -2597,8 +2630,9 @@ def _runtime_profile(torch, TF, workloads, runtime, world, clock):
         runtime.manager.reconcile_all()
 
     try:
+        # no warm-up tick (one until phase 15 came): a tick takes ~30 s
         prof, wall_us = profile_window(torch, one_tick,
-                                       RUNTIME_PROFILED_TICKS, warmup=1)
+                                       RUNTIME_PROFILED_TICKS, warmup=0)
     except RuntimeError as exc:
         print(f"profiler: not available ({exc})")
         return None
@@ -2884,7 +2918,7 @@ SIMULATE_PINS = dict(report_crc=1421211271, what_if_crc=3253814251, nodes=9263,
 # (c) bench.py:2237-2246's published SimLab size on the cost theme, timed
 # in turns; (d) a size SimLab's users would call real: one day at 60 s
 SIM_BATCH = dict(clusters=256, ticks=64, rows=8)
-SIM_TURNS = 3
+SIM_TURNS = 2  # 3 until phase 15 came
 SIM_REAL = dict(clusters=4096, ticks=1440, rows=8, seed=0)
 SIM_REAL_ITERS = 3
 SIM_SAMPLED = (0, 128, 255)
@@ -3455,7 +3489,603 @@ def phase_simulate(torch, TF, workloads):
     _sim_failure_policy(SK, S, GaugeRegistry, workloads)
     report(f"phase 14 (c)-(f): {time.perf_counter() - t2} s")
     return {"dry_run": dry_run, "consolidate": consolidate, "batch": batch,
-            "real": real}
+            "real": real, "groups": plain["groups"]}
+
+
+# -- phase 15: real-cluster mode (store/kube.py, webhook.py) -------------------
+
+# (a) phase 9's cluster served by a fake kube-apiserver, plus node groups
+# an autoscaler scales (they select no pod and no node: the totals stay
+# phase 9's)
+KUBE_SHAPE = dict(pods=100_000, types=300, seed=0, node_groups=4)
+KUBE_TICKS = 3  # timed churned ticks; one more runs under the profiler
+# what `--profile production` sets
+KUBE_OPTIONS = dict(fused_tick=True, event_driven=True, prewarm_compile=True)
+KUBE_DEVICE = None  # Options.device of the card runtime: the card
+KUBE_TIMEOUT_S = 60.0  # the client's socket timeout (a 5,000-pod page)
+# (b) the binaries' world, and their extra flags (none: they run on the card)
+KUBE_BINARY_SHAPE = dict(pods=10_000, types=300, seed=0)
+KUBE_BINARY_ARGS = ()
+KUBE_LEASE_S = 15.0  # LeaderElector's default lease duration
+KUBE_SKEW_S = 1.0  # and its skew tolerance
+
+
+class _KubeTimers:
+    """Host time of a card runtime's real-cluster work while `on`: the
+    watch events' decode on its store's informer threads, their mirror
+    apply (with the PendingFeed's and the Manager's watch callbacks), the
+    encode, service.solve, the status patches over HTTP and every REST
+    request its client sends (counted)."""
+
+    def __init__(self, runtime, store):
+        import threading
+
+        from karpenter_tpu_torch.metrics.producers import pendingcapacity as PC
+        from karpenter_tpu_torch.store import kube as K
+
+        self.on = False
+        self.parts = {}
+        self.requests = 0
+        self._undo = []
+        informers = store._threads
+
+        def add(label, dt):
+            if self.on:
+                self.parts[label] = self.parts.get(label, 0.0) + dt
+
+        def timed(real, label, when=lambda: True):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return real(*args, **kwargs)
+                finally:
+                    if when():
+                        add(label, time.perf_counter() - t0)
+            return wrapper
+
+        def patch(owner, attr, wrapper):
+            self._undo.append((owner, attr, getattr(owner, attr)))
+            setattr(owner, attr, wrapper)
+
+        patch(K, "decode_from_read", timed(
+            K.decode_from_read, "watch decode",
+            lambda: threading.current_thread() in informers))
+        patch(store, "_apply", timed(store._apply, "mirror apply"))
+        patch(PC, "encode_snapshot", timed(PC.encode_snapshot, "encode"))
+        factory = runtime.producer_factory
+        timed_solver = timed(factory.solver, "service.solve")
+        self.inputs = None
+
+        def solver(inputs, *args, **kwargs):
+            self.inputs = inputs  # the last solve's operands
+            return timed_solver(inputs, *args, **kwargs)
+
+        patch(factory, "solver", solver)
+        client = store.client
+        patch(client, "patch_status", timed(client.patch_status,
+                                            "status patches (HTTP)"))
+        real_request = client._request
+
+        def counted(*args, **kwargs):
+            if self.on:
+                self.requests += 1
+            return real_request(*args, **kwargs)
+
+        patch(client, "_request", counted)
+
+    def take(self):
+        parts, requests = self.parts, self.requests
+        self.parts, self.requests = {}, 0
+        return parts, requests
+
+    def remove(self):
+        for owner, attr, real in reversed(self._undo):
+            setattr(owner, attr, real)
+
+
+def _fake_apiserver():
+    """tests/fake_apiserver.py's FakeApiServer, loaded from its file (a
+    `tests` package installed elsewhere may shadow the repo's)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fake_apiserver.py")
+    spec = importlib.util.spec_from_file_location("fake_apiserver", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.FakeApiServer
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+def _kube_runtime(server, device, clock, node_replicas):
+    """(runtime, store, sync s, boot s): a KubeStore over `server` (its
+    constructor relists every watched kind), then KarpenterRuntime over
+    it on `device` with --profile production's options."""
+    from karpenter_tpu_torch.cloudprovider.fake import FakeFactory
+    from karpenter_tpu_torch.runtime import KarpenterRuntime, Options
+    from karpenter_tpu_torch.store.kube import KubeClient, KubeStore
+
+    t0 = time.perf_counter()
+    store = KubeStore(KubeClient(server.url, timeout=KUBE_TIMEOUT_S))
+    synced = time.perf_counter() - t0
+    provider = FakeFactory()
+    provider.node_replicas.update(node_replicas)
+    try:
+        t0 = time.perf_counter()
+        runtime = KarpenterRuntime(
+            Options(device=device, **KUBE_OPTIONS), store=store,
+            cloud_provider_factory=provider, clock=clock,
+        )
+        return runtime, store, synced, time.perf_counter() - t0
+    except BaseException:
+        store.close()
+        raise
+
+
+def _kube_settle(workloads, server, store, rv) -> float:
+    """Seconds until the mirror holds exactly the server's pods at the
+    churn's last resourceVersion and every producer, node group and
+    autoscaler at the server's version (the autoscalers' scale writes of
+    the last tick reach the mirror only through the watch)."""
+    return workloads.wait_mirrored(server, store, rv) + sum(
+        workloads.wait_mirrored(server, store, kind=kind)
+        for kind in ("MetricsProducer", "ScalableNodeGroup",
+                     "HorizontalAutoscaler"))
+
+
+def _kube_documents(workloads, server) -> dict:
+    return {plural: workloads.server_documents(server, plural)
+            for plural in ("metricsproducers", "scalablenodegroups",
+                           "horizontalautoscalers")}
+
+
+def _kube_same(workloads, card_server, cpu_server, tick) -> int:
+    """The documents both fakes hold are equal; returns their count."""
+    card, cpu = (_kube_documents(workloads, s)
+                 for s in (card_server, cpu_server))
+    for plural, want in card.items():
+        got = cpu[plural]
+        need(got.keys() == want.keys(), f"tick {tick}: the fakes hold "
+             f"different {plural}")
+        diff = [k for k, v in want.items() if got[k] != v]
+        need(not diff, f"tick {tick}: {len(diff)} {plural} differ between "
+             f"the card's and the CPU's runtime, e.g. {diff[:3]}")
+    return sum(len(v) for v in card.values())
+
+
+def _kube_dry_run(torch, TF, url, pins):
+    """(c) `--simulate --apiserver URL` through the binary's main() in
+    this process: (report, launches, wall s)."""
+    import contextlib
+    import io
+
+    from karpenter_tpu_torch import __main__ as CLI
+
+    argv = ["--simulate", "--apiserver", url, "--kube-insecure"]
+    if KUBE_DEVICE == "cpu":
+        argv += ["--device", "cpu"]
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    TF.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = CLI.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(TF.LAUNCHES)
+    need(rc == 0, f"--simulate --apiserver exited {rc}")
+    got = json.loads(out.getvalue())
+    need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+         f"--simulate --apiserver launched {launches}")
+    totals = _dry_run_totals(got)
+    want = {k: pins[k] for k in totals}
+    need(totals == want, f"--simulate --apiserver totals {totals}, the "
+         f"--data-dir dry run's {want}")
+    return got, launches, wall
+
+
+def _kube_production(torch, TF, workloads, dry_groups):
+    """(a) the card runtime and a CPU runtime over two fakes seeded
+    alike, ticked in lockstep; (c) the dry run over the card's fake."""
+    from karpenter_tpu_torch.solver.service import HEALTHY
+
+    FakeApiServer = _fake_apiserver()
+    servers = [FakeApiServer(), FakeApiServer()]
+    runtimes, stores, timers = [], [], None
+    for server in servers:
+        server.start()
+    try:
+        t0 = time.perf_counter()
+        cluster = workloads.build_kube_world(servers, **KUBE_SHAPE)
+        report(f"kube world {KUBE_SHAPE}: drawn and seeded into two fakes "
+               f"in {time.perf_counter() - t0} s (host)")
+        clock = _StepClock()
+        synced = []
+        for device in (KUBE_DEVICE, "cpu"):
+            runtime, store, sync_s, boot_s = _kube_runtime(
+                servers[len(runtimes)], device, clock, cluster.node_replicas)
+            runtimes.append(runtime)
+            stores.append(store)
+            pods = len(store.keys("Pod"))
+            need(pods == KUBE_SHAPE["pods"], f"the mirror holds {pods} pods")
+            synced.append(sync_s)
+            report(f"KubeStore initial sync ({'card' if device != 'cpu' else 'CPU'}"
+                   f" runtime's): {pods} pods + {KUBE_SHAPE['types']} nodes "
+                   f"and producers mirrored in {sync_s} s (chunked LIST of "
+                   f"{stores[-1].client.list_chunk_size}, decode, mirror "
+                   f"apply); KarpenterRuntime(Options({KUBE_OPTIONS})) built "
+                   f"in {boot_s} s (prewarm included)")
+        card, cpu = runtimes
+        svc = card.solver_service
+        need(svc.device.type == "cuda" or KUBE_DEVICE == "cpu",
+             f"the card runtime's service on {svc.device}")
+        timers = _KubeTimers(card, stores[0])
+        slices = _TickTimers(card)
+
+        # the first tick, on each runtime alone
+        torch.cuda.synchronize()
+        TF.reset_launch_counts()
+        timers.on = True
+        t0 = time.perf_counter()
+        card.manager.reconcile_all()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        locks = [_settled(card.manager)]
+        timers.on = False
+        first_parts, first_requests = timers.take()
+        first_slices = slices.take()
+        first_launches = dict(TF.LAUNCHES)
+        need(first_launches == {"fused_assign": 1, "shelf_bfd": 1},
+             f"the first tick launched {first_launches}")
+        producers = [stores[0].get("MetricsProducer", "default", f"mp{g}")
+                     for g in range(KUBE_SHAPE["types"])]
+        totals = _totals(producers)
+        need(totals == RECONCILE_TOTALS,
+             f"first tick totals {totals} != {RECONCILE_TOTALS}")
+        cpu.manager.reconcile_all()
+        locks.append(_settled(cpu.manager))
+        n_docs = _kube_same(workloads, *servers, 0)
+        report(f"kube first tick on the card: {first_ms} ms; launches "
+               f"{first_launches}; totals {totals} (the reference's); "
+               f"{n_docs} documents on the fakes == the CPU runtime's; "
+               f"split (ms) " + ", ".join(
+                   f"{k} {v * 1e3}" for k, v in first_parts.items())
+               + f"; {first_requests} REST requests; controller slices "
+               f"(ms; tick thread, event thread) "
+               + ", ".join(f"{k} {v * 1e3}" for part in first_slices
+                           for k, v in part.items()))
+
+        # (c) while both runtimes hold their pass locks: the dry run over
+        # the card's fake, still the unchurned cluster
+        dry, dry_launches, dry_wall = _kube_dry_run(
+            torch, TF, servers[0].url, SIMULATE_PINS)
+        need(dry["groups"] == dry_groups
+             and dry["unschedulable_pods"] == SIMULATE_PINS["unschedulable"],
+             "--simulate --apiserver groups != the --data-dir dry run's")
+        report(f"--simulate --apiserver over the 100k-pod fake (main() in "
+               f"process, its own KubeStore): {dry_wall} s wall; totals "
+               f"{_dry_run_totals(dry)} and every group == the --data-dir "
+               f"dry run's; launches {dry_launches}")
+
+        rows = []
+        profile = None
+        for t in range(1, KUBE_TICKS + 2):
+            profiled = t == KUBE_TICKS + 1
+            clock.now += RUNTIME_TICK_S
+            pairs = workloads.churn_pods(cluster, RECONCILE_CHURN)
+            torch.cuda.synchronize()
+            TF.reset_launch_counts()
+            timers.take()
+            timers.on = True
+            t0 = time.perf_counter()
+            rv = workloads.apply_churn(servers[0], pairs)
+            t1 = time.perf_counter()
+            lag = _kube_settle(workloads, servers[0], stores[0], rv)
+            if profiled:
+                from torch.profiler import ProfilerActivity
+                from torch.profiler import profile as torch_profile
+
+                # started while the pass lock is held: the event thread's
+                # pass cannot solve before the profiler records
+                with torch_profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+                    t2 = time.perf_counter()
+                    locks[0].release()
+                    card.manager.reconcile_all()
+                    t3 = time.perf_counter()
+                    locks[0] = _settled(card.manager)
+                    torch.cuda.synchronize()
+            else:
+                t2 = time.perf_counter()
+                locks[0].release()
+                card.manager.reconcile_all()
+                t3 = time.perf_counter()
+                locks[0] = _settled(card.manager)
+            t4 = time.perf_counter()
+            timers.on = False
+            launches = dict(TF.LAUNCHES)
+            parts, requests = timers.take()
+            for part in slices.take():
+                for k, v in part.items():
+                    parts[k] = parts.get(k, 0.0) + v
+            need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+                 f"churned tick {t} launched {launches}")
+            rv = workloads.apply_churn(servers[1], pairs)
+            _kube_settle(workloads, servers[1], stores[1], rv)
+            locks[1].release()
+            cpu.manager.reconcile_all()
+            locks[1] = _settled(cpu.manager)
+            n_docs = _kube_same(workloads, *servers, t)
+            row = dict(tick=(t1 - t0 + lag + t3 - t2) * 1e3,
+                       write=(t1 - t0) * 1e3, lag=lag * 1e3,
+                       reconcile=(t3 - t2) * 1e3, settled=(t4 - t2) * 1e3,
+                       parts=parts, requests=requests, launches=launches)
+            print(f"kube churned tick {t}: " + ", ".join(
+                f"{k} {v}" for k, v in row.items()), flush=True)
+            if profiled:
+                profile = _kube_profile(torch, prof, (t4 - t2) * 1e3)
+                report(f"kube profiled churned tick: {row['tick']} ms "
+                       f"(profiler on; not in the percentiles), launches "
+                       f"{launches}, card == CPU on {n_docs} documents")
+            else:
+                rows.append(row)
+        ticks = [r["tick"] for r in rows]
+        report(f"kube churned tick (churn_apiserver of {RECONCILE_CHURN} "
+               f"pods -> the mirror settles -> reconcile_all, host clock) "
+               f"over {KUBE_TICKS} ticks: p50={np.percentile(ticks, 50)} ms "
+               f"p95={np.percentile(ticks, 95)} ms; launches per tick "
+               f"{[r['launches'] for r in rows]}; the card's documents == "
+               f"the CPU runtime's after every tick ({n_docs} documents)")
+        for key, label in (("write", "churn writes to the fake"),
+                           ("lag", "watch lag to quiescence"),
+                           ("reconcile", "reconcile_all"),
+                           ("settled", "reconcile_all to settled")):
+            v = [r[key] for r in rows]
+            report(f"  {label}: ms per tick (median / max) "
+                   f"{np.median(v)} / {max(v)}")
+        labels = sorted({k for r in rows for k in r["parts"]})
+        for label in labels:
+            v = [r["parts"].get(label, 0.0) * 1e3 for r in rows]
+            report(f"  {label}: ms per tick (median / max) "
+                   f"{np.median(v)} / {max(v)}")
+        report(f"  HTTP requests per tick (the card runtime's client, "
+               f"watch streams aside): {[r['requests'] for r in rows]}")
+        # the cuda rung's own call on the last tick's operands, launched
+        # from this thread: in the full smoke the profiler dropped some
+        # kernels launched by the service's worker thread
+        from karpenter_tpu_torch.ops import binpack as TB
+
+        inputs = timers.inputs
+        ms = _kernel_ms(torch, lambda: TB.solve(inputs, backend="cuda"))
+        need(all(ms.values()), f"no device time per launch: {ms}")
+        report(f"  device ms per launch at the churned tick's operands "
+               f"({inputs.pod_requests.shape[0]} rows x "
+               f"{inputs.group_allocatable.shape[0]} groups, "
+               f"solve(backend='cuda') as the service's cuda rung calls "
+               f"it): {ms}")
+        st = svc.stats
+        need(st.fallbacks == 0, f"{st.fallbacks} numpy answers on the card")
+        need(svc.backend_health() == HEALTHY, f"FSM {svc.backend_health()}")
+        return {"first_launches": first_launches, "ms": ms,
+                "launches_per_tick": {name: [r["launches"][name]
+                                             for r in rows]
+                                      for name in TF.LAUNCHES},
+                "p50_ms": float(np.percentile(ticks, 50)),
+                "sync_s": synced[0], "profile": profile,
+                "dry_launches": dry_launches}
+    finally:
+        if timers is not None:
+            timers.remove()
+            slices.remove()
+        for runtime in runtimes:
+            runtime.close()
+        for store in stores:
+            store.close()
+        for server in servers:
+            server.stop()
+
+
+def _kube_profile(torch, prof, wall_ms):
+    """The device rows of a profiled churned tick: busy us and kernels,
+    the largest rows printed."""
+    rows = device_rows(torch, prof)
+    need(rows, "the profiler shows no device rows for the kube tick")
+    busy_us = sum(r[0] for r in rows)
+    kernels = sum(c for _, c, k in rows
+                  if not k.startswith(("Memcpy", "Memset")))
+    # a lower bound: in the full smoke the profiler dropped some kernels
+    # the service's worker thread launched
+    report(f"kube profiled tick: device busy at least {busy_us} us "
+           f"({100.0 * busy_us / (wall_ms * 1e3)}% of the tick's "
+           f"{wall_ms} ms), {kernels} device kernels seen")
+    for dev_us, count, key in rows[:6]:
+        report(f"  device {dev_us} us  x{count}  {key[:90]}")
+    return {"busy_us": busy_us, "kernels": kernels}
+
+
+def _admission_reviews():
+    """Valid and invalid HorizontalAutoscaler and MetricsProducer
+    AdmissionReviews."""
+    def review(uid, obj):
+        return {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+                "request": {"uid": uid, "operation": "CREATE",
+                            "object": obj}}
+
+    def ha(lo, hi):
+        return {"apiVersion": "autoscaling.karpenter.sh/v1alpha1",
+                "kind": "HorizontalAutoscaler",
+                "metadata": {"name": "web", "namespace": "default"},
+                "spec": {"scaleTargetRef": {
+                    "apiVersion": "autoscaling.karpenter.sh/v1alpha1",
+                    "kind": "ScalableNodeGroup", "name": "ng0"},
+                    "minReplicas": lo, "maxReplicas": hi}}
+
+    def mp(weekday):
+        return {"apiVersion": "autoscaling.karpenter.sh/v1alpha1",
+                "kind": "MetricsProducer",
+                "metadata": {"name": "mp", "namespace": "default"},
+                "spec": {"scheduleSpec": {
+                    "timezone": "America/Los_Angeles", "defaultReplicas": 1,
+                    "behaviors": [{"replicas": 5,
+                                   "start": {"weekdays": weekday,
+                                             "hours": "9"},
+                                   "end": {"weekdays": weekday,
+                                           "hours": "17"}}]}}}
+
+    return {"ha valid": (review("u1", ha(1, 10)), True),
+            "ha min > max": (review("u2", ha(9, 2)), False),
+            "mp valid": (review("u3", mp("Mon,Tue")), True),
+            "mp bad cron": (review("u4", mp("Blursday")), False)}
+
+
+def _post_json(port, path, body):
+    import urllib.request
+
+    request = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(request, timeout=30) as response:
+        return json.loads(response.read())
+
+
+def _kube_binaries(workloads):
+    """(b) two `python -m karpenter_tpu_torch --apiserver URL --leader-elect
+    --webhook-port P` against one fake: one leader writes, SIGTERM hands
+    over within the lease, the webhooks answer as the CPU's handlers do,
+    and with the card hidden the command exits before any watch."""
+    from karpenter_tpu_torch import webhook
+
+    server = _fake_apiserver()()
+    server.start()
+    binaries = []
+    try:
+        t0 = time.perf_counter()
+        workloads.build_kube_world([server], **KUBE_BINARY_SHAPE)
+        report(f"binary kube world {KUBE_BINARY_SHAPE} seeded in "
+               f"{time.perf_counter() - t0} s")
+        base = ["--apiserver", server.url, "--kube-insecure",
+                "--leader-elect", "--cloud-provider", "fake",
+                "--metrics-port", "0", "--tick", "0.1"]
+        common = base + list(KUBE_BINARY_ARGS)
+        hooks = [_free_port(), _free_port()]
+        for port in hooks:
+            binaries.append(_Binary(common + ["--webhook-port", str(port)]))
+        for binary in binaries:
+            binary.wait_serving(300)
+        ready = [b.started for b in binaries]
+
+        def ticked(binary):
+            status, text = binary.get("/metrics")
+            return status == 200 and _metric(
+                text, "karpenter_runtime_tick_seconds", "manager") is not None
+
+        def all_statuses():
+            return all(d.get("status", {}).get("pendingCapacity")
+                       for d in server.objects("metricsproducers"))
+
+        deadline = time.perf_counter() + 180
+        while not (any(ticked(b) for b in binaries) and all_statuses()):
+            need(time.perf_counter() < deadline,
+                 "no binary wrote every producer's status")
+            time.sleep(0.2)
+        leaders = [b for b in binaries if ticked(b)]
+        need(len(leaders) == 1, f"{len(leaders)} binaries tick")
+        leader = leaders[0]
+        standby = binaries[1 - binaries.index(leader)]
+        (lease,) = server.objects("leases")
+        holder = lease["spec"]["holderIdentity"]
+        status, text = standby.get("/metrics")
+        idle = _metric(text, "karpenter_solver_requests_total") or 0.0
+        need(idle == 0, f"the standby sent {idle} solves")
+        lead_line = [x for x in leader.lines if "solver device:" in x]
+        report(f"binaries: both serving after {[time.perf_counter() - s for s in ready]}"
+               f" s; one leader ({holder}, {lead_line}) wrote all "
+               f"{KUBE_BINARY_SHAPE['types']} producers' statuses, the "
+               f"standby ticked nothing")
+        answers = {}
+        for label, (body, allowed) in _admission_reviews().items():
+            want = (webhook.review_validate(body), webhook.review_mutate(body))
+            for port in hooks:
+                got = (_post_json(port, "/validate", body),
+                       _post_json(port, "/mutate", body))
+                need(got == want, f"webhook :{port} {label}: {got} != {want}")
+            need(want[0]["response"]["allowed"] is allowed,
+                 f"{label}: allowed {want[0]['response']['allowed']}")
+            answers[label] = want[0]["response"]["allowed"]
+        print(f"webhooks on both binaries == review_validate / review_mutate "
+              f"on the CPU: {answers}", flush=True)
+        rvs = {d["metadata"]["name"]: int(d["metadata"]["resourceVersion"])
+               for d in server.objects("metricsproducers")}
+        t0 = time.perf_counter()
+        rc = leader.stop()
+        stop_s = time.perf_counter() - t0
+        need(rc == 0, f"the leader exited {rc} on SIGTERM")
+        deadline = t0 + KUBE_LEASE_S + KUBE_SKEW_S + 30
+        while True:
+            (lease,) = server.objects("leases")
+            if lease["spec"]["holderIdentity"] not in ("", holder):
+                break
+            need(time.perf_counter() < deadline, "the standby never took "
+                 "the lease")
+            time.sleep(0.05)
+        takeover_s = time.perf_counter() - t0
+        need(takeover_s <= KUBE_LEASE_S + KUBE_SKEW_S + 1.0,
+             f"the standby took the lease {takeover_s} s after SIGTERM")
+        deadline = time.perf_counter() + 120
+        while True:
+            status, text = standby.get("/metrics")
+            solves = _metric(text, "karpenter_solver_requests_total") or 0.0
+            rewritten = all(
+                int(d["metadata"]["resourceVersion"]) > rvs[d["metadata"]["name"]]
+                for d in server.objects("metricsproducers"))
+            if ticked(standby) and solves > 0 and rewritten:
+                break
+            need(time.perf_counter() < deadline, "the new leader did not "
+                 "tick")
+            time.sleep(0.1)
+        fallbacks = _metric(text, "karpenter_solver_fallback_total") or 0.0
+        need(fallbacks == 0, f"the new leader answered {fallbacks} from numpy")
+        report(f"leader SIGTERM -> exit 0 in {stop_s} s; the standby took "
+               f"the lease {takeover_s} s after SIGTERM (lease "
+               f"{KUBE_LEASE_S} s + skew {KUBE_SKEW_S} s) and ticked: "
+               f"{solves} solves through its card service, every producer "
+               f"rewritten, no fallback")
+        rc = standby.stop()
+        need(rc == 0, f"the new leader exited {rc} on SIGTERM")
+        pages, watchers = server.list_pages_served, len(server._watchers)
+        hidden = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        binary = _Binary(base + ["--webhook-port", str(_free_port())],
+                         env=hidden)
+        rc = binary.proc.wait(timeout=300)
+        binary.reader.join(timeout=10)
+        need(rc == 1, f"with the card hidden the binary exited {rc}")
+        need(any("CUDA device requested" in x for x in binary.lines),
+             f"no reason given with the card hidden: {binary.lines[-3:]}")
+        need(server.list_pages_served == pages
+             and len(server._watchers) == watchers,
+             "the binary listed or watched with the card hidden")
+        print(f"binary --apiserver with CUDA_VISIBLE_DEVICES=\"\": exit 1 "
+              f"before any LIST or watch", flush=True)
+    finally:
+        for binary in binaries:
+            binary.stop()
+        server.stop()
+
+
+def phase_kube(torch, TF, workloads, simulate):
+    """Phase 15: real-cluster mode on the card."""
+    t0 = time.perf_counter()
+    out = _kube_production(torch, TF, workloads, simulate["groups"])
+    t1 = time.perf_counter()
+    report(f"phase 15 (a), (c): {t1 - t0} s")
+    _kube_binaries(workloads)
+    report(f"phase 15 (b): {time.perf_counter() - t1} s")
+    return out
 
 
 def profile_solves(torch, TB, inputs, n=ITERS):
@@ -3568,7 +4198,7 @@ def device_ms(profile, wrapper):
 
 
 def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
-                   service, disruption, runtime, simulate):
+                   service, disruption, runtime, simulate, kube):
     """Per-kernel JSON records at the main path's shapes. `ms` is device
     time per launch from the profiler's rows of the kernel's own names
     (the fused row sums its two kernels); `call_ms` is the wrapper's time
@@ -3600,7 +4230,13 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
     `simulate_consolidate_launches` over `--simulate --consolidate`'s
     report on the card (one per candidate with pods,
     `simulate_consolidate_candidates` of them) and
-    `simulate_consolidate_ms` its device time per launch."""
+    `simulate_consolidate_ms` its device time per launch.
+    `kube_launches_first_tick` is the wrapper's count over phase 15's
+    first tick of the card runtime over the fake kube-apiserver,
+    `kube_launches_per_tick` its counts over the timed churned ticks,
+    `kube_ms` its device time per launch at the last churned tick's
+    operands (solve(backend="cuda"), the service's cuda rung's call) and
+    `kube_simulate_launches` its count over `--simulate --apiserver`."""
     from karpenter_tpu_torch.ops.fused_assign import _packed
 
     pods, n_res = inputs.pod_requests.shape
@@ -3689,6 +4325,10 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
             "simulate_consolidate_candidates": simulate["consolidate"][
                 "candidates"],
             "simulate_consolidate_ms": simulate["consolidate"]["ms"][name],
+            "kube_launches_first_tick": kube["first_launches"][name],
+            "kube_launches_per_tick": kube["launches_per_tick"][name],
+            "kube_ms": kube["ms"][name],
+            "kube_simulate_launches": kube["dry_launches"][name],
             "max_abs_err": err,
             "ms": ms,
             "call_ms": call_ms,
@@ -3765,6 +4405,8 @@ def main() -> int:
         ("disruption", lambda: phase_disruption(torch, TF, workloads)),
         ("controller binary", lambda: phase_runtime(torch, TF, workloads)),
         ("simulate", lambda: phase_simulate(torch, TF, workloads)),
+        ("real-cluster mode", lambda: phase_kube(
+            torch, TF, workloads, results["simulate"])),
     ]
     for name, run in phases:
         try:
@@ -3786,9 +4428,10 @@ def main() -> int:
                              results["solve service"],
                              results["disruption"],
                              results["controller binary"],
-                             results["simulate"])
+                             results["simulate"],
+                             results["real-cluster mode"])
     report(f"chip_smoke wall time: {time.perf_counter() - started} s "
-           f"(kernel build and all fourteen phases)")
+           f"(kernel build and all fifteen phases)")
     print(f"card: {CARD['line']}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

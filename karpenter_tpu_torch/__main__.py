@@ -16,6 +16,12 @@ and starts no tick — it never degrades to the CPU, which runs only when
 (simlab/, simulate.py) instead of the control loop, on the same device
 check; `--simulate --list` prints the scenario catalog and touches no
 device.
+
+`--apiserver URL` runs on a kube-apiserver (store/kube.py: an informer
+mirror read by the controllers, statuses, scales and leases written over
+REST) instead of the in-process store, and `--webhook-port` serves the
+admission webhooks (webhook.py). The device check runs first: without a
+card the process exits before any watch stream opens.
 """
 
 from __future__ import annotations
@@ -32,9 +38,6 @@ from karpenter_tpu_torch.utils.log import setup as log_setup
 # flag -> (is it set?, the reference's module it needs, by its path under
 # the package root): each exits 2
 NOT_PORTED_FLAGS = (
-    ("--apiserver", lambda a: bool(a.apiserver), "store/kube.py"),
-    ("--webhook-port", lambda a: bool(a.webhook_port),
-     "webhook.py"),
     ("--solver-uri", lambda a: bool(a.solver_uri), "sidecar/"),
     ("--tenant-config", lambda a: bool(a.tenant_config),
      "tenancy/"),
@@ -756,6 +759,43 @@ def _readiness(runtime):
     return check
 
 
+def _make_store(args):
+    """KubeStore when --apiserver names a real cluster, else None (the
+    runtime then builds its in-process store). Its constructor relists
+    every watched kind and starts the watch threads."""
+    if not args.apiserver:
+        return None
+    from karpenter_tpu_torch.store.kube import KubeClient, KubeStore
+
+    return KubeStore(
+        KubeClient(
+            base_url=args.apiserver,
+            token_file=args.kube_token_file,
+            ca_file=args.kube_ca,
+            insecure=args.kube_insecure,
+        )
+    )
+
+
+def _start_webhook_server(args):
+    if not args.webhook_port:
+        return None
+    import os.path
+
+    from karpenter_tpu_torch.webhook import WebhookServer
+
+    cert = key = None
+    if args.webhook_cert_dir:
+        cert = os.path.join(args.webhook_cert_dir, "tls.crt")
+        key = os.path.join(args.webhook_cert_dir, "tls.key")
+    server = WebhookServer(
+        port=args.webhook_port, cert_file=cert, key_file=key
+    )
+    wport = server.start()
+    print(f"serving admission webhooks on :{wport}", file=sys.stderr)
+    return server
+
+
 def _run_loop(args, runtime, elector) -> None:
     """Tick until the duration elapses, SIGTERM arrives, or ^C.
 
@@ -820,10 +860,15 @@ def main(argv=None) -> int:
     log_setup(verbose=args.verbose)
     if args.simulate:
         return _simulate_main(args)
+    store = None
     try:
         note = _setup_backend(args)
-        runtime = _build_runtime(args)
+        # after the device check: no card, no watch stream
+        store = _make_store(args)
+        runtime = _build_runtime(args, store)
     except Exception as error:  # noqa: BLE001 — reported, exit non-zero
+        if store is not None:
+            store.close()
         return _cannot_start(error)
     print(f"solver device: {note}", file=sys.stderr)
     metrics_server = MetricsServer(
@@ -838,16 +883,22 @@ def main(argv=None) -> int:
     )
     port = metrics_server.start()
     print(f"serving /metrics and /healthz on :{port}", file=sys.stderr)
-    elector = (
-        LeaderElector(runtime.store, clock=runtime.clock)
-        if args.leader_elect else None
-    )
+    webhook_server = None
     try:
+        webhook_server = _start_webhook_server(args)
+        elector = (
+            LeaderElector(runtime.store, clock=runtime.clock)
+            if args.leader_elect else None
+        )
         _run_loop(args, runtime, elector)
     finally:
         _export_trace(args)
         metrics_server.stop()
+        if webhook_server is not None:
+            webhook_server.stop()
         runtime.close()
+        if store is not None:
+            store.close()  # CLI-owned KubeStore: stop the watch threads
     return 0
 
 
@@ -864,20 +915,26 @@ def _simulate_main(args) -> int:
     """`--simulate`: the device check of the control loop (exit 1 with
     the reason when the card is missing or a kernel does not build),
     then the selected world, then the exit-time trace export. `--list`
-    runs no device program and skips the check."""
+    runs no device program and skips the check. With --apiserver the
+    dry run reads the live mirror; the watch streams open after the
+    device check (and not for --list)."""
+    store = None
     if not args.list:
         try:
             note = _setup_backend(args)
+            store = _make_store(args)
         except Exception as error:  # noqa: BLE001 — reported, exit non-zero
             return _cannot_start(error)
         print(f"solver device: {note}", file=sys.stderr)
     try:
-        return _run_simulation(args, None)
+        return _run_simulation(args, store)
     finally:
         _export_trace(args)
+        if store is not None:
+            store.close()
 
 
-def _build_runtime(args) -> KarpenterRuntime:
+def _build_runtime(args, store=None) -> KarpenterRuntime:
     return KarpenterRuntime(
         Options(
             prometheus_uri=args.prometheus_uri,
@@ -921,6 +978,7 @@ def _build_runtime(args) -> KarpenterRuntime:
             lease_duration_s=args.lease_duration,
             device=args.device,
         ),
+        store=store,
     )
 
 

@@ -1,6 +1,7 @@
-"""The watchable object store, its columnar pending-pod feed and the
-durable store (copies of karpenter_tpu/store/store.py, columnar.py and
-persistence.py; the kube-apiserver store is not ported)."""
+"""The watchable object store, its columnar pending-pod feed, the
+durable store and the kube-apiserver store (copies of
+karpenter_tpu/store/store.py, columnar.py, persistence.py and kube.py).
+KubeClient and KubeStore load from store/kube.py on first use."""
 
 from karpenter_tpu_torch.store.store import (
     ConflictError,
@@ -12,12 +13,16 @@ from karpenter_tpu_torch.store.store import (
 
 
 def __getattr__(name):
-    # lazy: persistence pulls in the serialization codec; keep plain Store
-    # imports light
+    # lazy: persistence pulls in the serialization codec, kube the HTTP
+    # client; keep plain Store imports light
     if name in ("DurableStore", "open_store", "register_persistent_kind"):
         from karpenter_tpu_torch.store import persistence
 
         return getattr(persistence, name)
+    if name in ("KubeClient", "KubeStore"):
+        from karpenter_tpu_torch.store import kube
+
+        return getattr(kube, name)
     raise AttributeError(name)
 
 
@@ -30,4 +35,6 @@ __all__ = [
     "DurableStore",
     "open_store",
     "register_persistent_kind",
+    "KubeClient",
+    "KubeStore",
 ]

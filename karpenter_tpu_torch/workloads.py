@@ -12,6 +12,10 @@
 - `build_reconcile_cluster` / `churn_reconcile`: bench.py::run_e2e's
   cluster (pending pods, one node and one pendingCapacity producer per
   group) in a Store with its PendingFeed, and its per-tick churn.
+- `build_kube_world` / `seed_apiserver` / `churn_apiserver`
+  (`churn_pods` + `apply_churn`) / `wait_mirrored`: the same cluster (plus node groups an autoscaler
+  scales) served by fake kube-apiservers, its churn as watch events,
+  and the wait until a KubeStore mirrors the server.
 - `build_ha_fleet`: runtime.py's HorizontalAutoscaler world.
 - `build_runtime_world`: the controller binary's world (the reconcile
   cluster and the HA fleet, read through queue MetricsProducers), as
@@ -33,7 +37,8 @@ the operand groups) that the operand dataclasses' `from_numpy` take.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -409,6 +414,8 @@ class ReconcileCluster:
     make_bound: Callable
     next_id: int = 0
     next_bound: int = 0
+    # node group -> replicas, for the fake provider of a kube world
+    node_replicas: Dict[str, int] = field(default_factory=dict)
 
     def tick(self, solver=None):
         """One reconcile tick: solve_pending over every producer through
@@ -575,6 +582,21 @@ def churn_reconcile(
     watch events feed the incremental caches. Drawing is the load
     generator's cost, so it happens here, outside the mutation."""
     c = cluster
+    pairs = churn_pods(c, churn)
+
+    def apply() -> None:
+        for victim, pod in pairs:
+            c.store.delete("Pod", "default", victim)
+            c.store.create(pod)
+
+    return apply
+
+
+def churn_pods(c: ReconcileCluster, churn: Optional[int] = None
+               ) -> List[tuple]:
+    """churn_reconcile's draw, continuing the cluster's draw state:
+    (victim name, fresh pod) pairs, the pending ones first, then the
+    bound ones."""
     churn = churn if churn is not None else max(1, c.pods // 100)
     bound_churn = (
         min(c.bound_count, max(1, churn // 10))
@@ -591,16 +613,7 @@ def churn_reconcile(
         f"b{c.next_bound - c.bound_count + j}" for j in range(bound_churn)
     ]
     c.next_bound += bound_churn
-
-    def apply() -> None:
-        for victim, pod in zip(victims, fresh):
-            c.store.delete("Pod", "default", victim)
-            c.store.create(pod)
-        for victim, pod in zip(bound_victims, fresh_bound):
-            c.store.delete("Pod", "default", victim)
-            c.store.create(pod)
-
-    return apply
+    return list(zip(victims, fresh)) + list(zip(bound_victims, fresh_bound))
 
 
 # -- the HorizontalAutoscaler reconcile tick's world (runtime.py's wiring) ----
@@ -1766,3 +1779,207 @@ def build_sim_rollout_inputs(clusters: int, ticks: int, rows: int,
         cap=f32(p.cap), hourly=f32(p.hourly), step_limit=f32(p.step_limit),
         min_replicas=f32(p.min_replicas), max_replicas=f32(p.max_replicas),
     )
+
+
+# -- real-cluster mode: the world behind a fake kube-apiserver ---------------
+
+# What the apiserver world needs, by module under the package root; `api=`
+# takes these names from either package (kube_api gives this package's).
+KUBE_API = {
+    **RECONCILE_API,
+    "api.horizontalautoscaler": (
+        "CrossVersionObjectReference", "HorizontalAutoscaler",
+        "HorizontalAutoscalerSpec", "Metric", "MetricTarget",
+        "PrometheusMetricSource",
+    ),
+    "api.scalablenodegroup": ("ScalableNodeGroup", "ScalableNodeGroupSpec"),
+    "api.serialization": ("to_dict",),
+}
+
+# metadata the apiserver assigns, left out when documents are compared
+SERVER_FIELDS = ("resourceVersion", "uid", "creationTimestamp")
+
+
+def kube_api_namespace(modules: Dict[str, object]) -> ReconcileAPI:
+    """The names of KUBE_API taken from `modules`, which maps each of its
+    keys to a module object."""
+    return _namespace(KUBE_API, modules)
+
+
+def kube_api() -> ReconcileAPI:
+    """KUBE_API from this package."""
+    from karpenter_tpu_torch import store
+    from karpenter_tpu_torch.api import (
+        core,
+        horizontalautoscaler,
+        metricsproducer,
+        scalablenodegroup,
+        serialization,
+    )
+    from karpenter_tpu_torch.metrics import registry
+    from karpenter_tpu_torch.metrics.producers import pendingcapacity
+    from karpenter_tpu_torch.store import columnar
+    from karpenter_tpu_torch.utils import quantity
+
+    return kube_api_namespace({
+        "api.core": core,
+        "api.horizontalautoscaler": horizontalautoscaler,
+        "api.metricsproducer": metricsproducer,
+        "api.scalablenodegroup": scalablenodegroup,
+        "api.serialization": serialization,
+        "metrics.producers.pendingcapacity": pendingcapacity,
+        "metrics.registry": registry,
+        "store": store,
+        "store.columnar": columnar,
+        "utils.quantity": quantity,
+    })
+
+
+def seed_apiserver(server, objects, *, api: Optional[ReconcileAPI] = None
+                   ) -> int:
+    """Load `objects` (API objects, or documents already) into the fake
+    kube-apiserver `server` under its lock, as its own writes would
+    leave them: each as its `to_dict` document (`api`'s package, the
+    port's by default) with the next resourceVersion and a uid. No watch
+    event is sent and no history kept: seed before any client watches.
+    A document is stored as given (not copied). Returns the objects
+    loaded."""
+    from karpenter_tpu_torch.store.kube import RESOURCES
+
+    to_dict = (api if api is not None else kube_api()).to_dict
+    with server._lock:
+        for obj in objects:
+            doc = obj if isinstance(obj, dict) else to_dict(obj)
+            meta = doc.setdefault("metadata", {})
+            ns = meta.setdefault("namespace", "default")
+            server._rv += 1
+            meta["resourceVersion"] = str(server._rv)
+            meta.setdefault("uid", f"uid-seed-{server._rv}")
+            server._objects[(RESOURCES[doc["kind"]][1], ns, meta["name"])] = doc
+    return len(objects)
+
+
+def build_kube_world(servers, pods: int, types: int, seed: int, *,
+                     node_groups: int = 0,
+                     api: Optional[ReconcileAPI] = None) -> ReconcileCluster:
+    """build_reconcile_cluster(pods, types, seed)'s draw, plus
+    `node_groups` ScalableNodeGroups `ng<g>` (fake provider, 1 replica)
+    each scaled by a HorizontalAutoscaler on mp<g>'s additional-nodes
+    gauge (docs/examples/pending-capacity-binpack.yaml), seeded into
+    every fake kube-apiserver of `servers`. The returned cluster keeps
+    the draw state churn_apiserver continues from; its store is the
+    plain Store the world was drawn into (no feed, no registry), and
+    `node_replicas` the replicas to set on each runtime's fake provider.
+    `api` (kube_api) names the classes; the port's by default."""
+    from karpenter_tpu_torch.store.kube import WATCHED_KINDS
+
+    api = api if api is not None else kube_api()
+    store = api.Store()
+    cluster = _draw_reconcile(api, store, np.random.default_rng(seed), pods,
+                              types, 0.0, 0.0, 0.0)
+    cluster.node_replicas = {}
+    for g in range(node_groups):
+        name = f"ng{g}"
+        store.create(api.ScalableNodeGroup(
+            metadata=api.ObjectMeta(name=name),
+            spec=api.ScalableNodeGroupSpec(
+                replicas=1, type="FakeNodeGroup", id=name),
+        ))
+        store.create(api.HorizontalAutoscaler(
+            metadata=api.ObjectMeta(name=name),
+            spec=api.HorizontalAutoscalerSpec(
+                scale_target_ref=api.CrossVersionObjectReference(
+                    api_version="autoscaling.karpenter.sh/v1alpha1",
+                    kind="ScalableNodeGroup", name=name,
+                ),
+                min_replicas=0, max_replicas=64,
+                metrics=[api.Metric(prometheus=api.PrometheusMetricSource(
+                    query=("karpenter_pending_capacity_additional_nodes_"
+                           f'needed{{name="mp{g}"}}'),
+                    target=api.MetricTarget(type="AverageValue", value=1),
+                ))],
+            ),
+        ))
+        cluster.node_replicas[name] = 1
+    objects = [obj for kind in WATCHED_KINDS for obj in store.list(kind)]
+    for server in servers:
+        seed_apiserver(server, objects, api=api)
+    return cluster
+
+
+def apply_churn(server, pairs: List[tuple], *,
+                api: Optional[ReconcileAPI] = None) -> str:
+    """churn_pods' pairs written to the fake kube-apiserver `server`
+    through its public delete_object / put_object (each fresh pod as its
+    `to_dict` document, `api`'s package, the port's by default), so that
+    they reach every mirror as watch events. Returns the resourceVersion
+    of the last write."""
+    to_dict = (api if api is not None else kube_api()).to_dict
+    written = None
+    for victim, pod in pairs:
+        server.delete_object("pods", "default", victim)
+        written = server.put_object("pods", to_dict(pod))
+    return written["metadata"]["resourceVersion"] if written else ""
+
+
+def churn_apiserver(servers, cluster: ReconcileCluster,
+                    churn: Optional[int] = None, *,
+                    api: Optional[ReconcileAPI] = None
+                    ) -> Callable[[], List[str]]:
+    """churn_reconcile's draw (churn_pods, drawn here) as the mutation
+    that applies it to every fake kube-apiserver of `servers` in turn
+    (apply_churn). The mutation returns, per server, the resourceVersion
+    of its last write there."""
+    pairs = churn_pods(cluster, churn)
+    return lambda: [apply_churn(server, pairs, api=api) for server in servers]
+
+
+def wait_mirrored(server, store, rv: str = "", kind: str = "Pod",
+                  timeout: float = 120.0) -> float:
+    """Wait until the KubeStore `store` mirrors what the fake
+    kube-apiserver `server` holds of `kind`: with `rv`, until it has
+    applied the watch event of that resourceVersion and holds exactly
+    the server's object names (cheap at 100k pods); without, until every
+    object's resourceVersion equals the server's (any KubeStore, the
+    reference's too). Returns the seconds waited; raises TimeoutError
+    past `timeout`."""
+    from karpenter_tpu_torch.store.kube import RESOURCES
+
+    plural = RESOURCES[kind][1]
+    t0 = time.perf_counter()
+    while True:
+        if not rv or store.observed_version(kind) == rv:
+            with server._lock:
+                want = {(ns, name): doc["metadata"]["resourceVersion"]
+                        for (p, ns, name), doc in server._objects.items()
+                        if p == plural}
+            if rv:
+                got = {(ns, name) for _, ns, name in store.keys(kind)}
+                settled = got == want.keys()
+            else:
+                got = {(o.metadata.namespace, o.metadata.name):
+                       str(o.metadata.resource_version)
+                       for o in store.list(kind)}
+                settled = got == want
+            if settled:
+                return time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(
+                f"the mirror did not settle on {kind} within {timeout} s")
+        time.sleep(0.002)
+
+
+def server_documents(server, plural: str,
+                     skip: tuple = SERVER_FIELDS) -> Dict[tuple, dict]:
+    """{(namespace, name): document} of every `plural` object the fake
+    kube-apiserver holds, less the metadata in `skip` and the
+    conditions' wall-clock transition times."""
+    out = {}
+    for doc in server.objects(plural):
+        meta = doc.get("metadata", {})
+        for key in skip:
+            meta.pop(key, None)
+        for c in (doc.get("status") or {}).get("conditions") or []:
+            c.pop("lastTransitionTime", None)
+        out[(meta.get("namespace"), meta.get("name"))] = doc
+    return out

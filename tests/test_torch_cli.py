@@ -6,6 +6,10 @@ HTTP surface and leader election, against the reference's, on the CPU.
   * `main(... --device cpu)` runs ticks and returns 0; without
     `--device cpu` and with no card it exits non-zero with the reason and
     runs no tick;
+  * `--apiserver` and `--webhook-port` parse as the reference's; the
+    binary ticks over a fake kube-apiserver and exits 0 on SIGTERM, main
+    serves the webhooks, and without a card `--apiserver` exits 1 before
+    any watch;
   * each flag whose module is not ported exits 2 naming that module, and
     each such runtime option raises NotPortedError; `--simulate`,
     `--list` and `--sim-seed` parse as the reference's and run, and
@@ -79,8 +83,6 @@ class TestParseArgs:
         assert message in capsys.readouterr().err
 
     @pytest.mark.parametrize("argv,module", [
-        (["--apiserver", "https://k8s"], "store/kube.py"),
-        (["--webhook-port", "9443"], "webhook.py"),
         (["--solver-uri", "localhost:50051"], "sidecar"),
         (["--tenant-config", "t.yaml"], "tenancy"),
         (["--partitions", "2"], "replication"),
@@ -97,6 +99,157 @@ class TestParseArgs:
         assert exit_info.value.code == 2
         err = capsys.readouterr().err
         assert module in err and "not ported" in err
+
+
+class TestRealClusterFlags:
+    """--apiserver (store/kube.py) and --webhook-port (webhook.py) are
+    ported: they parse as the reference's and run."""
+
+    @pytest.mark.parametrize("argv", [
+        ["--apiserver", "https://kubernetes.default.svc"],
+        ["--apiserver", "http://127.0.0.1:1", "--kube-token-file", "t",
+         "--kube-ca", "ca.crt", "--kube-insecure"],
+        ["--webhook-port", "9443"],
+        ["--webhook-port", "9443", "--webhook-cert-dir", "certs",
+         "--apiserver", "https://k8s", "--profile", "production"],
+    ], ids=["apiserver", "kube_auth", "webhook", "both"])
+    def test_parse_as_the_reference(self, argv):
+        want = vars(mod(REF, "__main__").parse_args(argv))
+        got = vars(port_main.parse_args(argv))
+        assert got.pop("device") == "cuda"
+        assert got == want
+
+    def test_apiserver_binary_ticks_and_exits_0_on_sigterm(self):
+        """python -m karpenter_tpu_torch --apiserver URL --device cpu over
+        a fake apiserver: the MetricsProducers get their statuses over
+        REST, and SIGTERM ends the process with 0."""
+        import signal
+        import subprocess
+        import sys
+        import time
+
+        from karpenter_tpu_torch import workloads
+        from tests.fake_apiserver import FakeApiServer
+
+        server = FakeApiServer()
+        server.start()
+        proc = None
+        try:
+            workloads.build_kube_world([server], 200, 3, 0)
+            repo = os.path.dirname(os.path.dirname(os.path.abspath(
+                __file__)))
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "karpenter_tpu_torch", "--apiserver",
+                 server.url, "--kube-insecure", "--device", "cpu",
+                 "--metrics-port", "0", "--tick", "0.05"],
+                cwd=repo, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True,
+            )
+
+            def statuses():
+                return [d.get("status", {}).get("pendingCapacity")
+                        for d in server.objects("metricsproducers")]
+
+            deadline = time.time() + 120
+            while time.time() < deadline and not all(statuses()):
+                assert proc.poll() is None, proc.stderr.read()
+                time.sleep(0.1)
+            assert all(statuses())
+            assert sum(s["pendingPods"] for s in statuses()) == 200
+            lease = server.objects("leases")
+            assert len(lease) == 1 and lease[0]["spec"]["holderIdentity"]
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=60) == 0
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            server.stop()
+
+    def test_webhook_port_serves_while_main_runs(self):
+        """main(--webhook-port P --device cpu) serves the admission
+        webhooks while it ticks; the answers equal review_validate's and
+        review_mutate's. (0 keeps the reference's meaning: no server.)"""
+        import socket
+        import threading
+        import time
+
+        from karpenter_tpu_torch import webhook
+
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            port = probe.getsockname()[1]
+        result = {}
+        thread = threading.Thread(target=lambda: result.setdefault(
+            "rc", port_main.main([
+                "--device", "cpu", "--duration", "4", "--tick", "0.05",
+                "--metrics-port", "0", "--no-leader-elect",
+                "--webhook-port", str(port),
+            ])))
+        thread.start()
+        try:
+            review = {"apiVersion": "admission.k8s.io/v1",
+                      "kind": "AdmissionReview",
+                      "request": {"uid": "u1", "object": {
+                          "apiVersion": "autoscaling.karpenter.sh/v1alpha1",
+                          "kind": "HorizontalAutoscaler",
+                          "metadata": {"name": "h", "namespace": "default"},
+                          "spec": {"scaleTargetRef": {
+                              "apiVersion": "v1", "kind": "Deployment",
+                              "name": "web"},
+                              "minReplicas": 5, "maxReplicas": 1}}}}
+            answers = {}
+            deadline = time.time() + 30
+            while time.time() < deadline and len(answers) < 2:
+                for path in ("validate", "mutate"):
+                    try:
+                        request = urllib.request.Request(
+                            f"http://127.0.0.1:{port}/{path}",
+                            data=json.dumps(review).encode(),
+                            headers={"Content-Type": "application/json"})
+                        with urllib.request.urlopen(request,
+                                                    timeout=5) as resp:
+                            answers[path] = json.loads(resp.read())
+                    except (urllib.error.URLError, ConnectionError):
+                        time.sleep(0.05)
+            assert answers["validate"] == webhook.review_validate(review)
+            assert answers["validate"]["response"]["allowed"] is False
+            assert answers["mutate"] == webhook.review_mutate(review)
+        finally:
+            thread.join(timeout=60)
+        assert result == {"rc": 0}
+
+    def test_webhook_port_0_serves_nothing(self):
+        assert port_main._start_webhook_server(
+            port_main.parse_args(["--webhook-port", "0"])) is None
+
+    def test_no_card_exits_1_before_any_watch(self, capsys):
+        """Without --device cpu and with no card, --apiserver exits 1 with
+        the reason before any LIST or watch reaches the apiserver, and
+        leaves no informer thread."""
+        import threading
+
+        if torch.cuda.is_available():
+            pytest.skip("a card is present")
+
+        from tests.fake_apiserver import FakeApiServer
+
+        server = FakeApiServer()
+        server.start()
+        try:
+            before = set(threading.enumerate())
+            rc = port_main.main(["--apiserver", server.url, "--metrics-port",
+                                 "0", "--duration", "5"])
+            assert rc == 1
+            assert "CUDA device requested" in capsys.readouterr().err
+            assert server.list_pages_served == 0 and not server._watchers
+            assert not [t for t in set(threading.enumerate()) - before
+                        if t.is_alive() and "watch" in repr(t.name)]
+            rc = port_main.main(["--simulate", "--apiserver", server.url])
+            assert rc == 1
+            assert server.list_pages_served == 0 and not server._watchers
+        finally:
+            server.stop()
 
 
 class TestNotPortedOptions:
