@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (set-up, with ptxas's register,
-shared-memory and stack report), then runs fifteen phases and fails (exit 1,
+shared-memory and stack report), then runs sixteen phases and fails (exit 1,
 no result line) if any of them fails:
 
 1. fused kernel vs its plain version on the card: fused_assign against
@@ -149,7 +149,7 @@ no result line) if any of them fails:
    fused_dispatches == HA ticks, fallback_total 0, the FSM healthy, full
    gc collections; a profiler window of 1 tick (device kernels, busy
    us, each kernel's launches and ms per launch); (b) the same world,
-   options and first 2 ticks on a CPU runtime: equal objects (every
+   options and first tick on a CPU runtime: equal objects (every
    status), provider replicas and exposition (less timings and the
    service's and manager's own counters); (c) the binary `python -m
    karpenter_tpu_torch --profile production --cloud-provider fake
@@ -226,6 +226,34 @@ no result line) if any of them fails:
    leader exits 0, the standby takes the lease within the lease duration
    plus its skew tolerance and ticks on its card; with
    CUDA_VISIBLE_DEVICES="" the command exits 1 before any LIST or watch.
+16. the shipped Deployment (config/manager/manager.yaml: the controller
+   with --cloud-provider tpu --solver-uri beside `python -m
+   karpenter_tpu_torch.sidecar`, which owns the card): it prints the
+   transport leg (`sidecar transport: grpc <version>`) and fails where
+   grpc is not installed; (a) phase 15's draws in a Store
+   plus the four GKE TPU pools of workloads.TPU_POOLS (one with no live
+   node, profiled from the pool's template: ct5lp-hightpu-4t, 2x4) behind
+   a fake GKE cluster manager through cloudprovider/gke_sdk.py, each
+   scaled by an autoscaler on its producer's additional-nodes gauge
+   (docs/examples/pending-capacity-binpack.yaml); a SolverServer on the
+   card in this process, a KarpenterRuntime(Options(solver_uri,
+   device="cuda")) split from it (its service on the host under the
+   card's failure rule) and a CPU twin without a sidecar: the first tick
+   and 3 churned ticks of 1,000 pods, each launching each kernel exactly
+   once, all from the sidecar's service (counts set to 0 just before the
+   churn, read after the tick); after every tick the producers', node
+   groups' and autoscalers' documents, the exposition and the fake API's
+   resizes equal the twin's; tick p50/p95, the split into RPC round
+   trips, the sidecar's service.solve and the kernels' device ms per
+   launch, Solve and Decide RPCs and request bytes per tick; (b) at
+   10,000 pods, `python -m karpenter_tpu_torch.sidecar` on the card and
+   `python -m karpenter_tpu_torch --solver-uri --cloud-provider tpu
+   --data-dir D` with CUDA_VISIBLE_DEVICES="": the controller ticks
+   through the sidecar, its producers' statuses equal an in-process card
+   runtime's, its pools answer the no-SDK guidance, both exit 0 on
+   SIGTERM; the sidecar with the card hidden exits 1 before it binds, and
+   a --device cuda controller beside a --device cpu sidecar exits 1
+   before its first tick.
 
 Then it profiles 20 main-path solves (torch.profiler: device time by
 kernel) and prints, before the last line, one JSON line of kernel records
@@ -4088,6 +4116,483 @@ def phase_kube(torch, TF, workloads, simulate):
     return out
 
 
+# -- phase 16: the shipped Deployment (solver sidecar + GKE TPU provider) -----
+
+# (a) phase 15's draws in an in-process Store, plus workloads.TPU_POOLS
+DEPLOY_SHAPE = dict(pods=100_000, types=300, seed=0)
+DEPLOY_TPU_PODS = 24  # pending TPU pods per pool, times (pool index + 1)
+DEPLOY_TICKS = 3  # churned ticks after the first
+DEPLOY_TWIN_TICKS = 3  # the CPU twin's churned ticks
+DEPLOY_LATE_S = 1100.0  # smoke seconds past which the twin is cut to 1
+DEPLOY_SIDECAR = None  # the sidecar's device: the card
+DEPLOY_CONTROLLER = "cuda"  # the controller's --device
+# (b) the processes' world, and the sidecar process's extra flags
+DEPLOY_BINARY_SHAPE = dict(pods=10_000, types=300, seed=0)
+DEPLOY_SIDECAR_ARGS = ()
+DEPLOY_BINARY_S = 30  # the controller process's --duration
+DEPLOY_KINDS = ("MetricsProducer", "ScalableNodeGroup", "HorizontalAutoscaler")
+# the controller process's environment: no card, and no GCE metadata lookup
+# should a google-cloud SDK be importable there
+DEPLOY_CONTROLLER_ENV = {"CUDA_VISIBLE_DEVICES": "", "NO_GCE_CHECK": "true"}
+
+
+def _grpc_version():
+    """grpc's version, or None when it is not installed."""
+    try:
+        import grpc
+    except ImportError:
+        return None
+    return grpc.__version__
+
+
+def _deploy_documents(workloads, runtime, store, manager, to_dict):
+    """What a Deployment tick leaves behind: the producers', node groups'
+    and autoscalers' documents (less uid and transition times), the
+    registry's exposition (less timings and the service's own counters)
+    and the resizes the fake GKE API received since the last call."""
+    docs = {}
+    for kind in DEPLOY_KINDS:
+        for obj in store.list(kind):
+            doc = to_dict(obj)
+            doc.get("metadata", {}).pop("uid", None)
+            for c in (doc.get("status") or {}).get("conditions") or []:
+                c.pop("lastTransitionTime", None)
+            docs[(kind, obj.metadata.name)] = doc
+    return {"docs": docs,
+            "exposition": workloads.exposition_lines(runtime.registry,
+                                                     workloads.RUNG_SKIP),
+            "resizes": manager.take_resizes()}
+
+
+class _DeployRun:
+    """One runtime over its own copy of the Deployment world, ticked by
+    hand on a stepped clock."""
+
+    def __init__(self, workloads, uri, device):
+        from karpenter_tpu_torch.api.serialization import to_dict
+        from karpenter_tpu_torch.runtime import KarpenterRuntime, Options
+        from karpenter_tpu_torch.store import Store
+
+        self.workloads = workloads
+        self.to_dict = to_dict
+        self.store = Store()
+        self.manager = workloads.FakeClusterManager()
+        t0 = time.perf_counter()
+        self.cluster = workloads.build_deployment_world(
+            self.store, tpu_pods=DEPLOY_TPU_PODS, **DEPLOY_SHAPE)
+        self.world_s = time.perf_counter() - t0
+        self.now = 1000.0
+        t0 = time.perf_counter()
+        self.runtime = KarpenterRuntime(
+            Options(solver_uri=uri, device=device), store=self.store,
+            cloud_provider_factory=workloads.tpu_factory(
+                workloads.deployment_api(), self.manager, self.store),
+            clock=lambda: self.now,
+        )
+        self.boot_s = time.perf_counter() - t0
+
+    def churn(self):
+        """Draw a churn (outside any timing), then return its mutation."""
+        self.now += 5.0
+        return self.workloads.churn_reconcile(self.cluster, RECONCILE_CHURN)
+
+    def documents(self):
+        return _deploy_documents(self.workloads, self.runtime, self.store,
+                                 self.manager, self.to_dict)
+
+    def close(self):
+        self.runtime.close()
+
+
+def _deploy_same(card, twin, tick):
+    need(card["docs"].keys() == twin["docs"].keys(),
+         f"tick {tick}: the runtimes hold different objects")
+    diff = [k for k, v in card["docs"].items() if twin["docs"][k] != v]
+    need(not diff, f"tick {tick}: {len(diff)} documents differ between the "
+         f"card's split runtime and the CPU twin, e.g. {diff[:3]}")
+    need(card["exposition"] == twin["exposition"],
+         f"tick {tick}: the expositions differ")
+    need(card["resizes"] == twin["resizes"],
+         f"tick {tick}: resizes {card['resizes']} != {twin['resizes']}")
+
+
+def _deploy_in_process(torch, TF, TB, workloads):
+    """(a) the card's sidecar in this process, a controller runtime split
+    from it, and a CPU twin, ticked in lockstep."""
+    from karpenter_tpu_torch.sidecar import SolverServer
+    from karpenter_tpu_torch.sidecar import client as SC
+    from karpenter_tpu_torch.solver import default_service, reset_default_service
+
+    reset_default_service()
+    server = SolverServer(port=0, host="127.0.0.1", device=DEPLOY_SIDECAR)
+    uri = f"127.0.0.1:{server.start()}"
+    runs = []
+    try:
+        card = _DeployRun(workloads, uri, DEPLOY_CONTROLLER)
+        runs.append(card)
+        twin = _DeployRun(workloads, None, "cpu")
+        runs.append(twin)
+        report(f"deployment worlds {DEPLOY_SHAPE} + {len(workloads.TPU_POOLS)}"
+               f" TPU pools written in {card.world_s} / {twin.world_s} s; "
+               f"runtimes built in {card.boot_s} / {twin.boot_s} s")
+        svc = server.service or default_service()
+        need(svc.device.type == ("cuda" if DEPLOY_SIDECAR is None else "cpu"),
+             f"the sidecar's service runs on {svc.device}")
+        ctl = card.runtime.solver_service
+        need(ctl.device.type == "cpu" and ctl.device_solver is not None
+             and ctl._numpy_ladder == (DEPLOY_CONTROLLER == "cpu"),
+             "the controller's service is not split under its device's "
+             "rule")
+        parts = {}
+
+        def timed(owner, attr, label):
+            real = getattr(owner, attr)
+
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return real(*args, **kwargs)
+                finally:
+                    parts[label] = parts.get(label, 0.0) + (
+                        time.perf_counter() - t0)
+            setattr(owner, attr, wrapper)
+            return real
+
+        last = {}
+        real_solve = svc.solve
+
+        def sidecar_solve(inputs, *args, **kwargs):
+            last["inputs"] = inputs
+            return real_solve(inputs, *args, **kwargs)
+
+        svc.solve = sidecar_solve
+        timed(svc, "solve", "sidecar service.solve")
+        timed(card.runtime.solver_client, "_call", "RPC round trips")
+        server.reset_rpcs()
+        ticks, rows, zero = [], [], None
+        try:
+            for tick in range(DEPLOY_TICKS + 1):
+                mutations = [run.churn() if tick else None for run in runs]
+                parts.clear()
+                requests = svc.stats.requests
+                torch.cuda.synchronize()
+                TF.reset_launch_counts()
+                t0 = time.perf_counter()
+                if mutations[0] is not None:
+                    mutations[0]()
+                t1 = time.perf_counter()
+                card.runtime.manager.reconcile_all()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                launches = dict(TF.LAUNCHES)
+                rpcs = server.reset_rpcs()
+                need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+                     f"tick {tick}: the kernels launched {launches}")
+                need(svc.stats.requests - requests == launches[
+                    "fused_assign"], f"tick {tick}: the sidecar's service "
+                     f"took {svc.stats.requests - requests} requests")
+                need(rpcs["Solve"][0] == 1, f"tick {tick}: RPCs {rpcs}")
+                got = card.documents()
+                if tick <= DEPLOY_TWIN_TICKS:
+                    if mutations[1] is not None:
+                        mutations[1]()
+                    twin.runtime.manager.reconcile_all()
+                    _deploy_same(got, twin.documents(), tick)
+                if tick:
+                    ticks.append((t2 - t1) * 1e3)
+                rows.append((tick, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                             {k: v * 1e3 for k, v in parts.items()},
+                             rpcs, launches))
+                zero = got["docs"][("MetricsProducer", "tpu-tpu-train-pool")]
+        finally:
+            for owner in (svc, card.runtime.solver_client):
+                owner.__dict__.pop("solve", None)
+                owner.__dict__.pop("_call", None)
+        need(ctl.stats.fallbacks == 0 and svc.stats.fallbacks == 0,
+             "a service answered from numpy")
+        pending = (zero.get("status") or {}).get("pendingCapacity") or {}
+        need(pending.get("additionalNodesNeeded", 0) > 0,
+             f"the scale-from-zero pool's producer: {pending}")
+        for tick, churn_ms, tick_ms, split, rpcs, launches in rows:
+            report(f"deployment tick {tick}: churn {churn_ms} ms, "
+                   f"reconcile_all {tick_ms} ms, split {split}; RPCs "
+                   f"(calls, request bytes) {rpcs}; launches {launches}")
+        p50, p95 = (float(np.percentile(ticks, q)) for q in (50, 95))
+        kernel, kernel_by = _deploy_kernel_ms(torch, TB, TF, last["inputs"])
+        request_bytes = rows[-1][4]["Solve"][1]
+        report(f"deployment churned ticks: p50 {p50} ms, p95 {p95} ms over "
+               f"{len(ticks)}; each kernel once per tick, all in the "
+               f"sidecar's service; the controller's service on "
+               f"{ctl.device}; card == CPU twin after {DEPLOY_TWIN_TICKS + 1}"
+               f" ticks; the scale-from-zero pool: {pending} from the GKE "
+               f"template; the kernels' ms per launch at the last tick's "
+               f"operands {kernel} ({kernel_by}); Solve request "
+               f"{request_bytes} bytes")
+        return {"launches_per_tick": rows[-1][5], "ms": kernel,
+                "ms_by": kernel_by,
+                "request_bytes": request_bytes, "tick_p50_ms": p50,
+                "tick_p95_ms": p95, "decides": [r[4]["Decide"][0]
+                                                for r in rows]}
+    finally:
+        for run in runs:
+            run.close()
+        server.stop()
+        reset_default_service()
+
+
+def _deploy_kernel_ms(torch, TB, TF, inputs):
+    """({wrapper: ms per launch}, how it was timed) at a tick's operands:
+    device time per launch from the profiler over 5 cuda solves, as
+    phase 15 does; where the profiler shows no device rows for a kernel
+    (it loses events late in a long process), each wrapper's time by
+    CUDA events around 50 calls on the operands uploaded once (an upper
+    bound on the device time: short kernels are enqueue-bound)."""
+    import dataclasses
+
+    kernel = _kernel_ms(torch, lambda: TB.solve(inputs, backend="cuda"))
+    if None not in kernel.values():
+        return kernel, "device time, profiler"
+    dev = TB.inputs_from_numpy(
+        {f.name: getattr(inputs, f.name) for f in dataclasses.fields(inputs)
+         if getattr(inputs, f.name) is not None}, "cuda")
+    hist = TF.fused_assign(dev, BUCKETS)[1]
+    return {
+        "fused_assign": time_ms(lambda: TF.fused_assign(dev, BUCKETS), 50),
+        "shelf_bfd": time_ms(lambda: TF.shelf_bfd(hist, BUCKETS), 50),
+    }, "CUDA events around 50 wrapper calls (the profiler showed no rows)"
+
+
+class _Sidecar:
+    """`python -m karpenter_tpu_torch.sidecar` as a subprocess: `port`
+    once it prints its serving line."""
+
+    def __init__(self, args, env=None):
+        import subprocess
+        import threading
+
+        self.lines = []
+        self.port = None
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "karpenter_tpu_torch.sidecar",
+             "--port", "0", "--host", "127.0.0.1", *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env,
+        )
+        self.reader = threading.Thread(target=self._read_err, daemon=True)
+        self.reader.start()
+
+    def _read_err(self):
+        for line in self.proc.stderr:
+            self.lines.append(line.rstrip())
+
+    def wait_serving(self, timeout=300):
+        import select
+
+        ready, _, _ = select.select([self.proc.stdout], [], [], timeout)
+        line = self.proc.stdout.readline() if ready else ""
+        need(line.startswith("{"), f"the sidecar did not serve: {line!r} "
+             f"{self.lines[-5:]}")
+        self.port = int(json.loads(line)["serving"].rsplit(":", 1)[1])
+        return self.port
+
+    def stop(self, timeout=60):
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        self.reader.join(timeout=10)
+        return rc
+
+
+def _deploy_statuses(store) -> dict:
+    from karpenter_tpu_torch.api.serialization import to_dict
+
+    return {mp.metadata.name: to_dict(mp).get("status", {}).get(
+        "pendingCapacity") for mp in store.list("MetricsProducer")}
+
+
+def _deploy_processes(workloads, root):
+    """(b) the sidecar and the controller as processes, in the
+    Deployment's shape, and the two device-rule refusals. The three
+    sidecars start together, before the worlds are written, so their
+    start-up overlaps."""
+    from karpenter_tpu_torch.cloudprovider import Options as CloudOptions
+    from karpenter_tpu_torch.cloudprovider.tpu import TPUFactory
+    from karpenter_tpu_torch.runtime import KarpenterRuntime, Options
+    from karpenter_tpu_torch.store import Store
+    from karpenter_tpu_torch.store.persistence import open_store
+
+    controller_env = dict(os.environ, **DEPLOY_CONTROLLER_ENV)
+    t0 = time.perf_counter()
+    sidecar = _Sidecar(list(DEPLOY_SIDECAR_ARGS))
+    hidden = _Sidecar([], env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    cpu_sidecar = _Sidecar(["--device", "cpu"])
+    binaries = []
+    try:
+        data = os.path.join(root, "data")
+        t1 = time.perf_counter()
+        store = open_store(data)
+        workloads.build_deployment_world(store, tpu_pods=DEPLOY_TPU_PODS,
+                                         **DEPLOY_BINARY_SHAPE)
+        store.close()
+        report(f"deployment world {DEPLOY_BINARY_SHAPE} written into the "
+               f"data dir in {time.perf_counter() - t1} s")
+        # the in-process card runtime's statuses over the same world, with
+        # the TPU provider bound to no SDK (as the process's)
+        mirror = Store()
+        workloads.build_deployment_world(mirror, tpu_pods=DEPLOY_TPU_PODS,
+                                         **DEPLOY_BINARY_SHAPE)
+        factory = TPUFactory(CloudOptions(store=mirror))
+        runtime = KarpenterRuntime(
+            Options(device=DEPLOY_SIDECAR), store=mirror,
+            cloud_provider_factory=factory)
+        try:
+            runtime.manager.reconcile_all()
+            want = _deploy_statuses(mirror)
+        finally:
+            runtime.close()
+        pool = factory.node_group_for(
+            mirror.list("ScalableNodeGroup")[0].spec)
+        try:
+            pool.set_replicas(1)
+            guidance = None
+        except Exception as error:  # noqa: BLE001 — the answer is checked
+            guidance = str(error)
+        need(guidance and "no container API client bound" in guidance,
+             f"a pool with no SDK answered {guidance!r}")
+        port = sidecar.wait_serving()
+        serve_s = time.perf_counter() - t0
+        binary = _Binary(
+            ["--solver-uri", f"127.0.0.1:{port}", "--cloud-provider", "tpu",
+             "--data-dir", data, "--metrics-port", "0", "--no-leader-elect",
+             "--tick", "0.1", "--duration", str(DEPLOY_BINARY_S)]
+            + (["--device", "cpu"] if DEPLOY_CONTROLLER == "cpu" else []),
+            env=controller_env)
+        binaries.append(binary)
+        # a --device cuda controller beside a --device cpu sidecar, over a
+        # data dir of its own (the process must not start, so it is empty)
+        refused = _Binary(
+            ["--solver-uri", f"127.0.0.1:{cpu_sidecar.wait_serving()}",
+             "--cloud-provider", "tpu", "--data-dir",
+             os.path.join(root, "refused"), "--metrics-port", "0",
+             "--duration", "5"], env=controller_env)
+        binaries.append(refused)
+        binary.wait_serving(300)
+        deadline = time.perf_counter() + 120
+        while True:
+            status, text = binary.get("/metrics")
+            requests = _metric(text, "karpenter_solver_requests_total")
+            if (_metric(text, "karpenter_runtime_tick_seconds", "manager")
+                    and requests):
+                break
+            need(time.perf_counter() < deadline,
+                 f"the controller did not tick: {binary.lines[-5:]}")
+            time.sleep(0.1)
+        fallbacks = _metric(text, "karpenter_solver_fallback_total") or 0.0
+        need(fallbacks == 0, f"the controller answered {fallbacks} "
+             "from numpy")
+        rc = binary.stop()
+        need(rc == 0, f"the controller exited {rc} on SIGTERM")
+        device_line = [x for x in binary.lines if "solver device:" in x]
+        need(device_line and "backend cuda" in device_line[0]
+             or DEPLOY_SIDECAR == "cpu",
+             f"the controller's device line: {device_line}")
+        store = open_store(data)
+        try:
+            got = _deploy_statuses(store)
+            # a pool bound to no container API refuses to resize with
+            # the reference's guidance, which the controller records as
+            # AbleToScale=False, ResizeFailed
+            refusing = [g.metadata.name
+                        for g in store.list("ScalableNodeGroup")
+                        for c in _sng_conditions(g)
+                        if c.get("type") == "AbleToScale"
+                        and c.get("status") == "False"
+                        and c.get("message") == "ResizeFailed"]
+        finally:
+            store.close()
+        need(got == want, "the controller process's statuses differ from "
+             "the in-process card runtime's: "
+             f"{[k for k in want if got.get(k) != want[k]][:3]}")
+        need(refusing, "no pool answered the no-SDK guidance")
+        logged = any("no container API client bound" in x
+                     for x in binary.lines)
+        report(f"processes: the sidecar served {serve_s} s after its start "
+               f"on its card; the controller ({device_line[0]}) ticked "
+               f"with CUDA_VISIBLE_DEVICES=\"\", {requests} solves through "
+               f"the sidecar, no fallback, exit 0 on SIGTERM; all "
+               f"{len(got)} producers' statuses == the in-process card "
+               f"runtime's; pools {refusing} answered the no-SDK guidance "
+               f"(AbleToScale=False, ResizeFailed: {guidance!r}; the text "
+               f"in the log: {logged})")
+        rc = refused.proc.wait(timeout=300)
+        refused.reader.join(timeout=10)
+        need(rc == 1 and refused.port is None,
+             f"a --device cuda controller beside a CPU sidecar exited {rc}")
+        need(any("computes on 'cpu'" in x for x in refused.lines),
+             f"no reason given: {refused.lines[-3:]}")
+        rc = hidden.proc.wait(timeout=300)
+        out = hidden.proc.stdout.read()
+        hidden.reader.join(timeout=10)
+        need(rc == 1 and not out.strip(), f"with the card hidden the "
+             f"sidecar exited {rc} and printed {out!r}")
+        need(any("CUDA device requested" in x for x in hidden.lines),
+             f"no reason given: {hidden.lines[-3:]}")
+        print("sidecar with CUDA_VISIBLE_DEVICES=\"\": exit 1 before "
+              "binding; a --device cuda controller beside a --device cpu "
+              "sidecar: exit 1 before its first tick", flush=True)
+    finally:
+        for binary in binaries:
+            binary.stop()
+        cpu_sidecar.stop()
+        hidden.stop()
+        rc = sidecar.stop()
+    need(rc == 0, f"the sidecar exited {rc} on SIGTERM")
+
+
+def _sng_conditions(group):
+    from karpenter_tpu_torch.api.serialization import to_dict
+
+    return (to_dict(group).get("status") or {}).get("conditions") or []
+
+
+def phase_deployment(torch, TF, TB, workloads, started):
+    """Phase 16: the shipped Deployment's shape on the card. Past
+    DEPLOY_LATE_S of smoke the CPU twin is cut to the first tick and one
+    churned tick (the card's ticks are never cut)."""
+    import shutil
+    import tempfile
+
+    global DEPLOY_TWIN_TICKS
+    if time.perf_counter() - started > DEPLOY_LATE_S:
+        DEPLOY_TWIN_TICKS = 1
+        print(f"phase 16: the smoke is past {DEPLOY_LATE_S} s; the CPU twin "
+              f"runs the first tick and 1 churned tick", flush=True)
+
+    version = _grpc_version()
+    need(version, "grpc is not installed: the sidecar's transport cannot run")
+    print(f"sidecar transport: grpc {version}", flush=True)
+    t0 = time.perf_counter()
+    out = _deploy_in_process(torch, TF, TB, workloads)
+    t1 = time.perf_counter()
+    report(f"phase 16 (a): {t1 - t0} s")
+    root = tempfile.mkdtemp(prefix="karpenter-deployment-")
+    try:
+        _deploy_processes(workloads, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report(f"phase 16 (b): {time.perf_counter() - t1} s")
+    out["transport"] = f"grpc {version}"
+    return out
+
+
 def profile_solves(torch, TB, inputs, n=ITERS):
     """Where a solve's time goes: the mean of back-to-back solves by CUDA
     events, then a torch.profiler window of n solves (device time by
@@ -4198,7 +4703,7 @@ def device_ms(profile, wrapper):
 
 
 def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
-                   service, disruption, runtime, simulate, kube):
+                   service, disruption, runtime, simulate, kube, deployment):
     """Per-kernel JSON records at the main path's shapes. `ms` is device
     time per launch from the profiler's rows of the kernel's own names
     (the fused row sums its two kernels); `call_ms` is the wrapper's time
@@ -4236,7 +4741,15 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
     `kube_launches_per_tick` its counts over the timed churned ticks,
     `kube_ms` its device time per launch at the last churned tick's
     operands (solve(backend="cuda"), the service's cuda rung's call) and
-    `kube_simulate_launches` its count over `--simulate --apiserver`."""
+    `kube_simulate_launches` its count over `--simulate --apiserver`.
+    `sidecar_launches_per_tick` is the wrapper's count over phase 16's
+    last churned tick of the controller split from its card (all of them
+    in the sidecar's service), `sidecar_ms` its device time per launch at
+    that tick's operands (`sidecar_ms_by`: the profiler's device time,
+    or CUDA events around the wrapper where the profiler lost the rows),
+    `sidecar_request_bytes` the tick's Solve
+    request on the wire and `sidecar_transport` the leg that carried it
+    (grpc and its version)."""
     from karpenter_tpu_torch.ops.fused_assign import _packed
 
     pods, n_res = inputs.pod_requests.shape
@@ -4329,6 +4842,12 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
             "kube_launches_per_tick": kube["launches_per_tick"][name],
             "kube_ms": kube["ms"][name],
             "kube_simulate_launches": kube["dry_launches"][name],
+            "sidecar_launches_per_tick": deployment["launches_per_tick"][
+                name],
+            "sidecar_ms": deployment["ms"][name],
+            "sidecar_ms_by": deployment["ms_by"],
+            "sidecar_request_bytes": deployment["request_bytes"],
+            "sidecar_transport": deployment["transport"],
             "max_abs_err": err,
             "ms": ms,
             "call_ms": call_ms,
@@ -4407,6 +4926,8 @@ def main() -> int:
         ("simulate", lambda: phase_simulate(torch, TF, workloads)),
         ("real-cluster mode", lambda: phase_kube(
             torch, TF, workloads, results["simulate"])),
+        ("the shipped Deployment", lambda: phase_deployment(
+            torch, TF, TB, workloads, started)),
     ]
     for name, run in phases:
         try:
@@ -4429,9 +4950,10 @@ def main() -> int:
                              results["disruption"],
                              results["controller binary"],
                              results["simulate"],
-                             results["real-cluster mode"])
+                             results["real-cluster mode"],
+                             results["the shipped Deployment"])
     report(f"chip_smoke wall time: {time.perf_counter() - started} s "
-           f"(kernel build and all fifteen phases)")
+           f"(kernel build and all sixteen phases)")
     print(f"card: {CARD['line']}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

@@ -22,6 +22,16 @@ mirror read by the controllers, statuses, scales and leases written over
 REST) instead of the in-process store, and `--webhook-port` serves the
 admission webhooks (webhook.py). The device check runs first: without a
 card the process exits before any watch stream opens.
+
+`--solver-uri HOST:PORT` puts the card in a solver sidecar (`python -m
+karpenter_tpu_torch.sidecar`), the shipped Deployment's shape: this
+process then builds no kernel and needs no card. Its device check is the
+sidecar's Health answer instead, before any LIST and any tick: under
+`--device cuda` (the default) the sidecar must compute on the card, or
+the process exits 1 with the reason; under `--device cpu` either answer
+is accepted. `--cloud-provider aws|tpu` select the AWS and GKE TPU
+providers (cloudprovider/aws.py, cloudprovider/tpu.py); without their
+SDKs the pools answer the reference's not-implemented guidance.
 """
 
 from __future__ import annotations
@@ -38,7 +48,6 @@ from karpenter_tpu_torch.utils.log import setup as log_setup
 # flag -> (is it set?, the reference's module it needs, by its path under
 # the package root): each exits 2
 NOT_PORTED_FLAGS = (
-    ("--solver-uri", lambda a: bool(a.solver_uri), "sidecar/"),
     ("--tenant-config", lambda a: bool(a.tenant_config),
      "tenancy/"),
     ("--partitions", lambda a: a.partitions > 0, "replication/"),
@@ -49,10 +58,6 @@ NOT_PORTED_FLAGS = (
      "which has no torch counterpart"),
     ("--shard-mesh", lambda a: bool(a.shard_mesh),
      "the sharded dispatch of parallel/mesh.py"),
-    ("--cloud-provider aws", lambda a: a.cloud_provider == "aws",
-     "cloudprovider/aws.py"),
-    ("--cloud-provider tpu", lambda a: a.cloud_provider == "tpu",
-     "cloudprovider/tpu.py"),
 )
 
 
@@ -840,7 +845,10 @@ def _setup_backend(args) -> str:
     instead of running nvcc again. Then the device is resolved and, on
     the card, every kernel is built and loaded. Unlike the reference,
     an unusable card is not answered by a CPU fallback: this raises
-    with the reason (utils/backend.py)."""
+    with the reason (utils/backend.py). With --solver-uri the card is
+    the sidecar's: its Health answer is checked instead, and nothing
+    is built here; the checked client rides on `args.solver_client` to
+    the runtime, which then skips its own check."""
     import os as _os
 
     from karpenter_tpu_torch.utils.backend import (
@@ -852,7 +860,39 @@ def _setup_backend(args) -> str:
         args.compile_cache_dir
         or _os.environ.get("KARPENTER_COMPILE_CACHE", "")
     )
+    if args.solver_uri:
+        return _check_sidecar(args)
     return ensure_usable_backend(args.device)
+
+
+def _check_sidecar(args) -> str:
+    """The sidecar's Health answer held to --device (sidecar/client.
+    require_backend): raises when the card was asked for and the sidecar
+    does not compute on it, or does not answer. The client that passed
+    is kept on `args.solver_client` for the runtime."""
+    from karpenter_tpu_torch.sidecar.client import SolverClient, require_backend
+
+    client = SolverClient(args.solver_uri, tenant=args.tenant_id)
+    try:
+        meta = require_backend(client, args.device)
+    except BaseException:
+        client.close()
+        raise
+    args.solver_client = client
+    return (
+        f"solver sidecar at {args.solver_uri} (backend "
+        f"{meta.get('backend', 'not answered')}, device_count "
+        f"{meta.get('device_count', 'not answered')}); this process "
+        "builds no kernel"
+    )
+
+
+def _close_sidecar_client(args) -> None:
+    """Closes the client _check_sidecar kept (a runtime that took it may
+    have closed it already; a second close does nothing)."""
+    client = getattr(args, "solver_client", None)
+    if client is not None:
+        client.close()
 
 
 def main(argv=None) -> int:
@@ -867,6 +907,7 @@ def main(argv=None) -> int:
         store = _make_store(args)
         runtime = _build_runtime(args, store)
     except Exception as error:  # noqa: BLE001 — reported, exit non-zero
+        _close_sidecar_client(args)
         if store is not None:
             store.close()
         return _cannot_start(error)
@@ -924,12 +965,14 @@ def _simulate_main(args) -> int:
             note = _setup_backend(args)
             store = _make_store(args)
         except Exception as error:  # noqa: BLE001 — reported, exit non-zero
+            _close_sidecar_client(args)
             return _cannot_start(error)
         print(f"solver device: {note}", file=sys.stderr)
     try:
         return _run_simulation(args, store)
     finally:
         _export_trace(args)
+        _close_sidecar_client(args)
         if store is not None:
             store.close()
 
@@ -939,6 +982,7 @@ def _build_runtime(args, store=None) -> KarpenterRuntime:
         Options(
             prometheus_uri=args.prometheus_uri,
             cloud_provider=args.cloud_provider,
+            solver_uri=args.solver_uri,
             data_dir=args.data_dir,
             verbose=args.verbose,
             consolidate=args.consolidate,
@@ -979,6 +1023,7 @@ def _build_runtime(args, store=None) -> KarpenterRuntime:
             device=args.device,
         ),
         store=store,
+        solver_client=getattr(args, "solver_client", None),
     )
 
 

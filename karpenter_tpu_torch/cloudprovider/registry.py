@@ -1,6 +1,5 @@
 """Runtime provider selection (the port's copy of
-karpenter_tpu/cloudprovider/registry.py, with the fake provider only: the
-AWS, GKE and TPU providers come with a later slice).
+karpenter_tpu/cloudprovider/registry.py).
 
 reference: pkg/cloudprovider/registry/{aws,fake}.go — the reference selects
 its provider at COMPILE time via Go build tags (`-tags=aws`). The TPU build
@@ -36,4 +35,20 @@ def new_factory(options: Optional[Options] = None, provider: Optional[str] = Non
     return factory_fn(options)
 
 
+def _aws_factory(options: Options):
+    from karpenter_tpu_torch.cloudprovider.aws import AWSFactory
+
+    # registry selection = the operator explicitly chose this provider, so
+    # live SDK clients are wanted (reference: factory.go builds a session)
+    return AWSFactory(options, sdk_autobind=True)
+
+
+def _tpu_factory(options: Options):
+    from karpenter_tpu_torch.cloudprovider.tpu import TPUFactory
+
+    return TPUFactory(options, sdk_autobind=True)
+
+
 register_provider("fake", lambda options: FakeFactory(options))
+register_provider("aws", _aws_factory)
+register_provider("tpu", _tpu_factory)

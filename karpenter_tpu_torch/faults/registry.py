@@ -76,7 +76,7 @@ counters it provokes.
 The port's copy of karpenter_tpu/faults/registry.py. The port
 instruments the points above (and simlab.step, the service's sim_step /
 sim_rollout, and constraints.mask, the constraint encoder), less those
-of modules it does not have yet: sidecar.rpc, lease.*, replica.crash.*.
+of modules it does not have yet: lease.*, replica.crash.*.
 """
 
 from __future__ import annotations

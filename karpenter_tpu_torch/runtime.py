@@ -10,7 +10,7 @@ The port's copy of karpenter_tpu/runtime.py. What differs:
     (or "cuda") is the CUDA card, and construction raises without one;
     "cpu" runs the plain PyTorch and numpy programs on the host.
   * Options whose modules are not ported yet raise NotPortedError at
-    construction (solver_uri, tenant_config, partitions, introspect,
+    construction (tenant_config, partitions, introspect,
     solver_shard_mesh): nothing stands in for them. The
     service has no shard route, so on one card it serves exactly as the
     reference's does (whose mesh needs two devices).
@@ -21,6 +21,15 @@ The port's copy of karpenter_tpu/runtime.py. What differs:
     fails, instead of logging and booting degraded.
   * compile_cache_dir is the directory the CUDA kernels build into
     (utils/backend.configure_compile_cache).
+  * With `solver_uri` the card lives in the solver sidecar
+    (python -m karpenter_tpu_torch.sidecar): this process builds no
+    kernel and needs no card, its service runs its host rungs on the CPU
+    and sends the bin-pack and the decide over gRPC. `device` still
+    names what the operator asked for. Under None / "cuda" the sidecar
+    must answer Health with backend "cuda" before anything else is
+    built, and a failed Solve or Decide raises SolverDeviceError (or
+    SolverTimeout), never an answer from numpy; under "cpu" the
+    reference's numpy ladder stays.
 """
 
 from __future__ import annotations
@@ -259,7 +268,6 @@ class NotPortedError(RuntimeError):
 # option -> (is it set?, the reference's module it needs, by its path
 # under the package root)
 _NOT_PORTED = (
-    ("solver_uri", lambda v: bool(v), "sidecar/"),
     ("tenant_config", lambda v: bool(v), "tenancy/"),
     ("partitions", lambda v: v > 0, "replication/"),
     ("introspect", lambda v: bool(v),
@@ -288,6 +296,7 @@ class KarpenterRuntime:
         registry: Optional[GaugeRegistry] = None,
         cloud_provider_factory=None,
         clock=None,
+        solver_client=None,
     ):
         import time as _time
 
@@ -295,6 +304,10 @@ class KarpenterRuntime:
         refuse_unported(options)
         self.options = options
         self.manager = self.solver_service = self.recovery = None
+        # a client of options.solver_uri whose Health gate the caller
+        # already passed (the binary checks it before its first LIST);
+        # the runtime owns and closes it
+        self.solver_client = solver_client
         self.clock = clock or _time.time
         self._owns_store = store is None
         self.store = store if store is not None else self._open_store(options)
@@ -334,14 +347,19 @@ class KarpenterRuntime:
             )
         )
         self._seed_fence_validator()
+        device_solver, decider = self._build_solver_client(options)
         # ALL bin-pack callers route through the shared solve service
         # (solver/service.py): coalescing, shape buckets, backpressure,
         # the health FSM, and a metrics surface in THIS runtime's
         # registry so /metrics exposes it with no extra wiring. On the
         # card it builds the CUDA kernels here, and a failed build
-        # raises; it never answers from numpy there.
+        # raises; it never answers from numpy there. Split from its
+        # card (solver_uri) it runs on the host and fronts the sidecar
+        # client, under the card's failure rule when the card was asked
+        # for.
         from karpenter_tpu_torch.solver import SolverService
 
+        split = device_solver is not None
         self.solver_service = SolverService(
             registry=self.registry,
             window_s=options.solver_window_s,
@@ -350,7 +368,10 @@ class KarpenterRuntime:
             health_probe_interval_s=options.solver_probe_interval_s,
             watchdog_timeout_s=options.solver_watchdog_timeout_s,
             resident=options.solver_resident,
-            device=options.device,
+            device="cpu" if split else options.device,
+            card_rule=split and options.device != "cpu",
+            device_solver=device_solver,
+            decider=decider,
         )
         self._reset_caches_for_recovery()
         self.producer_factory = ProducerFactory(
@@ -619,6 +640,31 @@ class KarpenterRuntime:
         if selfslo is not None:
             selfslo.evaluate()
 
+    def _build_solver_client(self, options: Options):
+        """(device_solver, decider) seams for the gRPC process split:
+        with a sidecar configured the control-plane process runs NO
+        device math — the decision program rides the same split. The
+        sidecar's Health answer is held to `options.device` first
+        (sidecar/client.require_backend) unless the caller handed in a
+        client it already checked; on the card's rule the seams raise the
+        card's errors (sidecar/client.card_seams)."""
+        if not options.solver_uri:
+            return None, None
+        from karpenter_tpu_torch.sidecar.client import (
+            SolverClient,
+            card_seams,
+            require_backend,
+        )
+
+        if self.solver_client is None:
+            self.solver_client = SolverClient(
+                options.solver_uri, tenant=options.tenant_id
+            )
+            require_backend(self.solver_client, options.device)
+        if options.device in (None, "cuda"):
+            return card_seams(self.solver_client)
+        return self.solver_client.solve, self.solver_client.decide
+
     def _build_recovery(self, options: Options):
         if not options.journal_dir:
             return None
@@ -727,5 +773,8 @@ class KarpenterRuntime:
             self.recovery = None
         if self.solver_service is not None:
             self.solver_service.close()
+        if self.solver_client is not None:
+            self.solver_client.close()
+            self.solver_client = None
         if self._owns_store and hasattr(self.store, "close"):
             self.store.close()

@@ -352,11 +352,13 @@ def _run_karpenter(args, store) -> int:
             )
             return 2
 
-    # a runtime only to materialize the store the flags describe (the
-    # WAL dir); no controllers tick, nothing is mutated
+    # a runtime only to materialize the store the flags describe (WAL
+    # dir or live apiserver) and the optional solver sidecar; no
+    # controllers tick, nothing is mutated
     runtime = KarpenterRuntime(
         Options(
             data_dir=args.data_dir,
+            solver_uri=args.solver_uri,
             cloud_provider=args.cloud_provider,
             verbose=args.verbose,
             cost_default_hourly=args.cost_default_hourly,
@@ -366,6 +368,7 @@ def _run_karpenter(args, store) -> int:
             device=_device(args),
         ),
         store=store,
+        solver_client=getattr(args, "solver_client", None),
     )
     # route through the runtime's shared solve service: the dry run gets
     # the same queueing, deadlines and failure policy the production

@@ -429,6 +429,11 @@ class SolverService:
     individually, but queueing, deadlines, backpressure, fallback, and
     metrics still apply. `decider` seams the HPA decision program the
     same way.
+
+    `card_rule` holds a host service to the card's failure rule (failures
+    raise, never answered from numpy): a controller whose card lives in a
+    solver sidecar runs its service on the host with `card_rule=True`
+    when the operator asked for the card.
     """
 
     def __init__(
@@ -451,6 +456,7 @@ class SolverService:
         watchdog_timeout_s: float = 0.0,  # 0 = watchdog disabled
         resident: bool = True,
         device: DeviceLike = None,
+        card_rule: bool = False,
     ):
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
@@ -458,7 +464,7 @@ class SolverService:
         self.device = dev
         # the never-block ladder (module docstring) answers from numpy on
         # the CPU only: on the card a failure reaches the caller
-        self._numpy_ladder = dev.type != "cuda"
+        self._numpy_ladder = dev.type != "cuda" and not card_rule
         if on_timeout is None:
             on_timeout = "fallback" if self._numpy_ladder else "raise"
         if on_timeout not in ("fallback", "raise"):
@@ -1145,7 +1151,11 @@ class SolverService:
             with default_tracer().span("solver.decide"):
                 with solver_trace("solver.decide"):
                     out = self._decide_dispatch(inputs)
-            self._annotate_provenance("torch", "device")
+            # served by the in-process program, or across the gRPC split
+            self._annotate_provenance(
+                "grpc" if self.device_solver is not None else "torch",
+                "sidecar" if self.device_solver is not None else "device",
+            )
             return out
         except Exception:
             self.stats.decide_errors += 1

@@ -25,6 +25,12 @@
   provider, pending critical pods, and the engines behind the
   ScalableNodeGroup controller); `build_preempt_inputs`: bench.py's
   eviction-planning fleet.
+- `build_deployment_world` / `FakeClusterManager`: the shipped
+  Deployment's world (config/manager/manager.yaml: the controller with
+  --cloud-provider tpu beside a solver sidecar): the reconcile cluster
+  plus GKE TPU pod-slice pools, one with no live node (scale from zero,
+  docs/examples/pending-capacity-binpack.yaml), behind a fake GKE
+  cluster manager.
 - `write_reconcile_dir` / `write_disruption_dir`: the reconcile cluster
   and the disruption world written into a durable store, the data dirs
   `--simulate` and `--simulate --consolidate` read; `what_if_specs`: a
@@ -1983,3 +1989,240 @@ def server_documents(server, plural: str,
             c.pop("lastTransitionTime", None)
         out[(meta.get("namespace"), meta.get("name"))] = doc
     return out
+
+
+# -- the shipped Deployment's world (sidecar + the GKE TPU provider) ----------
+
+# What the Deployment world needs, by module under the package root; `api=`
+# takes these names from either package (deployment_api gives this one's).
+DEPLOYMENT_API = {
+    **KUBE_API,
+    "api.core": KUBE_API["api.core"] + ("NodeSpec", "Taint", "Toleration"),
+    "cloudprovider": ("Options",),
+    "cloudprovider.gke_sdk": ("GKEContainerClient",),
+    "cloudprovider.tpu": ("TPUFactory", "TPU_TOPOLOGY_LABEL",
+                          "NODE_POOL_LABEL", "TPU_CHIP_RESOURCE"),
+}
+
+# (pool, topology, machine type, live hosts): GKE TPU node pools. Each
+# machine type has 4 chips per host; the last pool has no live node, so
+# the bin-pack profiles it from the pool's template (scale from zero).
+TPU_POOLS = (
+    ("tpu-v5e-2x2", "2x2", "ct5lp-hightpu-4t", 2),
+    ("tpu-v5e-4x4", "4x4", "ct5lp-hightpu-4t", 4),
+    ("tpu-v4-2x2x2", "2x2x2", "ct4p-hightpu-4t", 2),
+    ("tpu-train-pool", "2x4", "ct5lp-hightpu-4t", 0),
+)
+TPU_POOL_PARENT = "projects/example/locations/us-central2-b/nodePools/"
+TPU_ACCELERATOR_LABEL = "cloud.google.com/gke-tpu-accelerator"
+TPU_TAINT = ("google.com/tpu", "present")
+# host shape of each machine type: (cpu, memory)
+TPU_HOSTS = {"ct5lp-hightpu-4t": ("112", "192Gi"),
+             "ct4p-hightpu-4t": ("240", "407Gi")}
+
+
+def deployment_api_namespace(modules: Dict[str, object]) -> ReconcileAPI:
+    """The names of DEPLOYMENT_API taken from `modules`, which maps each
+    of its keys to a module object."""
+    return _namespace(DEPLOYMENT_API, modules)
+
+
+def deployment_api() -> ReconcileAPI:
+    """DEPLOYMENT_API from this package."""
+    from karpenter_tpu_torch import store
+    from karpenter_tpu_torch.api import (
+        core,
+        horizontalautoscaler,
+        metricsproducer,
+        scalablenodegroup,
+        serialization,
+    )
+    from karpenter_tpu_torch import cloudprovider
+    from karpenter_tpu_torch.cloudprovider import gke_sdk, tpu
+    from karpenter_tpu_torch.metrics import registry
+    from karpenter_tpu_torch.metrics.producers import pendingcapacity
+    from karpenter_tpu_torch.store import columnar
+    from karpenter_tpu_torch.utils import quantity
+
+    return deployment_api_namespace({
+        "api.core": core,
+        "api.horizontalautoscaler": horizontalautoscaler,
+        "api.metricsproducer": metricsproducer,
+        "api.scalablenodegroup": scalablenodegroup,
+        "api.serialization": serialization,
+        "cloudprovider": cloudprovider,
+        "cloudprovider.gke_sdk": gke_sdk,
+        "cloudprovider.tpu": tpu,
+        "metrics.producers.pendingcapacity": pendingcapacity,
+        "metrics.registry": registry,
+        "store": store,
+        "store.columnar": columnar,
+        "utils.quantity": quantity,
+    })
+
+
+def _accelerator(machine_type: str) -> str:
+    return ("tpu-v5-lite-podslice" if machine_type.startswith("ct5lp")
+            else "tpu-v4-podslice")
+
+
+class _Record:
+    """An attribute bag, as google-cloud's response messages read."""
+
+    def __init__(self, **fields):
+        self.__dict__.update(fields)
+
+
+class FakeClusterManager:
+    """The three calls GKEContainerClient (cloudprovider/gke_sdk.py) makes
+    of google.cloud.container_v1.ClusterManagerClient, over the node
+    pools of `pools` (TPU_POOLS' layout): set_node_pool_size is recorded
+    in `resizes` as (pool, size), list_operations answers `operations`,
+    get_node_pool answers the pool's config (machine type, the TPU
+    labels, the google.com/tpu taint in the API's enum dialect). Thread
+    safe: a runtime's controllers call it from their own threads."""
+
+    def __init__(self, pools=TPU_POOLS):
+        import threading
+
+        self._lock = threading.Lock()
+        self.resizes: List[tuple] = []
+        self.operations: List = []
+        self.configs = {
+            pool: _Record(
+                machine_type=machine,
+                labels={
+                    "cloud.google.com/gke-tpu-topology": topology,
+                    TPU_ACCELERATOR_LABEL: _accelerator(machine),
+                },
+                taints=[_Record(
+                    key=TPU_TAINT[0], value=TPU_TAINT[1],
+                    effect=_Record(name="NO_SCHEDULE"),
+                )],
+            )
+            for pool, topology, machine, _ in pools
+        }
+
+    def set_node_pool_size(self, request):
+        with self._lock:
+            self.resizes.append(
+                (request["name"].rsplit("/", 1)[1], request["node_count"]))
+
+    def list_operations(self, request):
+        with self._lock:
+            return _Record(operations=list(self.operations))
+
+    def get_node_pool(self, request):
+        return _Record(config=self.configs[request["name"].rsplit("/", 1)[1]])
+
+    def take_resizes(self) -> List[tuple]:
+        """The resizes recorded since the last call."""
+        with self._lock:
+            taken, self.resizes = self.resizes, []
+        return taken
+
+
+def tpu_factory(api: ReconcileAPI, manager: FakeClusterManager, store):
+    """`api`'s TPUFactory over `manager` through its GKEContainerClient:
+    the provider a --cloud-provider tpu runtime gets from a live GKE
+    binding, with the fake standing in for Google's client."""
+    return api.TPUFactory(api.Options(store=store),
+                          container_api=api.GKEContainerClient(manager))
+
+
+def build_deployment_world(store, pods: int, types: int, seed: int, *,
+                           tpu_pods: int = 24, pools=TPU_POOLS,
+                           api: Optional[ReconcileAPI] = None
+                           ) -> ReconcileCluster:
+    """The shipped Deployment's world, written into `store` (objects
+    only; a KarpenterRuntime builds every engine itself):
+
+    - build_reconcile_cluster(pods, types, seed)'s draw;
+    - for each pool of `pools` (TPU_POOLS' layout) its live hosts
+      (Ready, labeled with the pool, topology and accelerator, the
+      google.com/tpu=present:NoSchedule taint, 4 chips each), a
+      pendingCapacity MetricsProducer `tpu-<pool>` selecting its
+      topology with nodeGroupRef = the pool, a TPUPodSlicePool
+      ScalableNodeGroup `<pool>` asking for one slice more than its live
+      hosts make (so the first reconcile resizes every pool), and a
+      HorizontalAutoscaler scaling it on the producer's
+      additional-nodes gauge (docs/examples/pending-capacity-binpack.
+      yaml);
+    - `tpu_pods` x (pool index + 1) pending pods per pool, each asking
+      for one host's 4 chips, selecting the pool's topology and
+      tolerating the taint. The reconcile draw's pods tolerate no taint,
+      so they fit no pool, and these pods fit no other group.
+
+    Returns the reconcile cluster (churn it with churn_reconcile; the
+    TPU pods are never churned). `api` (deployment_api) names the
+    classes; the port's by default."""
+    api = api if api is not None else deployment_api()
+    cluster = _draw_reconcile(api, store, np.random.default_rng(seed), pods,
+                              types, 0.0, 0.0, 0.0)
+    chips = "4"
+    taint = api.Taint(key=TPU_TAINT[0], value=TPU_TAINT[1],
+                      effect="NoSchedule")
+    for index, (pool, topology, machine, hosts) in enumerate(pools):
+        labels = {api.NODE_POOL_LABEL: pool,
+                  api.TPU_TOPOLOGY_LABEL: topology,
+                  TPU_ACCELERATOR_LABEL: _accelerator(machine)}
+        cpu, memory = TPU_HOSTS[machine]
+        for h in range(hosts):
+            store.create(api.Node(
+                metadata=api.ObjectMeta(name=f"{pool}-h{h}",
+                                        labels=dict(labels)),
+                spec=api.NodeSpec(taints=[taint]),
+                status=api.NodeStatus(
+                    allocatable={
+                        "cpu": api.Quantity.parse(cpu),
+                        "memory": api.Quantity.parse(memory),
+                        api.TPU_CHIP_RESOURCE: api.Quantity.parse(chips),
+                    },
+                    conditions=[api.NodeCondition(type="Ready",
+                                                  status="True")],
+                ),
+            ))
+        slice_chips = int(np.prod([int(d) for d in topology.split("x")]))
+        per_slice = max(1, -(-slice_chips // int(chips)))
+        store.create(api.MetricsProducer(
+            metadata=api.ObjectMeta(name=f"tpu-{pool}"),
+            spec=api.MetricsProducerSpec(
+                pending_capacity=api.PendingCapacitySpec(
+                    node_selector={api.TPU_TOPOLOGY_LABEL: topology},
+                    node_group_ref=pool,
+                )
+            ),
+        ))
+        store.create(api.ScalableNodeGroup(
+            metadata=api.ObjectMeta(name=pool),
+            spec=api.ScalableNodeGroupSpec(
+                replicas=hosts // per_slice + 1, type="TPUPodSlicePool",
+                id=TPU_POOL_PARENT + pool),
+        ))
+        store.create(api.HorizontalAutoscaler(
+            metadata=api.ObjectMeta(name=pool),
+            spec=api.HorizontalAutoscalerSpec(
+                scale_target_ref=api.CrossVersionObjectReference(
+                    api_version="autoscaling.karpenter.sh/v1alpha1",
+                    kind="ScalableNodeGroup", name=pool,
+                ),
+                min_replicas=0, max_replicas=64,
+                metrics=[api.Metric(prometheus=api.PrometheusMetricSource(
+                    query=("karpenter_pending_capacity_additional_nodes_"
+                           f'needed{{name="tpu-{pool}"}}'),
+                    target=api.MetricTarget(type="AverageValue", value=1),
+                ))],
+            ),
+        ))
+        for k in range(tpu_pods * (index + 1)):
+            store.create(api.Pod(
+                metadata=api.ObjectMeta(name=f"{pool}-job{k}"),
+                spec=api.PodSpec(
+                    containers=[api.Container(requests={
+                        api.TPU_CHIP_RESOURCE: api.Quantity.parse(chips)})],
+                    node_selector={api.TPU_TOPOLOGY_LABEL: topology},
+                    tolerations=[api.Toleration(key=TPU_TAINT[0],
+                                                operator="Exists")],
+                ),
+            ))
+    return cluster

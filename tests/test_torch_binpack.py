@@ -623,6 +623,45 @@ class TestPortIsStandalone:
             text = path.read_text()
             assert "import_module(" not in text and "__import__(" not in text
 
+    def test_sidecar_and_providers_import_nothing_outside(self):
+        """sidecar/ and the ported cloud providers lie in the scan above,
+        and importing them (in a fresh interpreter) pulls in neither
+        grpc, jax, the reference, boto3 nor a google SDK: grpc is
+        imported where a server starts or a client connects, the SDKs
+        where a provider binds them."""
+        import subprocess
+        import sys
+
+        port = REPO / "karpenter_tpu_torch"
+        modules = ["sidecar/__init__.py", "sidecar/codec.py",
+                   "sidecar/server.py", "sidecar/client.py",
+                   "sidecar/__main__.py", "cloudprovider/tpu.py",
+                   "cloudprovider/gke_sdk.py", "cloudprovider/aws.py",
+                   "cloudprovider/aws_sdk.py", "cloudprovider/registry.py"]
+        scanned = set(port.rglob("*.py"))
+        for name in modules:
+            assert port / name in scanned, name
+        code = (
+            "import sys\n"
+            "import karpenter_tpu_torch.sidecar.client\n"
+            "import karpenter_tpu_torch.cloudprovider.registry as r\n"
+            "import karpenter_tpu_torch.cloudprovider.tpu\n"
+            "import karpenter_tpu_torch.cloudprovider.aws_sdk\n"
+            "import karpenter_tpu_torch.cloudprovider.gke_sdk\n"
+            "print(sorted(sys.modules))\n"
+        )
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=120,
+                             check=True).stdout
+        loaded = eval(out)  # a printed list of module names
+        banned = ("grpc", "jax", "jaxlib", "karpenter_tpu", "boto3",
+                  "botocore", "google.cloud.container_v1",
+                  "google.cloud.monitoring_v3", "google.api_core",
+                  "google.auth")
+        for name in loaded:
+            assert not name.startswith(tuple(f"{b}." for b in banned)) and (
+                name not in banned), name
+
     def test_native_sources_inside_the_port(self):
         """Every C/CUDA source the port compiles lies inside the port and
         includes only system headers; the loaders resolve their sources

@@ -10,6 +10,10 @@ HTTP surface and leader election, against the reference's, on the CPU.
     binary ticks over a fake kube-apiserver and exits 0 on SIGTERM, main
     serves the webhooks, and without a card `--apiserver` exits 1 before
     any watch;
+  * `--solver-uri` and `--cloud-provider aws|tpu` parse as the
+    reference's and run (the controller beside a CPU sidecar, the
+    providers' factories with no SDK bound); Options.solver_uri fronts
+    the sidecar;
   * each flag whose module is not ported exits 2 naming that module, and
     each such runtime option raises NotPortedError; `--simulate`,
     `--list` and `--sim-seed` parse as the reference's and run, and
@@ -83,14 +87,11 @@ class TestParseArgs:
         assert message in capsys.readouterr().err
 
     @pytest.mark.parametrize("argv,module", [
-        (["--solver-uri", "localhost:50051"], "sidecar"),
         (["--tenant-config", "t.yaml"], "tenancy"),
         (["--partitions", "2"], "replication"),
         (["--introspect"], "observability/devicetelemetry.py"),
         (["--profiler-port", "9999"], "jax.profiler server"),
         (["--shard-mesh", "8x1"], "parallel/mesh.py"),
-        (["--cloud-provider", "aws"], "cloudprovider/aws.py"),
-        (["--cloud-provider", "tpu"], "cloudprovider/tpu.py"),
     ])
     def test_unported_flag_exits_2_naming_its_module(self, argv, module,
                                                      capsys):
@@ -99,6 +100,83 @@ class TestParseArgs:
         assert exit_info.value.code == 2
         err = capsys.readouterr().err
         assert module in err and "not ported" in err
+
+
+@pytest.fixture()
+def no_live_gcp(monkeypatch):
+    """The TPU provider's registry factory binds the google-cloud SDKs
+    that are importable; monitoring_v3 is, here, and building its client
+    looks for credentials on the GCE metadata server. Run as if absent."""
+    from karpenter_tpu_torch.cloudprovider import gke_sdk
+
+    monkeypatch.setattr(gke_sdk, "monitoring_sdk_available", lambda: False)
+    monkeypatch.setattr(gke_sdk, "container_sdk_available", lambda: False)
+
+
+class TestDeploymentFlags:
+    """--solver-uri (sidecar/) and --cloud-provider aws|tpu
+    (cloudprovider/aws.py, cloudprovider/tpu.py) are ported: they parse
+    as the reference's and run."""
+
+    @pytest.mark.parametrize("argv", [
+        ["--solver-uri", "localhost:50051"],
+        ["--cloud-provider", "aws"],
+        ["--cloud-provider", "tpu"],
+        # config/manager/manager.yaml's controller container
+        ["--apiserver", "https://kubernetes.default.svc",
+         "--cloud-provider=tpu", "--solver-uri=127.0.0.1:9090",
+         "--webhook-port", "9443", "--profile", "production"],
+    ], ids=["solver_uri", "aws", "tpu", "deployment"])
+    def test_parse_as_the_reference(self, argv):
+        want = vars(mod(REF, "__main__").parse_args(argv))
+        got = vars(port_main.parse_args(argv))
+        assert got.pop("device") == "cuda"
+        assert got == want
+
+    @pytest.mark.parametrize("provider,factory", [
+        ("aws", "AWSFactory"), ("tpu", "TPUFactory"),
+    ])
+    def test_cloud_provider_builds_the_provider(self, provider, factory,
+                                                no_live_gcp):
+        """The binary's runtime gets the provider's factory, bound to no
+        SDK here: a pool answers the reference's not-implemented
+        guidance."""
+        from karpenter_tpu_torch.api.scalablenodegroup import (
+            AWS_EC2_AUTO_SCALING_GROUP,
+            TPU_POD_SLICE_POOL,
+            ScalableNodeGroupSpec,
+        )
+
+        args = port_main.parse_args(["--cloud-provider", provider,
+                                     "--device", "cpu"])
+        rt = port_main._build_runtime(args)
+        try:
+            assert type(rt.cloud_provider).__name__ == factory
+            spec = ScalableNodeGroupSpec(
+                type=TPU_POD_SLICE_POOL if provider == "tpu"
+                else AWS_EC2_AUTO_SCALING_GROUP,
+                id=("projects/p/locations/l/nodePools/a"
+                    if provider == "tpu" else "my-asg"))
+            group = rt.cloud_provider.node_group_for(spec)
+            with pytest.raises(Exception, match="client bound"):
+                group.set_replicas(2)
+        finally:
+            rt.close()
+
+    def test_solver_uri_binary_runs_on_a_cpu_sidecar(self, capsys):
+        from karpenter_tpu_torch.sidecar import SolverServer
+
+        server = SolverServer(port=0, host="127.0.0.1", device="cpu")
+        port = server.start()
+        try:
+            rc = port_main.main([
+                "--solver-uri", f"127.0.0.1:{port}", "--device", "cpu",
+                "--metrics-port", "0", "--duration", "0.3", "--tick", "0.1",
+                "--no-leader-elect"])
+            assert rc == 0
+            assert "solver sidecar at" in capsys.readouterr().err
+        finally:
+            server.stop()
 
 
 class TestRealClusterFlags:
@@ -254,7 +332,6 @@ class TestRealClusterFlags:
 
 class TestNotPortedOptions:
     @pytest.mark.parametrize("field,value,module", [
-        ("solver_uri", "localhost:1", "sidecar"),
         ("tenant_config", "t.yaml", "tenancy"),
         ("partitions", 2, "replication"),
         ("introspect", True, "devicetelemetry"),
@@ -264,6 +341,25 @@ class TestNotPortedOptions:
         options = port_runtime.Options(device="cpu", **{field: value})
         with pytest.raises(port_runtime.NotPortedError, match=module):
             port_runtime.KarpenterRuntime(options)
+
+    def test_solver_uri_fronts_the_sidecar(self):
+        """Options.solver_uri builds the split: the service runs on the
+        host and sends the bin-pack and the decide to the sidecar."""
+        from karpenter_tpu_torch.sidecar import SolverServer
+
+        server = SolverServer(port=0, host="127.0.0.1", device="cpu")
+        port = server.start()
+        rt = port_runtime.KarpenterRuntime(port_runtime.Options(
+            device="cpu", solver_uri=f"127.0.0.1:{port}"))
+        try:
+            svc = rt.solver_service
+            assert svc.device_solver == rt.solver_client.solve
+            assert svc._decider == rt.solver_client.decide
+            assert svc.device.type == "cpu"
+        finally:
+            rt.close()
+            server.stop()
+        assert rt.solver_client is None
 
     def test_sim_seed_is_carried(self):
         rt = port_runtime.KarpenterRuntime(

@@ -748,8 +748,11 @@ class TestProviderAndController:
         from karpenter_tpu_torch.cloudprovider import Options, registry
 
         assert isinstance(registry.new_factory(Options(), "fake"), FakeFactory)
+        # aws and tpu are registered (cloudprovider/aws.py, tpu.py)
+        assert type(registry.new_factory(Options(), "aws")).__name__ == (
+            "AWSFactory")
         with pytest.raises(ValueError, match="unknown cloud provider"):
-            registry.new_factory(Options(), "aws")
+            registry.new_factory(Options(), "azure")
         missing = registry.new_factory(Options())
         assert missing.want_err is not None
 

@@ -8,6 +8,7 @@ fields, min > max, a two-label selector, unknown spec keys and kinds).
 
 import base64
 import copy
+import importlib
 import json
 import pathlib
 import shutil
@@ -371,21 +372,19 @@ class TestParityWithReference:
     @pytest.mark.parametrize("manifest", example_manifests())
     @pytest.mark.parametrize("fn", ["review_validate", "review_mutate"])
     def test_examples(self, fn, manifest):
+        # the examples' node groups name the AWS and TPU providers'
+        # types, whose validators their modules register when imported,
+        # in both packages: once they are, the port answers as the
+        # reference does, allowing or denying alike
+        for package in ("karpenter_tpu", "karpenter_tpu_torch"):
+            for provider in ("aws", "tpu"):
+                importlib.import_module(f"{package}.cloudprovider.{provider}")
         from karpenter_tpu_torch.api.scalablenodegroup import _validators
 
         got, want = both(fn, manifest)
         node_type = (manifest.get("spec") or {}).get("type")
-        if (fn == "review_validate"
-                and manifest["kind"] == "ScalableNodeGroup"
-                and node_type not in _validators):
-            # the examples' node groups name the AWS and TPU providers'
-            # types, which their modules register: those providers are not
-            # ported, so the port denies them, and the reference allows
-            # them once another test has imported its providers
-            assert got["response"]["allowed"] is False
-            assert (f"Unexpected type {node_type}"
-                    in got["response"]["status"]["message"])
-            return
+        if manifest["kind"] == "ScalableNodeGroup":
+            assert node_type in _validators
         assert got == want
 
     @pytest.mark.parametrize("manifest", invalid_manifests())
