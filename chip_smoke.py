@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (set-up, with ptxas's register,
-shared-memory and stack report), then runs sixteen phases and fails (exit 1,
+shared-memory and stack report), then runs seventeen phases and fails (exit 1,
 no result line) if any of them fails:
 
 1. fused kernel vs its plain version on the card: fused_assign against
@@ -148,10 +148,12 @@ no result line) if any of them fails:
    hook, the event thread's passes, launches and dispatches per tick,
    fused_dispatches == HA ticks, fallback_total 0, the FSM healthy, full
    gc collections; a profiler window of 1 tick (device kernels, busy
-   us, each kernel's launches and ms per launch); (b) the same world,
-   options and first tick on a CPU runtime: equal objects (every
-   status), provider replicas and exposition (less timings and the
-   service's and manager's own counters); (c) the binary `python -m
+   us, each kernel's launches and ms per launch; skipped past
+   RUNTIME_LATE_S of smoke); (b) the same world, options and first tick
+   on a CPU runtime: equal objects (every status), provider replicas and
+   exposition (less timings and the service's and manager's own
+   counters); (b) and (c)-(d) each run in a child process beside (a)
+   (_Child); (c) the binary `python -m
    karpenter_tpu_torch --profile production --cloud-provider fake
    --data-dir D --journal-dir J` over a 10,000-pod x 300-group, 400-HA
    world written with open_store: /readyz "ok", /metrics with solver
@@ -225,7 +227,8 @@ no result line) if any of them fails:
    reviews as the CPU's review_validate / review_mutate; SIGTERM to the
    leader exits 0, the standby takes the lease within the lease duration
    plus its skew tolerance and ticks on its card; with
-   CUDA_VISIBLE_DEVICES="" the command exits 1 before any LIST or watch.
+   CUDA_VISIBLE_DEVICES="" the command exits 1 before any LIST or watch;
+   (b) runs in a child process beside (a) and (c).
 16. the shipped Deployment (config/manager/manager.yaml: the controller
    with --cloud-provider tpu --solver-uri beside `python -m
    karpenter_tpu_torch.sidecar`, which owns the card): it prints the
@@ -254,6 +257,38 @@ no result line) if any of them fails:
    SIGTERM; the sidecar with the card hidden exits 1 before it binds, and
    a --device cuda controller beside a --device cpu sidecar exits 1
    before its first tick.
+17. the multi-tenant control plane (tenancy/, --tenant-config) and the
+   solver introspection plane (--introspect) on SolverService() on the
+   card: (a) simulate_multitenant at BASELINE.json's 1000 tenants x 4
+   autoscalers x 2 metrics (bench.py --multitenant's defaults), 12
+   lockstep ticks: its aggregate_replicas digests equal the reference's
+   (MT_DIGESTS, pinned) and a CPU twin's, no mirror or floor serve;
+   shared dispatches per tick, amortization, tick p50/p95 (the tick's
+   tracer span); the same tenants' decide + cost matrices through one
+   scheduler vs a sequential per-tenant loop through the same service
+   (bench.py's two arms): equal answers, both p50s and their ratio;
+   (b) solve_all over 64 tenants' seeded reconcile-size problems (256
+   rows x 304 groups, R = 4), 3 rounds with the launch counts set to 0
+   just before each and read just after: each kernel once per tenant per
+   round; every tenant's five outputs equal its direct
+   solve(backend="cuda") and the plain program on the CPU; device ms per
+   launch (profiler); (c) fused_tick_all, decide_all, cost_all and
+   forecast_all over 64 tenants: each tenant's answer equals its own
+   numpy mirror's bitwise, the fused round one CUDA-graph dispatch;
+   (d) one solver.dispatch failure, then one tenant under a
+   tenancy.gather.<id> plan: the failed dispatch's tenants and then the
+   faulted one (its breaker open) are served by their own device
+   dispatches, every answer equals the no-fault run's, nothing is served
+   from numpy, and with the plan cleared the probe (on a running injected
+   clock) closes the breaker; (e) KarpenterRuntime with a
+   tenant config (4 tenants, weights 1-3, JSON) and the introspection
+   plane over phase 13 (c)'s 10,000-pod world for 3 ticks behind the
+   HTTP server: /debug/solver enabled with the kernels' build and the
+   first-shape dispatches in its ledger and the card's memory,
+   /metrics with karpenter_device_*, karpenter_tenant_active 4 and the
+   compile family, /debug/selfslo with the tenants' board. Past
+   MT_LATE_S of smoke (a)'s CPU twin is skipped and its sequential arm
+   runs one round.
 
 Then it profiles 20 main-path solves (torch.profiler: device time by
 kernel) and prints, before the last line, one JSON line of kernel records
@@ -439,39 +474,6 @@ def time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def shelf_ops(hist: np.ndarray, buckets: int) -> int:
-    """Integer steps the shelf algorithm takes on this histogram: each
-    visit of a remnant slot (a min, a compare, two updates, a subtract) is
-    counted as 5 operations, each size's bin opening as 10."""
-    steps = 0
-    for row in hist:
-        bins = np.zeros(buckets + 1, np.int64)
-        for k in range(buckets, 0, -1):
-            c = int(row[k - 1])
-            while c > 0:
-                placed = False
-                for rem in range(k, buckets + 1):
-                    steps += 5
-                    m = min(c, int(bins[rem]))
-                    if m > 0:
-                        bins[rem] -= m
-                        bins[rem - k] += m
-                        c -= m
-                        placed = True
-                    if c == 0:
-                        break
-                if not placed:
-                    break
-            if c > 0:
-                steps += 10
-                per_bin = buckets // k
-                full, leftover = divmod(c, per_bin)
-                bins[buckets - per_bin * k] += full
-                if leftover > 0:
-                    bins[buckets - leftover * k] += 1
-    return steps
 
 
 def phase_fused(torch, TB, TF, main_inputs, workloads):
@@ -2359,6 +2361,7 @@ RUNTIME_TICKS = 1  # timed ticks after the first (4 until phase 14, 2 until 15)
 RUNTIME_PARITY_TICKS = 2  # ticks the CPU runtime repeats (the first included)
 RUNTIME_TICK_S = 5.0  # the MetricsProducer interval
 RUNTIME_PROFILED_TICKS = 1
+RUNTIME_LATE_S = 260.0  # smoke seconds past which (a) skips its profiled tick
 # the binary's world, written into a data dir
 BINARY_SHAPE = dict(pods=10_000, types=300, n_has=400, metrics=3, seed=0,
                     groups=16, pools=4)
@@ -2639,8 +2642,9 @@ def _runtime_production(torch, TF, workloads):
                f"{gc_full} over {RUNTIME_TICKS} ticks, service requests "
                f"{st.requests} dispatches {st.dispatches - dispatches_before}"
                f" since the first tick")
-        profile = _runtime_profile(torch, TF, workloads, runtime, world,
-                                   clock)
+        profile = (_runtime_profile(torch, TF, workloads, runtime, world,
+                                    clock)
+                   if RUNTIME_PROFILED_TICKS else None)
         return {"snaps": snaps, "first_launches": first_launches,
                 "launches_per_tick": per_tick, "profile": profile,
                 "p50_ms": float(np.percentile(ms, 50))}
@@ -2691,31 +2695,120 @@ def _runtime_profile(torch, TF, workloads, runtime, world, clock):
     return out
 
 
-def _runtime_parity(workloads, card_snaps):
-    """(b) The same world, options and ticks on a CPU runtime."""
+def _runtime_cpu_snaps(workloads):
+    """(b) The same world, options and ticks on a CPU runtime: its
+    snapshot after each of RUNTIME_PARITY_TICKS ticks."""
     runtime, world, clock, provider, _, _ = _runtime_boot(workloads, "cpu")
     try:
+        snaps = []
         for t in range(RUNTIME_PARITY_TICKS):
             if t:
                 _runtime_step(workloads, runtime, world, clock)
             runtime.manager.reconcile_all()
-            got = _runtime_snapshot(workloads, runtime, provider)
-            want = card_snaps[t]
-            need(got["objects"].keys() == want["objects"].keys(),
-                 f"tick {t}: the stores hold different objects")
-            diff = [k for k, v in want["objects"].items()
-                    if got["objects"][k] != v]
-            need(not diff, f"tick {t}: {len(diff)} objects differ, e.g. "
-                 f"{diff[:3]}")
-            need(got["replicas"] == want["replicas"],
-                 f"tick {t}: provider replicas differ")
-            need(got["exposition"] == want["exposition"],
-                 f"tick {t}: exposition differs")
-        print(f"runtime card == CPU runtime: {RUNTIME_PARITY_TICKS} ticks, "
-              f"{len(want['objects'])} objects, statuses, store, provider "
-              f"replicas and exposition equal")
+            snaps.append(_runtime_snapshot(workloads, runtime, provider))
+        return snaps
     finally:
         runtime.close()
+
+
+def _runtime_parity(card_snaps, cpu_snaps):
+    """(b) The card runtime's snapshots == the CPU runtime's, tick by
+    tick: every object, the provider replicas and the exposition."""
+    need(len(cpu_snaps) == RUNTIME_PARITY_TICKS,
+         f"the CPU runtime ran {len(cpu_snaps)} ticks")
+    for t, (got, want) in enumerate(zip(cpu_snaps, card_snaps)):
+        need(got["objects"].keys() == want["objects"].keys(),
+             f"tick {t}: the stores hold different objects")
+        diff = [k for k, v in want["objects"].items()
+                if got["objects"][k] != v]
+        need(not diff, f"tick {t}: {len(diff)} objects differ, e.g. "
+             f"{diff[:3]}")
+        need(got["replicas"] == want["replicas"],
+             f"tick {t}: provider replicas differ")
+        need(got["exposition"] == want["exposition"],
+             f"tick {t}: exposition differs")
+    print(f"runtime card == CPU runtime: {RUNTIME_PARITY_TICKS} ticks, "
+          f"{len(want['objects'])} objects, statuses, store, provider "
+          f"replicas and exposition equal")
+
+
+class _Child:
+    """`chip_smoke.<function>(workloads, out_dir)` in a child process,
+    started now and joined later, so host-bound work (a CPU twin,
+    processes that the smoke drives) runs beside the card's work in this
+    process. `out_dir` is a fresh directory the child may write results
+    into (`path(name)`), removed by close(); the child's output goes to
+    a file there, printed when it is joined; the card's line comes from
+    this process."""
+
+    def __init__(self, function: str):
+        import subprocess
+        import tempfile
+
+        self.what = function
+        self.root = tempfile.mkdtemp(prefix="karpenter-smoke-child-")
+        self.log_path = os.path.join(self.root, "child.log")
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+                 f"chip_smoke._child_main({function!r}, {self.root!r}))"],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+                stderr=subprocess.STDOUT,
+                env=dict(os.environ, KARPENTER_SMOKE_CARD=CARD["line"]),
+            )
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.root, name)
+
+    def join(self, timeout=1200) -> None:
+        """Wait for it, print its output, fail with it; a child still
+        running (an error in this process, a timeout) is killed."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            with open(self.log_path) as log:
+                print(log.read(), end="", flush=True)
+        need(rc == 0, f"{self.what} failed in its child process (exit "
+             f"{rc}; its output above)")
+
+    def close(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def _child_main(function: str, out_dir: str) -> int:
+    """A _Child's body: `function(workloads, out_dir)` of this module."""
+    from karpenter_tpu_torch import workloads
+
+    CARD["line"] = os.environ.get("KARPENTER_SMOKE_CARD", CARD["line"])
+    globals()[function](workloads, out_dir)
+    return 0
+
+
+def _runtime_cpu_child(workloads, out_dir: str) -> None:
+    """(b) in a child: the CPU runtime's snapshots, pickled."""
+    import pickle
+
+    t0 = time.perf_counter()
+    snaps = _runtime_cpu_snaps(workloads)
+    with open(os.path.join(out_dir, "cpu_snaps.pickle"), "wb") as f:
+        pickle.dump(snaps, f)
+    report(f"phase 13 (b), beside (a): the CPU runtime's {len(snaps)} "
+           f"ticks in {time.perf_counter() - t0} s")
+
+
+def _runtime_binary_child(workloads, out_dir: str) -> None:
+    """(c), (d) in a child."""
+    t0 = time.perf_counter()
+    _runtime_binary(workloads)
+    report(f"phase 13 (c), (d), beside (a): {time.perf_counter() - t0} s")
 
 
 class _Binary:
@@ -2918,16 +3011,35 @@ def _runtime_binary_in(workloads, root):
           flush=True)
 
 
-def phase_runtime(torch, TF, workloads):
+def phase_runtime(torch, TF, workloads, started):
+    """Phase 13. (b) and (c)-(d) run in two child processes beside (a):
+    the CPU runtime's ticks and the binary's processes need the host, (a)
+    the card and one core. Past RUNTIME_LATE_S of smoke (a)'s profiled
+    tick is skipped (the kernels' device ms per launch at the same
+    operands are measured in phases 9, 15 and 16)."""
+    import pickle
+
+    global RUNTIME_PROFILED_TICKS
+    if time.perf_counter() - started > RUNTIME_LATE_S:
+        RUNTIME_PROFILED_TICKS = 0
+        print(f"phase 13: the smoke is past {RUNTIME_LATE_S} s; (a) runs no "
+              f"profiled tick", flush=True)
     t0 = time.perf_counter()
-    card = _runtime_production(torch, TF, workloads)
-    t1 = time.perf_counter()
-    report(f"phase 13 (a): {t1 - t0} s")
-    _runtime_parity(workloads, card.pop("snaps"))
-    t2 = time.perf_counter()
-    report(f"phase 13 (b): {t2 - t1} s")
-    _runtime_binary(workloads)
-    report(f"phase 13 (c), (d): {time.perf_counter() - t2} s")
+    twin = binary = None
+    try:
+        twin = _Child("_runtime_cpu_child")
+        binary = _Child("_runtime_binary_child")
+        card = _runtime_production(torch, TF, workloads)
+        report(f"phase 13 (a): {time.perf_counter() - t0} s")
+        twin.join()
+        with open(twin.path("cpu_snaps.pickle"), "rb") as f:
+            _runtime_parity(card.pop("snaps"), pickle.load(f))
+        binary.join()
+    finally:
+        for child in (twin, binary):
+            if child is not None:
+                child.close()
+    report(f"phase 13: {time.perf_counter() - t0} s")
     return card
 
 
@@ -4105,14 +4217,25 @@ def _kube_binaries(workloads):
         server.stop()
 
 
-def phase_kube(torch, TF, workloads, simulate):
-    """Phase 15: real-cluster mode on the card."""
+def _kube_binaries_child(workloads, out_dir: str) -> None:
+    """(b) in a child."""
     t0 = time.perf_counter()
-    out = _kube_production(torch, TF, workloads, simulate["groups"])
-    t1 = time.perf_counter()
-    report(f"phase 15 (a), (c): {t1 - t0} s")
     _kube_binaries(workloads)
-    report(f"phase 15 (b): {time.perf_counter() - t1} s")
+    report(f"phase 15 (b), beside (a): {time.perf_counter() - t0} s")
+
+
+def phase_kube(torch, TF, workloads, simulate):
+    """Phase 15: real-cluster mode on the card. (b), two binaries over a
+    fake of their own, runs in a child process beside (a) and (c)."""
+    t0 = time.perf_counter()
+    binaries = _Child("_kube_binaries_child")
+    try:
+        out = _kube_production(torch, TF, workloads, simulate["groups"])
+        report(f"phase 15 (a), (c): {time.perf_counter() - t0} s")
+        binaries.join()
+    finally:
+        binaries.close()
+    report(f"phase 15: {time.perf_counter() - t0} s")
     return out
 
 
@@ -4593,6 +4716,456 @@ def phase_deployment(torch, TF, TB, workloads, started):
     return out
 
 
+# -- phase 17: the multi-tenant control plane (tenancy/, --introspect) ---------
+
+# (a) BASELINE.json's "1000 tenants x 4 autoscalers multitenant" entry:
+# bench.py --multitenant's defaults (bench.py:905-925), stepped 12 ticks
+MT_REPLAY = dict(tenants=1000, ticks=12, rows=4, metrics=2, seed=0)
+# the reference's aggregate_replicas digests at MT_REPLAY: karpenter_tpu's
+# simulate_multitenant on the CPU (tests/test_torch_simulate_multitenant.py
+# pins the same numbers)
+MT_DIGESTS = {"tick_0": 44106, "tick_6": 44058, "tick_11": 44109}
+MT_BATCHED_ITERS = 10  # decide + cost rounds of the batched arm
+MT_SEQUENTIAL_ITERS = 3  # rounds of the per-tenant loop (2,000 calls each)
+# (b) cross-tenant bin-packs: one reconcile-size problem per tenant
+MT_TENANTS = 64
+MT_ROUNDS = 3
+# (c) the fleet-tick families: tenant i's fleet is MT_FLEET_ROWS[i % 5]
+# autoscalers x 3 metrics, as many forecast series of 64 samples
+MT_FLEET_ROWS = (16, 24, 32, 40, 48)
+MT_LATE_S = 1000.0  # smoke seconds past which (a) cuts its CPU twin and
+# its sequential arm to one round
+MT_DEVICE = None  # the shared services' device: the card
+MT_TENANT_WEIGHTS = (1.0, 2.0, 3.0, 1.0)  # (e)'s tenant config
+
+
+def _mt_world(tenants, **kw):
+    """(service, registry, scheduler): `tenants` tenants t0000.. of weight
+    1 + i % 3 over one SolverService on MT_DEVICE."""
+    from karpenter_tpu_torch.metrics.registry import GaugeRegistry
+    from karpenter_tpu_torch.solver import SolverService
+    from karpenter_tpu_torch.tenancy import (
+        MultiTenantScheduler,
+        TenantRegistry,
+        TenantSpec,
+    )
+
+    svc = SolverService(registry=GaugeRegistry(), device=MT_DEVICE)
+    registry = TenantRegistry(
+        service=svc, registry=GaugeRegistry(),
+        specs=[TenantSpec(id=f"t{i:04d}", weight=1.0 + i % 3)
+               for i in range(tenants)],
+    )
+    return svc, registry, MultiTenantScheduler(registry, svc, **kw)
+
+
+def _mt_replay(torch, late):
+    """(a) simulate_multitenant at MT_REPLAY on SolverService() on the
+    card: digests == the reference's and the CPU twin's, no mirror or
+    floor serve; shared dispatches per tick, amortization and the tick's
+    p50/p95 (its tracer span); then the same tenants' decide + cost
+    matrices batched through one scheduler vs a sequential per-tenant
+    loop through the same service (bench.py --multitenant's arms), the
+    per-tenant answers equal, both arms' p50 and their ratio."""
+    from karpenter_tpu_torch.observability import reset_default_tracer
+    from karpenter_tpu_torch.simulate import (
+        multitenant_cost_inputs,
+        multitenant_fleet_inputs,
+        simulate_multitenant,
+    )
+
+    tracer = reset_default_tracer()
+    t0 = time.perf_counter()
+    card = simulate_multitenant(**MT_REPLAY, device=MT_DEVICE)
+    wall = time.perf_counter() - t0
+    need(card["aggregate_replicas"] == MT_DIGESTS,
+         f"(a) digests {card['aggregate_replicas']} != the reference's "
+         f"{MT_DIGESTS}")
+    need(card["mirror_served"] == 0 and card["fallback_served"] == 0,
+         f"(a) mirror {card['mirror_served']} / floor "
+         f"{card['fallback_served']} serves on the card")
+    ticks = [span["dur_us"] / 1e3 for span in tracer.snapshot()
+             if span["name"] == "simulate.multitenant.tick"]
+    need(len(ticks) == MT_REPLAY["ticks"], f"(a) {len(ticks)} tick spans")
+    shared = card["decide_dispatches"] + card["cost_dispatches"]
+    report(f"phase 17 (a): {MT_REPLAY} on the card in {wall} s: digests "
+           f"{card['aggregate_replicas']} == the reference's; "
+           f"{shared / MT_REPLAY['ticks']} shared dispatches per tick, "
+           f"{card['isolated_dispatches']} isolated, amortization "
+           f"{card['dispatch_amortization']}x over "
+           f"{card['sequential_equivalent_dispatches']} sequential; tick "
+           f"p50 {np.percentile(ticks[1:], 50)} / p95 "
+           f"{np.percentile(ticks[1:], 95)} ms (first tick {ticks[0]} ms); "
+           f"solver requests {card['solver']}")
+    sequential_iters = MT_SEQUENTIAL_ITERS
+    if late:
+        sequential_iters = 1
+        print(f"phase 17 (a): the smoke is past {MT_LATE_S} s; the CPU twin "
+              f"of the replay is skipped (the card is still held to the "
+              f"reference's pinned digests) and the sequential arm runs "
+              f"one round", flush=True)
+    else:
+        t0 = time.perf_counter()
+        cpu = simulate_multitenant(**MT_REPLAY, device="cpu")
+        need(cpu["aggregate_replicas"] == card["aggregate_replicas"],
+             "(a) card digests != the CPU twin's")
+        report(f"phase 17 (a): the CPU twin's digests equal "
+               f"({time.perf_counter() - t0} s)")
+
+    n, rows, metrics = (MT_REPLAY[k] for k in ("tenants", "rows", "metrics"))
+    svc, _, sched = _mt_world(n, max_rows_per_round=n * rows)
+    try:
+        spec = np.full(rows, 2, np.int32)
+        decide = {f"t{i:04d}": multitenant_fleet_inputs(
+            i, rows, metrics, 0, 0, spec, 1_000_000.0) for i in range(n)}
+        decided = sched.decide_all(decide)
+        cost = {t: multitenant_cost_inputs(decide[t], decided[t].desired)
+                for t in decide}
+        refined = sched.cost_all(cost)
+        batched = []
+        for _ in range(MT_BATCHED_ITERS):
+            t0 = time.perf_counter()
+            sched.decide_all(decide)
+            sched.cost_all(cost)
+            batched.append((time.perf_counter() - t0) * 1e3)
+        sequential = []
+        for it in range(sequential_iters):
+            t0 = time.perf_counter()
+            answers = {t: (svc.decide(decide[t]), svc.cost(cost[t]))
+                       for t in decide}
+            sequential.append((time.perf_counter() - t0) * 1e3)
+            if it == 0:
+                for t, (d, c) in answers.items():
+                    same_bits(d.to_numpy(), decided[t].to_numpy(),
+                              f"(a) {t} decide, sequential vs batched")
+                    same_bits(c.to_numpy(), refined[t].to_numpy(),
+                              f"(a) {t} cost, sequential vs batched")
+        need(svc.stats.fallbacks == 0, "(a) the service fell back")
+    finally:
+        svc.close()
+    b50, s50 = np.percentile(batched, 50), np.percentile(sequential, 50)
+    report(f"phase 17 (a): decide + cost of {n} tenants x {rows} rows: "
+           f"batched p50 {b50} / p95 {np.percentile(batched, 95)} ms "
+           f"({MT_BATCHED_ITERS} rounds), sequential per-tenant loop p50 "
+           f"{s50} ms ({sequential_iters} rounds, {2 * n} calls each): "
+           f"{s50 / b50}x; per-tenant answers equal")
+    return {"tick_ms": ticks, "batched_ms": batched,
+            "sequential_ms": sequential}
+
+
+def _mt_solve_all(torch, TB, TF, workloads):
+    """(b) solve_all over MT_TENANTS tenants' reconcile-size problems,
+    MT_ROUNDS rounds, launch counts set to 0 just before each and read
+    just after: each kernel once per tenant per round; every tenant's
+    five outputs == its own direct solve(backend="cuda") and the plain
+    program on the CPU; the kernels' device ms per launch."""
+    problems = workloads.build_tenant_problems(MT_TENANTS)
+    batch = {f"t{i:04d}": TB.BinPackInputs(**fields)
+             for i, fields in enumerate(problems)}
+    svc, _, sched = _mt_world(MT_TENANTS)
+    launches, round_ms = [], []
+    try:
+        for _ in range(MT_ROUNDS):
+            TF.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = sched.solve_all(batch)
+            round_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(dict(TF.LAUNCHES))
+            need(launches[-1] == {"fused_assign": MT_TENANTS,
+                                  "shelf_bfd": MT_TENANTS},
+                 f"(b) launches {launches[-1]} in a round of {MT_TENANTS} "
+                 f"tenants")
+        need(sched.stats.mirror_served == 0 and not sched.errors,
+             "(b) a tenant was not served by the card")
+        need(svc.stats.fallbacks == 0, "(b) the service fell back")
+    finally:
+        svc.close()
+    for i, (tenant, inputs) in enumerate(sorted(batch.items())):
+        direct = TB.solve(inputs, backend="cuda")
+        _service_outputs_equal(out[tenant], direct, None,
+                               f"(b) {tenant} vs its direct cuda solve")
+        plain = TB.solve(TB.inputs_from_numpy(problems[i], "cpu"),
+                         backend="torch", device="cpu")
+        _service_outputs_equal(out[tenant], plain, None,
+                               f"(b) {tenant} vs the plain program on the CPU")
+    first = [batch[t] for t in sorted(batch)[:8]]
+    ms, ms_by = None, "profiler"
+    try:
+        ms = _kernel_ms(torch, lambda: [TB.solve(p, backend="cuda")
+                                        for p in first], n=3)
+    except RuntimeError as exc:
+        print(f"phase 17 (b): profiler not available ({exc})")
+    if not ms or None in ms.values():
+        ms_by = "CUDA events around the wrapper"
+        device = TB.inputs_from_numpy(problems[0], "cuda")
+        hist = TF.fused_assign(device, BUCKETS)[1]
+        ms = {"fused_assign": time_ms(
+                  lambda: TF.fused_assign(device, BUCKETS), 20),
+              "shelf_bfd": time_ms(lambda: TF.shelf_bfd(hist, BUCKETS), 20)}
+    report(f"phase 17 (b): solve_all of {MT_TENANTS} tenants (256 rows x 304 "
+           f"groups, R = 4) x {MT_ROUNDS} rounds: launches per round "
+           f"{launches}; round ms {round_ms}; every tenant == its direct "
+           f"cuda solve and the CPU plain program; device ms per launch "
+           f"{ms} ({ms_by})")
+    return {"launches_per_round": launches[-1], "ms": ms, "ms_by": ms_by,
+            "round_ms": round_ms, "outputs": out, "batch": batch}
+
+
+def _mt_fleet_batches(workloads):
+    """(c)'s per-tenant FusedTickInputs, DecisionInputs, CostInputs and
+    ForecastInputs (host arrays): tenant i's fleet from
+    build_fused_tick_inputs(900 + i, ...), its cost matrix the replay's
+    (multitenant_cost_inputs over its numpy-mirror decision)."""
+    from karpenter_tpu_torch.forecast import models as M
+    from karpenter_tpu_torch.ops import decision as D
+    from karpenter_tpu_torch.ops import fusedtick as FT
+    from karpenter_tpu_torch.simulate import multitenant_cost_inputs
+
+    fused, decide, cost, forecast = {}, {}, {}, {}
+    for i in range(MT_TENANTS):
+        n = MT_FLEET_ROWS[i % len(MT_FLEET_ROWS)]
+        fields = workloads.build_fused_tick_inputs(900 + i, n, 3, n, 64)
+        tenant = f"t{i:04d}"
+        fused[tenant] = FT.FusedTickInputs.from_arrays(fields)
+        decide[tenant] = D.DecisionInputs.from_arrays(fields["decision"])
+        forecast[tenant] = M.ForecastInputs.from_arrays(fields["forecast"])
+        cost[tenant] = multitenant_cost_inputs(
+            decide[tenant], D.decide_numpy(decide[tenant]).desired)
+    return fused, decide, cost, forecast
+
+
+def _mt_families(torch, workloads):
+    """(c) fused_tick_all, decide_all, cost_all and forecast_all over
+    MT_TENANTS tenants on the card: each tenant's answer == its own
+    numpy-mirror answer on the CPU, bitwise; the fused family one
+    CUDA-graph dispatch for the round."""
+    from karpenter_tpu_torch.forecast import models as M
+    from karpenter_tpu_torch.ops import cost as CK
+    from karpenter_tpu_torch.ops import decision as D
+    from karpenter_tpu_torch.ops import fusedtick as FT
+
+    fused, decide, cost, forecast = _mt_fleet_batches(workloads)
+    svc, _, sched = _mt_world(MT_TENANTS)
+    timings, leaves = {}, 0
+    try:
+        for family, call, batch, mirror in (
+            ("fused", sched.fused_tick_all, fused, FT.fused_tick_numpy),
+            ("decide", sched.decide_all, decide, D.decide_numpy),
+            ("cost", sched.cost_all, cost, CK.cost_numpy),
+            ("forecast", sched.forecast_all, forecast, M.forecast_numpy),
+        ):
+            before = (svc.stats.fused_dispatches,
+                      svc.fused_program().replays)
+            t0 = time.perf_counter()
+            out = call(batch)
+            timings[family] = (time.perf_counter() - t0) * 1e3
+            for tenant, inputs in batch.items():
+                leaves += same_bits(out[tenant].to_numpy(),
+                                    mirror(inputs).to_numpy(),
+                                    f"(c) {family} {tenant} vs its mirror")
+            if family == "fused":
+                program = svc.fused_program()
+                need(sched.stats.fused_dispatches == 1
+                     and svc.stats.fused_dispatches - before[0] == 1
+                     and program.replays - before[1] == 1,
+                     f"(c) the fused round took {sched.stats.fused_dispatches}"
+                     f" scheduler / {svc.stats.fused_dispatches - before[0]} "
+                     f"service dispatches, {program.replays - before[1]} "
+                     f"replays")
+        stats = sched.stats
+        need(stats.mirror_served == 0 and stats.fallback_served == 0,
+             "(c) a tenant was served off the card")
+        need(svc.stats.fused_chained_serves == 0
+             and svc.stats.fused_mirror_serves == 0,
+             "(c) the service served the fused tick off the graph")
+    finally:
+        svc.close()
+    report(f"phase 17 (c): {MT_TENANTS} tenants' fused tick, decide, cost "
+           f"and forecast on the card == their own numpy mirrors on the "
+           f"CPU ({leaves} leaves bitwise); one graph dispatch for the fused "
+           f"round; ms {timings}; shared dispatches decide "
+           f"{stats.decide_dispatches} cost {stats.cost_dispatches} forecast "
+           f"{stats.forecast_dispatches} fused {stats.fused_dispatches}")
+    return {"ms": timings}
+
+
+def _mt_card_rule(torch, workloads, solved):
+    """(d) one solver.dispatch failure, then tenant t0003 under a
+    tenancy.gather.t0003 plan for 3 rounds: the failed dispatch's tenants
+    and then t0003 (its breaker open) are served by their own device
+    dispatches; every tenant's answers equal the no-fault run's; nothing
+    is served from numpy. With the plan cleared the probe (on an injected
+    clock that runs) closes the breaker."""
+    from karpenter_tpu_torch import faults
+    from karpenter_tpu_torch.ops import cost as CK
+
+    tenants = sorted(solved["batch"])[:8]
+    batch = {t: solved["batch"][t] for t in tenants}
+    _, _, cost, _ = _mt_fleet_batches(workloads)
+    cost = {t: cost[t] for t in tenants}
+    want_cost = {t: CK.cost_numpy(cost[t]).to_numpy() for t in tenants}
+    clock = _RunningClock()
+    svc, _, sched = _mt_world(8, breaker_threshold=3, breaker_reset_s=30.0,
+                              clock=clock)
+
+    def check(refined, out, what):
+        for t in tenants:
+            for name in ("assigned", "assigned_count", "nodes_needed",
+                         "lp_bound", "unschedulable"):
+                need(np.array_equal(
+                    np.asarray(getattr(out[t], name)),
+                    np.asarray(getattr(solved["outputs"][t], name))),
+                    f"(d) {t} {what}: {name} differs from the no-fault run")
+            same_bits(refined[t].to_numpy(), want_cost[t], f"(d) {t} {what}")
+
+    try:
+        with faults.injected_faults(seed=17) as reg:
+            # one failed shared dispatch: its tenants are each served by
+            # their own solve (the plan's one firing is spent by then)
+            reg.plan("solver.dispatch", mode="error", times=1)
+            check(sched.cost_all(cost), sched.solve_all(batch),
+                  "the dispatch-fault round")
+            reg.clear()
+            reg.plan("tenancy.gather.t0003", mode="error")
+            for r in range(3):
+                check(sched.cost_all(cost), sched.solve_all(batch),
+                      f"faulted round {r}")
+        stats = sched.stats
+        need(sched.breakers.is_open("t0003"), "(d) t0003's breaker is closed")
+        need(stats.mirror_served == 0 and stats.fallback_served == 0,
+             f"(d) mirror {stats.mirror_served} / floor "
+             f"{stats.fallback_served} serves on the card")
+        isolated = stats.isolated_dispatches
+        need(isolated >= 6, f"(d) {isolated} isolated dispatches")
+        clock.offset += 31.0
+        # the cost round's gate admits t0003's probe: one isolated
+        # dispatch, whose success closes the breaker
+        check(sched.cost_all(cost), sched.solve_all(batch), "after the probe")
+        need(not sched.breakers.is_open("t0003") and stats.probes == 1
+             and stats.breaker_recoveries == 1,
+             "(d) the probe did not close t0003's breaker")
+        need(svc.backend_health() == "healthy", "(d) the FSM is not healthy")
+    finally:
+        svc.close()
+    report(f"phase 17 (d): one failed dispatch, then t0003 faulted 3 "
+           f"rounds: breaker trips "
+           f"{stats.breaker_trips}, tenant failures {stats.tenant_failures},"
+           f" isolated device dispatches {isolated}, mirror serves "
+           f"{stats.mirror_served}, probes {stats.probes}, recoveries "
+           f"{stats.breaker_recoveries}; every answer == the no-fault run")
+
+
+def _mt_runtime(torch, workloads, root):
+    """(e) KarpenterRuntime with a tenant config (4 tenants, weights 1-3,
+    written as JSON) and the introspection plane, over phase 13 (c)'s
+    10,000-pod world, for 3 ticks, behind the HTTP server: /debug/solver
+    enabled with the kernels' build and the first-shape dispatches in its
+    ledger; /metrics with karpenter_device_* from the card's memory
+    stats, karpenter_tenant_active 4 and the compile family;
+    /debug/selfslo with the tenants' board."""
+    import urllib.request
+
+    from karpenter_tpu_torch.cloudprovider.fake import FakeFactory
+    from karpenter_tpu_torch.observability import MetricsServer
+    from karpenter_tpu_torch.runtime import KarpenterRuntime, Options
+    from karpenter_tpu_torch.store import Store
+
+    config = os.path.join(root, "tenants.json")
+    with open(config, "w") as f:
+        json.dump([{"id": f"tenant-{i}", "weight": w}
+                   for i, w in enumerate(MT_TENANT_WEIGHTS)], f)
+    store, provider = Store(), FakeFactory()
+    world = workloads.build_runtime_world(store, provider, **BINARY_SHAPE)
+    clock = _StepClock()
+    rt = KarpenterRuntime(
+        Options(tenant_config=config, introspect=True,
+                journal_dir=os.path.join(root, "j"), device=MT_DEVICE,
+                **RUNTIME_OPTIONS),
+        store=store, cloud_provider_factory=provider, clock=clock,
+    )
+    server = MetricsServer(rt.registry, port=0, host="127.0.0.1",
+                           ledger=rt.decision_ledger, selfslo=rt.selfslo,
+                           introspection=rt.solver_introspection)
+    port = server.start()
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as response:
+            return response.read().decode()
+
+    tick_ms = []
+    try:
+        for tick in range(3):
+            if tick:
+                clock.now += RUNTIME_TICK_S
+                world.step_queues()
+                workloads.churn_reconcile(world.cluster, RECONCILE_CHURN)()
+            t0 = time.perf_counter()
+            rt.manager.reconcile_all()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+        doc = json.loads(get("/debug/solver?limit=64"))
+        need(doc["enabled"] is True, "(e) /debug/solver is not enabled")
+        families = doc["compile"]["by_family"]
+        need(families.get("kernels") == 1 and families.get("solve", 0) >= 1,
+             f"(e) the ledger's families {families}")
+        devices = doc["device_memory"]["devices"]
+        need(devices and devices[0]["bytes_in_use"] > 0,
+             f"(e) no card memory in /debug/solver: {devices}")
+        text = get("/metrics?format=prometheus")
+        for family in ("karpenter_device_bytes_in_use",
+                       "karpenter_device_bytes_limit",
+                       "karpenter_solver_compile_seconds"):
+            need(family in text, f"(e) /metrics has no {family}")
+        need(_metric(text, "karpenter_tenant_active") == 4.0,
+             "(e) karpenter_tenant_active is not 4")
+        board = json.loads(get("/debug/selfslo"))
+        need(sorted(board.get("tenants", {})) ==
+             [f"tenant-{i}" for i in range(4)],
+             f"(e) /debug/selfslo's tenants {board.get('tenants')}")
+        need(rt.solver_service.stats.fallbacks == 0,
+             "(e) the runtime's service fell back")
+    finally:
+        server.stop()
+        rt.close()
+    tail = [(row["family"], row["rung"], row["seconds"])
+            for row in doc["compile"]["ledger_tail"]]
+    report(f"phase 17 (e): runtime with --tenant-config (4 tenants) and "
+           f"--introspect over {BINARY_SHAPE}: ticks {tick_ms} ms; "
+           f"/debug/solver ledger {families}, first records {tail[:6]}; "
+           f"card memory {devices}; selfslo tenants {board['tenants']}")
+
+
+def phase_multitenant(torch, TF, TB, workloads, started):
+    """Phase 17: the multi-tenant control plane and the introspection
+    plane on the card. Past MT_LATE_S of smoke (a)'s CPU twin is skipped
+    (the card's replay is still held to the reference's pinned digests)
+    and its sequential arm runs one round."""
+    import shutil
+    import tempfile
+
+    late = time.perf_counter() - started > MT_LATE_S
+    t0 = time.perf_counter()
+    out = {"replay": _mt_replay(torch, late)}
+    t1 = time.perf_counter()
+    report(f"phase 17 (a): {t1 - t0} s")
+    solved = _mt_solve_all(torch, TB, TF, workloads)
+    out.update(launches_per_round=solved["launches_per_round"],
+               ms=solved["ms"], ms_by=solved["ms_by"])
+    t2 = time.perf_counter()
+    report(f"phase 17 (b): {t2 - t1} s")
+    _mt_families(torch, workloads)
+    _mt_card_rule(torch, workloads, solved)
+    t3 = time.perf_counter()
+    report(f"phase 17 (c), (d): {t3 - t2} s")
+    root = tempfile.mkdtemp(prefix="karpenter-tenancy-")
+    try:
+        _mt_runtime(torch, workloads, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report(f"phase 17 (e): {time.perf_counter() - t3} s")
+    return out
+
+
 def profile_solves(torch, TB, inputs, n=ITERS):
     """Where a solve's time goes: the mean of back-to-back solves by CUDA
     events, then a torch.profiler window of n solves (device time by
@@ -4703,7 +5276,8 @@ def device_ms(profile, wrapper):
 
 
 def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
-                   service, disruption, runtime, simulate, kube, deployment):
+                   service, disruption, runtime, simulate, kube, deployment,
+                   tenancy):
     """Per-kernel JSON records at the main path's shapes. `ms` is device
     time per launch from the profiler's rows of the kernel's own names
     (the fused row sums its two kernels); `call_ms` is the wrapper's time
@@ -4749,34 +5323,25 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
     or CUDA events around the wrapper where the profiler lost the rows),
     `sidecar_request_bytes` the tick's Solve
     request on the wire and `sidecar_transport` the leg that carried it
-    (grpc and its version)."""
-    from karpenter_tpu_torch.ops.fused_assign import _packed
-
-    pods, n_res = inputs.pod_requests.shape
-    groups = inputs.group_allocatable.shape[0]
-    intol_w, required_w, taint_w, nolabel_w = _packed(inputs)
-    kw, lw = intol_w.shape[1], required_w.shape[1]
+    (grpc and its version). `tenancy_launches_per_round` is the
+    wrapper's count over one solve_all round of phase 17 (b)'s 64 tenants,
+    `tenancy_ms` its device time per launch at their operands
+    (`tenancy_ms_by` as `sidecar_ms_by`)."""
     assigned, hist, demand, _ = TF.fused_assign(inputs, BUCKETS)
     plain_demand = TF.fused_assign_reference(inputs, BUCKETS)[2]
-    a = assigned.cpu().numpy()
-    valid = inputs.pod_valid.cpu().numpy()
-    # (row, group) pairs the scan visits: up to the first feasible group,
-    # all groups for a row with none; invalid rows visit none
-    pairs = int(np.where(a >= 0, a + 1, groups)[valid].sum())
-    fused_ops = pairs * (n_res + kw + lw) + int((a >= 0).sum()) * (3 * n_res + 6)
-    fused_bytes = (
-        pods * (4 * n_res + 1 + 8 * (kw + lw) + 4)  # rows in, assigned out
-        + groups * (4 * n_res + 8 * (kw + lw))  # groups in
-        + groups * (4 * BUCKETS + 4 * n_res)  # hist, demand out
-    )
+    # each kernel's analytic work on this run's data (the scan visits a
+    # row's groups up to its first feasible one): TF.kernel_cost, which
+    # the introspection plane's cost attribution also reports
+    costs = TF.kernel_cost(inputs, BUCKETS, assigned.cpu().numpy(),
+                           hist.cpu().numpy())
+    fused_ops, fused_bytes = costs["fused_assign"]
+    shelf_operations, shelf_bytes = costs["shelf_bfd"]
     fused_call_ms = time_ms(lambda: TF.fused_assign(inputs, BUCKETS), 50)
     fused_plain_ms = time_ms(
         lambda: TF.fused_assign_reference(inputs, BUCKETS), 5
     )
     shelf_call_ms = time_ms(lambda: TF.shelf_bfd(hist, BUCKETS), 50)
     shelf_plain_ms = time_ms(lambda: TF.shelf_bfd_reference(hist, BUCKETS), 3)
-    shelf_bytes = groups * (4 * BUCKETS + 4)
-    shelf_operations = shelf_ops(hist.cpu().numpy(), BUCKETS)
 
     def bound(nbytes, ops):
         by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -4848,6 +5413,10 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
             "sidecar_ms_by": deployment["ms_by"],
             "sidecar_request_bytes": deployment["request_bytes"],
             "sidecar_transport": deployment["transport"],
+            "tenancy_launches_per_round": tenancy["launches_per_round"][
+                name],
+            "tenancy_ms": tenancy["ms"][name],
+            "tenancy_ms_by": tenancy["ms_by"],
             "max_abs_err": err,
             "ms": ms,
             "call_ms": call_ms,
@@ -4922,11 +5491,14 @@ def main() -> int:
             results["reconcile tick"])),
         ("HA tick", lambda: phase_ha_tick(torch, FT, M, workloads)),
         ("disruption", lambda: phase_disruption(torch, TF, workloads)),
-        ("controller binary", lambda: phase_runtime(torch, TF, workloads)),
+        ("controller binary", lambda: phase_runtime(
+            torch, TF, workloads, started)),
         ("simulate", lambda: phase_simulate(torch, TF, workloads)),
         ("real-cluster mode", lambda: phase_kube(
             torch, TF, workloads, results["simulate"])),
         ("the shipped Deployment", lambda: phase_deployment(
+            torch, TF, TB, workloads, started)),
+        ("multi-tenant control plane", lambda: phase_multitenant(
             torch, TF, TB, workloads, started)),
     ]
     for name, run in phases:
@@ -4951,9 +5523,10 @@ def main() -> int:
                              results["controller binary"],
                              results["simulate"],
                              results["real-cluster mode"],
-                             results["the shipped Deployment"])
+                             results["the shipped Deployment"],
+                             results["multi-tenant control plane"])
     report(f"chip_smoke wall time: {time.perf_counter() - started} s "
-           f"(kernel build and all sixteen phases)")
+           f"(kernel build and all seventeen phases)")
     print(f"card: {CARD['line']}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

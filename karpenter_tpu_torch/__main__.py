@@ -32,6 +32,13 @@ the process exits 1 with the reason; under `--device cpu` either answer
 is accepted. `--cloud-provider aws|tpu` select the AWS and GKE TPU
 providers (cloudprovider/aws.py, cloudprovider/tpu.py); without their
 SDKs the pools answer the reference's not-implemented guidance.
+
+`--tenant-config FILE` (a JSON or YAML list of tenant specs) builds the
+multi-tenant control plane (tenancy/) over the runtime's one service,
+with `--tenant-deadline` its weighted deadlines; `--introspect` turns on
+the solver introspection plane behind /debug/solver
+(observability/devicetelemetry.py); `--simulate --multitenant --tenants
+N` replays N seeded tenant clusters in lockstep through one scheduler.
 """
 
 from __future__ import annotations
@@ -48,11 +55,7 @@ from karpenter_tpu_torch.utils.log import setup as log_setup
 # flag -> (is it set?, the reference's module it needs, by its path under
 # the package root): each exits 2
 NOT_PORTED_FLAGS = (
-    ("--tenant-config", lambda a: bool(a.tenant_config),
-     "tenancy/"),
     ("--partitions", lambda a: a.partitions > 0, "replication/"),
-    ("--introspect", lambda a: a.introspect,
-     "observability/devicetelemetry.py"),
     ("--profiler-port", lambda a: bool(a.profiler_port),
      "the jax.profiler server of observability/profiler.py, "
      "which has no torch counterpart"),
@@ -918,6 +921,7 @@ def main(argv=None) -> int:
         readiness=_readiness(runtime),
         ledger=runtime.decision_ledger,
         selfslo=runtime.selfslo,
+        introspection=runtime.solver_introspection,
         # /debug/profile captures land next to the flight-recorder
         # dumps (and the recovery journal) — one incident directory
         profile_dir=args.journal_dir,
@@ -1004,9 +1008,11 @@ def _build_runtime(args, store=None) -> KarpenterRuntime:
             cost_default_hourly=args.cost_default_hourly,
             cost_spot_multiplier=args.cost_spot_multiplier,
             pricing_file=args.pricing_file,
+            tenant_config=args.tenant_config,
             tenant_deadline_s=args.tenant_deadline,
             tenant_id=args.tenant_id,
             provenance=args.provenance,
+            introspect=args.introspect,
             introspect_storm_threshold=args.introspect_storm_threshold,
             selfslo_objective_s=args.selfslo_objective,
             selfslo_target=args.selfslo_target,

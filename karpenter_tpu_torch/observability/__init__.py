@@ -1,6 +1,6 @@
 """Observability: reconcile tracing, the flight recorder, the decision
-ledger, the self-SLO monitor and the HTTP surface (the port's copy of
-karpenter_tpu/observability, less device telemetry).
+ledger, the self-SLO monitor, the solver introspection plane and the
+HTTP surface (the port's copy of karpenter_tpu/observability).
 
   tracing.py         per-reconcile trace IDs + spans, coalesced-dispatch
                      links, Chrome-trace/Perfetto JSONL export
@@ -12,7 +12,13 @@ karpenter_tpu/observability, less device telemetry).
                      to N this tick" (default off)
   selfslo.py         the control plane's self-SLO monitor: multi-window
                      burn rates over karpenter_reconcile_e2e_seconds +
-                     the solver FSM (/debug/selfslo)
+                     the solver FSM + tenant breakers + device memory
+                     (/debug/selfslo)
+  devicetelemetry.py the solver introspection plane: compile ledger
+                     (first dispatches, graph captures, the kernels'
+                     build), card memory telemetry, the kernels' cost
+                     attribution (/debug/solver; default off,
+                     --introspect)
   server.py          /metrics, /healthz, /readyz and the /debug/*
                      endpoints
   profiler.py        solver_trace (a torch.profiler range around a
@@ -21,10 +27,15 @@ karpenter_tpu/observability, less device telemetry).
 
 Copies of the reference's modules of the same names, except
 profiler.py, whose jax.profiler calls become torch.profiler ones (the
-remote xprof server has no counterpart). Device telemetry
-(devicetelemetry.py, --introspect) is not ported yet.
+remote xprof server has no counterpart), and devicetelemetry.py, whose
+sources are torch.cuda's memory stats and the service's first-time
+events (its module docstring).
 """
 
+from karpenter_tpu_torch.observability.devicetelemetry import (
+    CompileLedger,
+    SolverIntrospection,
+)
 from karpenter_tpu_torch.observability.flightrecorder import (
     FlightRecorder,
     default_flight_recorder,
@@ -48,10 +59,12 @@ from karpenter_tpu_torch.observability.tracing import (
 )
 
 __all__ = [
+    "CompileLedger",
     "DecisionLedger",
     "FlightRecorder",
     "MetricsServer",
     "SelfSLOMonitor",
+    "SolverIntrospection",
     "Tracer",
     "default_flight_recorder",
     "default_ledger",

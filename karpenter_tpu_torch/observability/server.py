@@ -1,7 +1,7 @@
 """Observability HTTP surface: /metrics, health, and the debug endpoints
 (the port's copy of karpenter_tpu/observability/server.py; /debug/profile
-captures with torch.profiler, and /debug/solver answers enabled: false
-until the introspection plane is ported).
+captures with torch.profiler, and /debug/solver renders the runtime's
+introspection plane, observability/devicetelemetry.py).
 
 reference: the manager serves controller metrics on :8080
 (cmd/controller/main.go:52,61) scraped by a dedicated Prometheus via a 5s

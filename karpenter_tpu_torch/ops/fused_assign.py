@@ -21,15 +21,18 @@ the card.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from karpenter_tpu_torch import kernels
 from karpenter_tpu_torch.ops.binpack import (
     BinPackInputs,
     BinPackOutputs,
+    _as_field,
     _row_weight,
     _shelf_bfd,
     has_constraint_operands,
@@ -332,6 +335,85 @@ def shelf_bfd(
     kernels.check("shelf_bfd", err, "shelf_bfd launch")
     LAUNCHES["shelf_bfd"] += 1
     return nodes, count
+
+
+def shelf_ops(hist: np.ndarray, buckets: int) -> int:
+    """Integer steps the shelf algorithm takes on this histogram: each
+    visit of a remnant slot (a min, a compare, two updates, a subtract) is
+    counted as 5 operations, each size's bin opening as 10."""
+    steps = 0
+    for row in hist:
+        bins = np.zeros(buckets + 1, np.int64)
+        for k in range(buckets, 0, -1):
+            c = int(row[k - 1])
+            while c > 0:
+                placed = False
+                for rem in range(k, buckets + 1):
+                    steps += 5
+                    m = min(c, int(bins[rem]))
+                    if m > 0:
+                        bins[rem] -= m
+                        bins[rem - k] += m
+                        c -= m
+                        placed = True
+                    if c == 0:
+                        break
+                if not placed:
+                    break
+            if c > 0:
+                steps += 10
+                per_bin = buckets // k
+                full, leftover = divmod(c, per_bin)
+                bins[buckets - per_bin * k] += full
+                if leftover > 0:
+                    bins[buckets - leftover * k] += 1
+    return steps
+
+
+def kernel_cost(inputs: BinPackInputs, buckets: int,
+                assigned: np.ndarray, hist: np.ndarray) -> dict:
+    """The analytic work of one launch of each kernel on these operands:
+    {name: (operations, bytes)}, each input read once and each output
+    written once. The fused kernel's scan visits a row's groups up to its
+    first feasible one (all of them for a row with none; invalid rows
+    none), each visit comparing R requests and the K + L mask words; an
+    assigned row adds its bucket, histogram and demand updates."""
+    pods, n_res = inputs.pod_requests.shape
+    groups = inputs.group_allocatable.shape[0]
+    intol_w, required_w, _, _ = _packed(inputs)
+    kw, lw = intol_w.shape[1], required_w.shape[1]
+    valid = inputs.pod_valid.cpu().numpy()
+    pairs = int(np.where(assigned >= 0, assigned + 1, groups)[valid].sum())
+    fused_ops = pairs * (n_res + kw + lw) + int((assigned >= 0).sum()) * (
+        3 * n_res + 6
+    )
+    fused_bytes = (
+        pods * (4 * n_res + 1 + 8 * (kw + lw) + 4)  # rows in, assigned out
+        + groups * (4 * n_res + 8 * (kw + lw))  # groups in
+        + groups * (4 * buckets + 4 * n_res)  # hist, demand out
+    )
+    return {
+        "fused_assign": (fused_ops, fused_bytes),
+        "shelf_bfd": (shelf_ops(hist, buckets), groups * (4 * buckets + 4)),
+    }
+
+
+def solve_cost(inputs: BinPackInputs, buckets: int) -> dict:
+    """The cost analysis of one cuda-rung solve — both kernels'
+    kernel_cost summed, as {"flops": operations, "bytes accessed": bytes}
+    (the introspection plane's attribution). Computed on the host by the
+    plain version, so it launches no kernel."""
+    cpu = torch.device("cpu")
+    host = BinPackInputs(**{
+        f.name: _as_field(f.name, getattr(inputs, f.name), cpu)
+        for f in dataclasses.fields(BinPackInputs)
+    })
+    assigned, hist, _, _ = fused_assign_reference(host, buckets)
+    costs = kernel_cost(host, buckets, assigned.numpy(), hist.numpy())
+    return {
+        "flops": float(sum(ops for ops, _ in costs.values())),
+        "bytes accessed": float(sum(nbytes for _, nbytes in costs.values())),
+    }
 
 
 def binpack_fused(inputs: BinPackInputs, buckets: int = 32) -> BinPackOutputs:

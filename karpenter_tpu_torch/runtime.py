@@ -10,13 +10,15 @@ The port's copy of karpenter_tpu/runtime.py. What differs:
     (or "cuda") is the CUDA card, and construction raises without one;
     "cpu" runs the plain PyTorch and numpy programs on the host.
   * Options whose modules are not ported yet raise NotPortedError at
-    construction (tenant_config, partitions, introspect,
-    solver_shard_mesh): nothing stands in for them. The
-    service has no shard route, so on one card it serves exactly as the
-    reference's does (whose mesh needs two devices).
-  * The solver introspection plane is not built: the self-SLO monitor's
-    memory source stays None, as the reference's is while --introspect
-    is off.
+    construction (partitions, solver_shard_mesh): nothing stands in for
+    them. The service has no shard route, so on one card it serves
+    exactly as the reference's does (whose mesh needs two devices).
+  * The solver introspection plane's memory source reads the card
+    (torch.cuda.memory_stats); a runtime on the CPU reports none, as the
+    reference's does on a CPU device.
+  * With tenant_config the multi-tenant scheduler holds the card rule
+    (tenancy/scheduler.py): on the card a degraded tenant takes its own
+    device dispatch, never a numpy mirror.
   * Prewarm (prewarm_compile) raises when a family's warm dispatch
     fails, instead of logging and booting degraded.
   * compile_cache_dir is the directory the CUDA kernels build into
@@ -268,10 +270,7 @@ class NotPortedError(RuntimeError):
 # option -> (is it set?, the reference's module it needs, by its path
 # under the package root)
 _NOT_PORTED = (
-    ("tenant_config", lambda v: bool(v), "tenancy/"),
     ("partitions", lambda v: v > 0, "replication/"),
-    ("introspect", lambda v: bool(v),
-     "observability/devicetelemetry.py"),
     ("solver_shard_mesh", lambda v: v is not None,
      "the sharded dispatch of parallel/mesh.py"),
 )
@@ -373,6 +372,21 @@ class KarpenterRuntime:
             device_solver=device_solver,
             decider=decider,
         )
+        # the solver introspection plane (observability/devicetelemetry
+        # .py): ALWAYS built — a disabled plane is one attribute read
+        # per hook — and enabled by --introspect. Attached to the
+        # service so dispatch sites note first-time events; evaluated
+        # once per manager tick (_on_tick).
+        from karpenter_tpu_torch.observability import SolverIntrospection
+
+        self.solver_introspection = SolverIntrospection(
+            enabled=options.introspect,
+            registry=self.registry,
+            clock=self.clock,
+            recorder=self.flight_recorder,
+            storm_threshold=options.introspect_storm_threshold,
+            watermark=options.introspect_memory_watermark,
+        ).attach(self.solver_service)
         self._reset_caches_for_recovery()
         self.producer_factory = ProducerFactory(
             self.store, self.cloud_provider, registry=self.registry,
@@ -503,6 +517,7 @@ class KarpenterRuntime:
                 self.batch_autoscaler, solver_service=self.solver_service
             ),
         )
+        self._build_tenancy(options)
         self._build_selfslo(options)
         self._finish_recovery_boot()
         self._maybe_prewarm(options)
@@ -608,16 +623,56 @@ class KarpenterRuntime:
         if options.provenance:
             self.decision_ledger.enabled = True
 
+    def _build_tenancy(self, options: Options) -> None:
+        """Multi-tenant control plane (docs/multitenancy.md): with a
+        tenant config, the registry namespaces per-cluster stacks and
+        the scheduler batches cross-tenant decide/cost/forecast through
+        THIS runtime's shared SolverService. Without one, nothing is
+        built and every existing path is byte-identical."""
+        self.tenancy = None
+        self.tenant_scheduler = None
+        if not options.tenant_config:
+            return
+        from karpenter_tpu_torch.tenancy import (
+            MultiTenantScheduler,
+            TenantRegistry,
+            load_tenant_config,
+        )
+
+        specs = load_tenant_config(options.tenant_config)
+        self.tenancy = TenantRegistry(
+            service=self.solver_service,
+            registry=self.registry,
+            journal_dir=options.journal_dir,
+            clock=self.clock,
+            specs=specs,
+        )
+        self.tenant_scheduler = MultiTenantScheduler(
+            self.tenancy, self.solver_service,
+            deadline_s=options.tenant_deadline_s,
+        )
+
     def _build_selfslo(self, options: Options) -> None:
         """The control plane's self-SLO monitor (observability/selfslo):
         multi-window burn rates over its OWN e2e-latency histogram plus
-        the solver backend FSM; evaluated once per manager tick via the
-        tick hook, served at /debug/selfslo. Always built — one snapshot
-        tuple per tick. The tenant, memory and replica sources belong to
-        modules that are not ported: they stay None, as the reference's
-        do in a single-tenant, single-replica plane with --introspect
-        off."""
+        the solver backend FSM, (when multi-tenant) the per-tenant
+        breaker board and the card's memory watermark; evaluated once
+        per manager tick via the tick hook, served at /debug/selfslo.
+        Always built — one snapshot tuple per tick. The replica source
+        belongs to replication/, which is not ported: it stays None, as
+        the reference's does in a single-replica plane."""
         from karpenter_tpu_torch.observability import SelfSLOMonitor
+
+        tenant_source = None
+        if self.tenant_scheduler is not None:
+            breakers = self.tenant_scheduler.breakers
+            registry = self.tenancy
+
+            def tenant_source():
+                return {
+                    tenant: breakers.is_open(tenant)
+                    for tenant in registry.tenants()
+                }
 
         self.selfslo = SelfSLOMonitor(
             registry=self.registry,
@@ -626,16 +681,26 @@ class KarpenterRuntime:
             clock=self.clock,
             histogram=self.registry.gauge("reconcile", "e2e_seconds"),
             fsm_source=self.solver_service.backend_health,
+            tenant_source=tenant_source,
+            # the fourth source (observability/devicetelemetry.py): the
+            # card's memory high watermark — quiet (None) while the
+            # introspection plane is off or the service is on the CPU
+            memory_source=self.solver_introspection.memory_source,
             recorder=self.flight_recorder,
         )
 
     def _on_tick(self) -> None:
         """Composed manager tick hook: recovery bookkeeping (warm-up
-        countdown, checkpoint cadence), then the self-SLO evaluation —
-        the monitor must observe the tick INCLUDING any degradation the
-        tick just hit."""
+        countdown, checkpoint cadence), then the solver introspection
+        pass (compile-storm window close + device memory poll — it must
+        run BEFORE the self-SLO evaluation so the memory source reflects
+        THIS tick), then the self-SLO evaluation — the monitor must
+        observe the tick INCLUDING any degradation the tick just hit."""
         if self.recovery is not None:
             self.recovery.on_tick()
+        introspection = getattr(self, "solver_introspection", None)
+        if introspection is not None:
+            introspection.on_tick()
         selfslo = getattr(self, "selfslo", None)
         if selfslo is not None:
             selfslo.evaluate()
@@ -768,6 +833,9 @@ class KarpenterRuntime:
     def close(self) -> None:
         if self.manager is not None:
             self.manager.close()
+        if getattr(self, "tenancy", None) is not None:
+            self.tenancy.close()
+            self.tenancy = None
         if self.recovery is not None:
             self.recovery.close()
             self.recovery = None

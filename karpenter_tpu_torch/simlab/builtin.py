@@ -21,8 +21,8 @@ recovery property the seeded fuzz test pins (step_limit 2.0 traverses
 The port's copy of karpenter_tpu/simlab/builtin.py: the same thirteen
 registrations in the same order, trails and selection predicates. Each
 runner passes --device to its world (the card unless `cpu` is named).
-The `multitenant` and `failover` runners exit 2 naming tenancy/ and
-replication/, which are not ported yet; their trails work.
+The `failover` runner exits 2 naming replication/, which is not ported
+yet; its trails work.
 """
 
 from __future__ import annotations
@@ -242,10 +242,26 @@ def _run_eventloop(args, store) -> int:
 
 
 def _run_multitenant(args, store) -> int:
-    # N seeded tenant clusters stepped in lockstep through one
-    # MultiTenantScheduler (docs/multitenancy.md): the world needs
-    # tenancy/
-    return _not_ported(args, "--multitenant", "tenancy/")
+    # self-contained replay (no store, no provider): N seeded
+    # tenant clusters stepped in lockstep through one
+    # MultiTenantScheduler (docs/multitenancy.md); combines with
+    # --cost implicitly (every lockstep tick runs decide + cost),
+    # with --provenance (per-decision "why" records + ledger
+    # JSONL), and with --trace-export
+    from karpenter_tpu_torch.simulate import simulate_multitenant
+
+    report = simulate_multitenant(
+        tenants=args.tenants,
+        seed=_resolved_seed(args, 0),
+        tenant_config=args.tenant_config,
+        provenance=args.provenance,
+        trace_export=args.trace_export,
+        device=_device(args),
+    )
+    # simulate_multitenant exported trace + decisions itself
+    args.trace_export = None
+    print(json.dumps(report, indent=2, sort_keys=True))
+    return 0
 
 
 def _run_poolgroups(args, store) -> int:

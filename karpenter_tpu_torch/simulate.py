@@ -29,9 +29,9 @@ The port's copy of karpenter_tpu/simulate.py. Every world takes
 `device`: where its SolverService (or runtime) runs — the CUDA card by
 default, raising without one; "cpu" names the host. A world's `backend`
 names the port's rung ("torch", "cuda" or "numpy"; the reference's
-default "xla" becomes "torch", the tensor programs). `simulate_failover`
-and the multi-tenant lockstep replay (`simulate_multitenant`) wait for
-replication/ and tenancy/, which are not ported yet.
+default "xla" becomes "torch", the tensor programs, except in the
+multi-tenant lockstep replay, whose default "auto" is the card's rung).
+`simulate_failover` waits for replication/, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -2481,3 +2481,268 @@ def simulate_constraints(  # lint: allow-complexity — scenario assembly: world
             "degraded": stats["degraded"],
         },
     }
+
+
+# -- multi-tenant lockstep replay (docs/multitenancy.md) ---------------------
+
+
+def multitenant_fleet_inputs(
+    tenant: int,
+    rows: int,
+    metrics: int,
+    seed: int,
+    tick: int,
+    spec_replicas: np.ndarray,
+    now: float,
+):
+    """One tenant cluster's DecisionInputs for one lockstep tick:
+    AverageValue metrics riding a seeded diurnal ramp whose phase and
+    amplitude differ per tenant (tenant fleets are NOT in phase — the
+    fairness and batching machinery must handle skewed demand), with
+    the previous tick's desired fed back as spec/status replicas.
+    Deterministic in (tenant, tick, seed); shared with `bench.py
+    --multitenant` so the bench times exactly the matrices the
+    simulator steps."""
+    import math as _math
+
+    from karpenter_tpu_torch.ops import decision as D
+
+    rng = np.random.RandomState(seed * 100_003 + tenant * 1_009 + tick)
+    phase = (tenant % 7) / 7.0 * 2.0 * _math.pi
+    level = 40.0 + 30.0 * _math.sin(tick / 12.0 * 2.0 * _math.pi + phase)
+    values = np.maximum(
+        0.0, level + rng.normal(0.0, 2.0, (rows, metrics))
+    ).astype(np.float32)
+    spec = np.asarray(spec_replicas, np.int32)
+    return D.DecisionInputs(
+        metric_value=values,
+        target_value=np.full((rows, metrics), 4.0, np.float32),
+        target_type=np.full(
+            (rows, metrics), D.TYPE_AVERAGE_VALUE, np.int32
+        ),
+        metric_valid=np.ones((rows, metrics), bool),
+        spec_replicas=spec,
+        status_replicas=spec.copy(),
+        min_replicas=np.ones(rows, np.int32),
+        max_replicas=np.full(rows, 10_000, np.int32),
+        up_window=np.zeros(rows, np.int32),
+        down_window=np.zeros(rows, np.int32),
+        up_policy=np.full(rows, D.POLICY_MAX, np.int32),
+        down_policy=np.full(rows, D.POLICY_MAX, np.int32),
+        last_scale_time=np.zeros(rows, np.float32),
+        has_last_scale=np.zeros(rows, bool),
+        now=np.float32(now),
+        up_ptype=np.zeros((rows, 1), np.int32),
+        up_pvalue=np.zeros((rows, 1), np.int32),
+        up_pperiod=np.ones((rows, 1), np.int32),
+        up_pvalid=np.zeros((rows, 1), bool),
+        down_ptype=np.zeros((rows, 1), np.int32),
+        down_pvalue=np.zeros((rows, 1), np.int32),
+        down_pperiod=np.ones((rows, 1), np.int32),
+        down_pvalid=np.zeros((rows, 1), bool),
+    )
+
+
+def multitenant_cost_inputs(decide_inputs, desired: np.ndarray):
+    """The tenant's CostInputs for the same tick: every row SLO-opted,
+    demand = the observed metric values, a per-row unit-cost spread so
+    the budget/risk trade is live. Deterministic companion of
+    multitenant_fleet_inputs."""
+    from karpenter_tpu_torch.ops.cost import CostInputs
+
+    rows = int(np.asarray(desired).shape[0])
+    values = np.asarray(decide_inputs.metric_value, np.float32)
+    unit = np.asarray(
+        [0.19 + 0.27 * (i % 4) for i in range(rows)], np.float32
+    )
+    return CostInputs(
+        base_desired=np.asarray(desired, np.int32),
+        min_replicas=np.asarray(decide_inputs.min_replicas, np.int32),
+        max_replicas=np.asarray(decide_inputs.max_replicas, np.int32),
+        unit_cost=unit,
+        slo_weight=np.full(rows, 50.0, np.float32),
+        max_hourly_cost=np.zeros(rows, np.float32),
+        slo_valid=np.ones(rows, bool),
+        slo_target=np.asarray(decide_inputs.target_value, np.float32),
+        demand_mu=values,
+        demand_sigma=np.full(values.shape, 1.5, np.float32),
+        demand_valid=np.ones(values.shape, bool),
+    )
+
+
+def simulate_multitenant(  # lint: allow-complexity — scenario assembly: lockstep replay + provenance/trace exports + report
+    tenants: int = 16,
+    ticks: int = 12,
+    rows: int = 4,
+    metrics: int = 2,
+    seed: int = 0,
+    backend: str = "auto",
+    tenant_config: Optional[str] = None,
+    provenance: bool = False,
+    trace_export: Optional[str] = None,
+    device=None,
+) -> dict:
+    """Step N seeded tenant clusters in LOCKSTEP through one
+    MultiTenantScheduler (docs/multitenancy.md): every tick, all
+    tenants' fleet matrices concatenate into shared decide + cost
+    dispatches, the refined desired feeds back as the next tick's
+    replicas, and the report quantifies the amortization — actual
+    shared dispatches vs the 2-per-tenant-per-tick a sequential loop
+    would pay — plus deterministic aggregate-replica digests the
+    regression tests pin. Self-contained: no store, no provider.
+
+    `provenance=True` records the decision ledger through the replay
+    and adds the per-tenant WHY view (winning stage, cost ladder,
+    solver rung, admission round) for a pinned mid-run tick — the
+    `--simulate --cost --multitenant --provenance` acceptance surface.
+    `trace_export=FILE` additionally mints one reconcile trace per tick
+    (so ledger records carry trace-id backlinks), exporting the trace
+    JSONL to FILE and the decision JSONL next to it
+    (provenance.decisions_export_path).
+
+    The port's `backend` default "auto" is the service's default rung:
+    the tensor programs on the card (the reference's "xla"), the numpy
+    mirrors on the CPU; `device` is where the shared service runs (the
+    card by default). On the card the scheduler holds the card rule
+    (tenancy/scheduler.py): `mirror_served` stays 0."""
+    from karpenter_tpu_torch.metrics.registry import GaugeRegistry
+    from karpenter_tpu_torch.observability import (
+        default_ledger,
+        default_tracer,
+        reset_default_ledger,
+        reset_default_tracer,
+        set_default_ledger,
+    )
+    from karpenter_tpu_torch.solver import SolverService
+    from karpenter_tpu_torch.tenancy import (
+        MultiTenantScheduler,
+        TenantRegistry,
+        TenantSpec,
+        load_tenant_config,
+    )
+
+    if tenant_config:
+        specs = load_tenant_config(tenant_config)
+        tenants = len(specs)
+    else:
+        specs = [
+            TenantSpec(id=f"t{i:04d}", weight=1.0 + (i % 3))
+            for i in range(tenants)
+        ]
+    # the replay records into its OWN ledger and restores the process
+    # default afterwards: an enabled default leaking out would turn on
+    # provenance for a co-resident runtime that never opted in
+    saved_ledger = None
+    ledger = None
+    if provenance:
+        saved_ledger = default_ledger()
+        ledger = reset_default_ledger(enabled=True)
+    if trace_export:
+        reset_default_tracer()
+    service = SolverService(
+        backend=backend, registry=GaugeRegistry(), device=device
+    )
+    registry = TenantRegistry(
+        service=service, registry=GaugeRegistry(), specs=specs
+    )
+    scheduler = MultiTenantScheduler(registry, service)
+    replicas = {
+        spec.id: np.full(rows, 2, np.int32) for spec in specs
+    }
+    digests = {}
+    pinned_tick = ticks // 2
+    pinned_records: List[dict] = []
+    try:
+        for tick in range(ticks):
+            now = 1_000_000.0 + tick * 10.0
+            batch = {
+                spec.id: multitenant_fleet_inputs(
+                    i, rows, metrics, seed, tick, replicas[spec.id], now
+                )
+                for i, spec in enumerate(specs)
+            }
+            with default_tracer().trace(
+                "simulate.multitenant.tick", tick=tick
+            ):
+                decided = scheduler.decide_all(batch)
+                cost_batch = {
+                    tid: multitenant_cost_inputs(
+                        batch[tid], decided[tid].desired
+                    )
+                    for tid in decided
+                }
+                refined = scheduler.cost_all(cost_batch, backend=backend)
+            for tid in refined:
+                replicas[tid] = np.asarray(refined[tid].desired, np.int32)
+            if tick in (0, ticks // 2, ticks - 1):
+                digests[f"tick_{tick}"] = int(
+                    sum(int(r.sum()) for r in replicas.values())
+                )
+            if ledger is not None and tick == pinned_tick:
+                # the tick's records are exactly the newest commit
+                pinned_records = ledger.query(kind="tenant")[
+                    -(len(refined) * rows):
+                ]
+    finally:
+        service.close()
+        if saved_ledger is not None:
+            set_default_ledger(saved_ledger)
+    stats = scheduler.stats
+    shared = stats.decide_dispatches + stats.cost_dispatches
+    isolated = stats.isolated_dispatches
+    sequential_equiv = tenants * ticks * 2
+    report = {
+        "tenants": tenants,
+        "ticks": ticks,
+        "rows_per_tenant": rows,
+        "metrics_per_row": metrics,
+        "decisions": stats.decide_rows,
+        "decide_dispatches": stats.decide_dispatches,
+        "cost_dispatches": stats.cost_dispatches,
+        "isolated_dispatches": isolated,
+        "admission_rounds": stats.admission_rounds,
+        "mirror_served": stats.mirror_served,
+        "fallback_served": stats.fallback_served,
+        "sequential_equivalent_dispatches": sequential_equiv,
+        "dispatch_amortization": round(
+            sequential_equiv / max(shared + isolated, 1), 1
+        ),
+        "aggregate_replicas": digests,
+        "solver": {
+            "requests": service.stats.requests,
+            "dispatches": service.stats.dispatches,
+        },
+    }
+    if ledger is not None:
+        why = _why_report(ledger)
+        why["pinned_tick"] = pinned_tick
+        why["pinned"] = [
+            {
+                "tenant": r["tenant"],
+                "row": r["name"],
+                "why": r["winning_stage"],
+                "desired": r["final_desired"],
+                "base": r["base_desired"],
+                "risk": r["cost_risk"],
+                "hourly": r["cost_hourly"],
+                "rung": r["solver_rung"] or None,
+                "admission_round": r["admission_round"],
+                "trace": r["trace"] or None,
+            }
+            for r in pinned_records
+        ]
+        report["provenance"] = why
+    if trace_export:
+        report["trace_export"] = trace_export
+        report["trace_events"] = default_tracer().export_jsonl(
+            trace_export
+        )
+        if ledger is not None:
+            from karpenter_tpu_torch.observability.provenance import (
+                export_next_to_trace,
+            )
+
+            path, count = export_next_to_trace(ledger, trace_export)
+            report["decisions_export"] = path
+            report["decision_records"] = count
+    return report

@@ -82,7 +82,7 @@ class _Entry:
     """One resident operand stack: the host inputs identity it mirrors,
     the (shape, mode) it was padded/stacked/placed for, and the device
     pytree the dispatch consumes. `tenant`/`created_at` are telemetry
-    only (for the per-entry accounting of a later introspection slice) —
+    only (the introspection plane's per-entry accounting, entries()) —
     neither participates in lookup."""
 
     __slots__ = (
@@ -192,6 +192,31 @@ class ResidentFleetState:
     def resident_rows(self) -> int:
         with self._lock:
             return sum(e.rows for e in self._entries.values())
+
+    def entries(self, now: Optional[float] = None) -> list:
+        """Per-entry telemetry view of the LRU, oldest-use first — the
+        EXACT byte accounting the introspection plane publishes as
+        karpenter_solver_resident_entry_bytes and /debug/solver renders
+        (observability/devicetelemetry.py). `slot` is the LRU position
+        at snapshot time; `age_s` needs `now` on the same clock that
+        stamped created_at (the owning service's)."""
+        with self._lock:
+            snapshot = list(self._entries.values())
+        return [
+            {
+                "slot": f"entry{i}",
+                "bytes": entry.nbytes,
+                "rows": entry.rows,
+                "shape": tuple(entry.shape),
+                "mode": entry.mode[0],
+                "tenant": entry.tenant,
+                "age_s": (
+                    round(max(0.0, now - entry.created_at), 3)
+                    if now is not None else None
+                ),
+            }
+            for i, entry in enumerate(snapshot)
+        ]
 
     def _find(self, host, shape, mode) -> Optional[_Entry]:
         with self._lock:

@@ -136,8 +136,14 @@ The simlab families (simlab/env.py, simlab/policy.py):
     answers only when `numpy` is requested. `simlab.step` is the
     fault-injection point.
 
-Left out of this slice (each comes with its own): the shard route and
-the introspection plane.
+The introspection plane (observability/devicetelemetry.py,
+--introspect) attaches with attach_introspection: the first dispatch of
+a key (solve, forecast, preempt, fused — with its CUDA-graph capture)
+and the kernels' build or load are noted into its compile ledger, and a
+cuda-rung solve key carries the kernels' analytic cost
+(ops/fused_assign.solve_cost) on its later dispatch spans.
+
+Left out (it comes with multi-device): the shard route.
 """
 
 from __future__ import annotations
@@ -145,6 +151,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import threading
 import time as _time
 from dataclasses import dataclass, field
@@ -499,6 +506,11 @@ class SolverService:
         self._closed = False
         # dispatch keys seen so far (_count_key)
         self._compile_seen: set = set()
+        # the introspection plane (attach_introspection); None = detached
+        self._introspect = None
+        # wall seconds of this service's kernel build/load, until the
+        # plane has ledgered it (_note_kernels)
+        self._kernels_unnoted: Optional[float] = None
         # kernel families already pre-warmed (prewarm; reset_caches re-arms)
         self._prewarmed: set = set()
         self._kernels_ready = False
@@ -711,10 +723,66 @@ class SolverService:
         with self._kernel_lock:  # concurrent cuda submits build once
             if self._kernels_ready:
                 return
+            t0 = _time.perf_counter()
             kernels.build()
             for name in kernels.SOURCES:
                 kernels.library(name)
+            self._kernels_unnoted = _time.perf_counter() - t0
             self._kernels_ready = True
+        self._note_kernels()
+
+    # -- introspection plane (observability/devicetelemetry.py) ------------
+
+    def attach_introspection(self, plane) -> None:
+        """Wire the solver introspection plane (--introspect): dispatch
+        sites note first-time events into its ledger and dispatch spans
+        gain the cost attribution captured then. A kernel build that ran
+        before the plane attached (the constructor's) is noted now.
+        Detached (the default), every hook below is one attribute read."""
+        self._introspect = plane
+        self._note_kernels()
+
+    def _note_kernels(self) -> None:
+        """Ledger this service's CUDA kernel build/load once, as family
+        "kernels" (rung "cuda")."""
+        seconds = self._kernels_unnoted
+        if seconds is None or self._introspect is None:
+            return
+        from karpenter_tpu_torch import kernels
+
+        self._kernels_unnoted = None
+        self._note_compile(
+            "kernels", ("kernels", "cuda", "+".join(kernels.SOURCES)),
+            seconds,
+        )
+
+    def _note_compile(
+        self, family: str, key: tuple, seconds: float,
+        live: List[_Request] = (), extents=None, cost_fn=None,
+    ) -> None:
+        """One first-time event into the introspection ledger: the wall
+        time it paid, the trace ids that paid for it, and — lazily, only
+        with the plane enabled — its cost analysis. Never raises into
+        the dispatch path."""
+        plane = self._introspect
+        if plane is None:
+            return
+        try:
+            plane.note_compile(
+                family, key, seconds,
+                trace_ids=self._trace_ids(list(live)),
+                extents=extents, cost_fn=cost_fn,
+            )
+        except Exception:  # noqa: BLE001 — telemetry must never break a solve
+            pass
+
+    def _span_cost_args(self, key: tuple) -> dict:
+        """{flops, bytes} args for this dispatch's span, {} when the
+        introspection plane is off or never attributed the key."""
+        plane = self._introspect
+        if plane is None:
+            return {}
+        return plane.dispatch_cost_args(key)
 
     # -- boot-time pre-warm -------------------------------------------------
 
@@ -1302,6 +1370,11 @@ class SolverService:
                     )(stacked)
         if self._stale():
             return  # the watchdog already answered these
+        if fresh:
+            self._note_compile(
+                "forecast", ("forecast", s_bucket, t_bucket, backend),
+                _time.perf_counter() - t0, live,
+            )
         self.stats.upload_bytes += sum(
             np.asarray(getattr(stacked, f.name)).nbytes
             for f in dataclasses.fields(stacked)
@@ -1405,7 +1478,8 @@ class SolverService:
                 request.finish(result=PK.preempt_numpy(request.inputs))
                 self._record_stage("dispatch", _time.perf_counter() - t0)
             return
-        fresh = self._count_key(("preempt", shape, backend))
+        cache_key = ("preempt", shape, backend)
+        fresh = self._count_key(cache_key)
         grace = COMPILE_GRACE_S if fresh else 0.0
         for request in live:
             t0 = _time.perf_counter()
@@ -1423,6 +1497,12 @@ class SolverService:
             grace = 0.0  # only the first dispatch of the group is a first launch
             if self._stale():
                 return  # the watchdog already answered these
+            if fresh:
+                fresh = False  # only the first dispatch paid the first launch
+                self._note_compile(
+                    "preempt", cache_key, _time.perf_counter() - t0,
+                    [request],
+                )
             self.stats.upload_bytes += sum(
                 np.asarray(getattr(padded, f.name)).nbytes
                 for f in dataclasses.fields(padded)
@@ -1714,12 +1794,18 @@ class SolverService:
             resolved,
         )
         try:
-            self._count_key(key)
+            fresh = self._count_key(key)
+            program = self.fused_program()
+            captures = program.captures
+            t0 = _time.perf_counter()
             with default_tracer().span("solver.fused_tick", backend=resolved):
                 with solver_trace("solver.fused_tick"):
                     # the fused-path fault-injection point
                     inject("fused.tick")
-                    out = self.fused_program()(inputs, host=True)
+                    out = program(inputs, host=True)
+            if fresh or program.captures != captures:
+                # a new key's first dispatch, or a CUDA-graph capture
+                self._note_compile("fused", key, _time.perf_counter() - t0)
             self._record_device_success()
             self.stats.fused_dispatches += 1
             self._count_dispatch()
@@ -2328,12 +2414,15 @@ class SolverService:
         inputs object uploads nothing. The "dispatch" stage covers any
         upload, both kernels and the sync."""
         from karpenter_tpu_torch.ops import binpack as B
+        from karpenter_tpu_torch.ops import fused_assign as TF
 
-        fresh = self._count_key(("cuda", shape, buckets, live[0].key[3]))
+        cache_key = ("cuda", shape, buckets, live[0].key[3])
+        fresh = self._count_key(cache_key)
         grace = COMPILE_GRACE_S if fresh else 0.0
         for request in live:
             with self._dispatch_span(
-                "solver.dispatch", [request], strategy="cuda"
+                "solver.dispatch", [request], strategy="cuda",
+                **self._span_cost_args(cache_key),
             ):
                 with self._device_section([request], grace=grace):
                     t0 = _time.perf_counter()
@@ -2349,6 +2438,19 @@ class SolverService:
             grace = 0.0  # only the first call of the batch is a first launch
             if self._stale():
                 return  # the watchdog already answered these
+            if fresh:
+                fresh = False  # only the first call paid the first launch
+                plane = self._introspect
+                self._note_compile(
+                    "solve", cache_key, _time.perf_counter() - t0,
+                    [request],
+                    cost_fn=(
+                        functools.partial(
+                            TF.solve_cost, request.inputs, buckets
+                        )
+                        if plane is not None and plane.enabled else None
+                    ),
+                )
             self._record_stage("dispatch", _time.perf_counter() - t0)
             self._count_dispatch()
             t0 = _time.perf_counter()
@@ -2384,10 +2486,11 @@ class SolverService:
             stacked, n_batch = resident, 1
         else:
             stacked, n_batch = self._stack_group(shape, live)
-        fresh = self._count_key((
+        cache_key = (
             "torch", shape, n_batch, buckets, live[0].key[3],
             live[0].key[4], strategy,
-        ))
+        )
+        fresh = self._count_key(cache_key)
         t0 = _time.perf_counter()
         with self._dispatch_span(
             "solver.dispatch", live, strategy=strategy, batch=n_batch,
@@ -2405,6 +2508,10 @@ class SolverService:
             # watchdog already answered these requests —
             # discard the late device results
             return
+        if fresh:
+            self._note_compile(
+                "solve", cache_key, _time.perf_counter() - t0, live
+            )
         if self._inflight:
             self.stats.pipeline_overlaps += 1
         self._inflight.append((out, live, t0, done))

@@ -1238,17 +1238,18 @@ RUNTIME_KINDS = ("Pod", "Node", "MetricsProducer", "ScalableNodeGroup",
                  "HorizontalAutoscaler", "PoolGroup")
 # exposition families left out of a runtime snapshot: wall-clock timings
 # and what is computed from them (the self-SLO monitor burns budget on
-# the e2e-latency histogram and dumps the flight recorder when it does),
-# the process-wide tracer's span counts (shared by every runtime of one
-# process), and families only the reference registers (its device
-# telemetry, always built there, and its shard route's gauge)
+# the e2e-latency histogram and dumps the flight recorder when it does;
+# the introspection plane's compile seconds), the process-wide tracer's
+# span counts (shared by every runtime of one process), the card's
+# memory (a CPU runtime reports none), and the reference's shard route's
+# gauge, which only it registers. The plane's storm counter and
+# resident-entry gauges are compared: the card and the CPU equal there.
 SNAPSHOT_SKIP = (
     "karpenter_reconcile_e2e_seconds", "karpenter_runtime_tick_seconds",
     "karpenter_solver_stage_", "karpenter_selfslo_",
     "karpenter_flightrecorder_", "karpenter_trace_spans_",
     "karpenter_device_", "karpenter_solver_compile_seconds",
-    "karpenter_solver_compile_storms_total",
-    "karpenter_solver_resident_entry_bytes", "karpenter_solver_shard_devices",
+    "karpenter_solver_shard_devices",
 )
 
 # a card runtime against a CPU runtime: the solve service's own counters
@@ -1614,6 +1615,48 @@ def _draw_disruption(api, store, provider, nodes: int, pods: int,
                 priority=int(extra.integers(*PENDING_PRIORITY)),
             ),
         ))
+
+
+# -- the multi-tenant control plane (tenancy/) --------------------------------
+
+
+def build_tenant_problems(tenants: int, rows: int = 256, groups: int = 304,
+                          seed: int = 0) -> List[Dict[str, np.ndarray]]:
+    """One seeded reconcile-size bin-pack per tenant cluster, in the shape
+    the pending-capacity encoder hands the solver (phase 15's operands of
+    run_e2e's cluster: `rows` deduplicated pod shapes with a multiplicity
+    each, `groups` node groups, R = 4 resources — cpu, memory, pods and
+    ephemeral storage — and 8 taint and 8 label words). Tenant i draws
+    from np.random.default_rng(seed + i): cpu and memory like
+    build_inputs, one pod slot per pod, 1-20 GiB of storage; groups of
+    2-128 cores with 110 pod slots and 100-400 GiB of storage."""
+    problems = []
+    for i in range(tenants):
+        rng = np.random.default_rng(seed + i)
+        req = np.stack([
+            rng.uniform(0.05, 8.0, rows),
+            rng.uniform(0.1, 32.0, rows),
+            np.ones(rows),
+            rng.uniform(1.0, 20.0, rows),
+        ], axis=1).astype(np.float32)
+        cpu = rng.choice([2, 4, 8, 16, 32, 64, 96, 128], groups).astype(
+            np.float32)
+        mem = cpu * rng.choice([2.0, 4.0, 8.0], groups).astype(np.float32)
+        alloc = np.stack([
+            cpu, mem, np.full(groups, 110.0, np.float32),
+            rng.uniform(100.0, 400.0, groups).astype(np.float32),
+        ], axis=1)
+        problems.append({
+            "pod_requests": req,
+            "pod_valid": np.ones(rows, bool),
+            "pod_intolerant": rng.random((rows, 8)) < 0.05,
+            "group_taints": rng.random((groups, 8)) < 0.1,
+            "pod_required": rng.random((rows, 8)) < 0.03,
+            "group_labels": rng.random((groups, 8)) < 0.8,
+            "group_allocatable": alloc,
+            "pod_weight": rng.integers(1, 40, rows).astype(np.int32),
+        })
+    return problems
 
 
 def build_preempt_inputs(candidates: int, nodes: int, victims: int,

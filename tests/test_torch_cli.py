@@ -15,7 +15,8 @@ HTTP surface and leader election, against the reference's, on the CPU.
     providers' factories with no SDK bound); Options.solver_uri fronts
     the sidecar;
   * each flag whose module is not ported exits 2 naming that module, and
-    each such runtime option raises NotPortedError; `--simulate`,
+    each such runtime option raises NotPortedError; `--tenant-config`
+    and `--introspect` (and their Options fields) run; `--simulate`,
     `--list` and `--sim-seed` parse as the reference's and run, and
     Options.sim_seed is carried;
   * MetricsServer's routes and LeaderElector behave as in
@@ -87,11 +88,12 @@ class TestParseArgs:
         assert message in capsys.readouterr().err
 
     @pytest.mark.parametrize("argv,module", [
-        (["--tenant-config", "t.yaml"], "tenancy"),
-        (["--partitions", "2"], "replication"),
-        (["--introspect"], "observability/devicetelemetry.py"),
-        (["--profiler-port", "9999"], "jax.profiler server"),
-        (["--shard-mesh", "8x1"], "parallel/mesh.py"),
+        pytest.param(["--partitions", "2"], "replication",
+                     id="argv1-replication"),
+        pytest.param(["--profiler-port", "9999"], "jax.profiler server",
+                     id="argv3-jax.profiler server"),
+        pytest.param(["--shard-mesh", "8x1"], "parallel/mesh.py",
+                     id="argv4-parallel/mesh.py"),
     ])
     def test_unported_flag_exits_2_naming_its_module(self, argv, module,
                                                      capsys):
@@ -100,6 +102,45 @@ class TestParseArgs:
         assert exit_info.value.code == 2
         err = capsys.readouterr().err
         assert module in err and "not ported" in err
+
+    @pytest.mark.parametrize("flag", ["--tenant-config", "--introspect"])
+    def test_ported_flag_runs(self, flag, tmp_path, monkeypatch, capsys):
+        """The two flags that used to exit 2 (tenancy/ and
+        observability/devicetelemetry.py) parse as the reference's and
+        build their planes in a CPU run of main."""
+        config = tmp_path / "tenants.json"
+        config.write_text(json.dumps([
+            {"id": "a", "weight": 1.0}, {"id": "b", "weight": 3.0},
+        ]))
+        argv = {"--tenant-config": [flag, str(config)],
+                "--introspect": [flag]}[flag]
+        ref_args = vars(mod(REF, "__main__").parse_args(argv))
+        port_args = vars(port_main.parse_args(argv))
+        assert {k: port_args[k] for k in ref_args if k in port_args} == {
+            k: v for k, v in ref_args.items() if k in port_args
+        }
+        built = []
+        real = port_runtime.KarpenterRuntime._build_selfslo
+
+        def spy(self, options):
+            built.append((
+                self.tenancy and self.tenancy.tenants(),
+                self.solver_introspection.enabled,
+            ))
+            return real(self, options)
+
+        monkeypatch.setattr(port_runtime.KarpenterRuntime, "_build_selfslo",
+                            spy)
+        rc = port_main.main(argv + [
+            "--device", "cpu", "--duration", "0.3", "--tick", "0.05",
+            "--metrics-port", "0", "--no-leader-elect",
+        ])
+        assert rc == 0
+        (tenants, enabled), = built
+        if flag == "--tenant-config":
+            assert tenants == ["a", "b"] and not enabled
+        else:
+            assert tenants is None and enabled
 
 
 @pytest.fixture()
@@ -332,15 +373,45 @@ class TestRealClusterFlags:
 
 class TestNotPortedOptions:
     @pytest.mark.parametrize("field,value,module", [
-        ("tenant_config", "t.yaml", "tenancy"),
-        ("partitions", 2, "replication"),
-        ("introspect", True, "devicetelemetry"),
-        ("solver_shard_mesh", (2, 1), "parallel/mesh.py"),
+        pytest.param("partitions", 2, "replication",
+                     id="partitions-2-replication"),
+        pytest.param("solver_shard_mesh", (2, 1), "parallel/mesh.py",
+                     id="solver_shard_mesh-value3-parallel/mesh.py"),
     ])
     def test_option_raises_at_construction(self, field, value, module):
         options = port_runtime.Options(device="cpu", **{field: value})
         with pytest.raises(port_runtime.NotPortedError, match=module):
             port_runtime.KarpenterRuntime(options)
+
+    @pytest.mark.parametrize("field", ["tenant_config", "introspect"])
+    def test_ported_option_builds_its_plane(self, field, tmp_path):
+        """Options.tenant_config and Options.introspect used to raise
+        NotPortedError; each now builds its plane as the reference's
+        runtime does."""
+        config = tmp_path / "tenants.json"
+        config.write_text(json.dumps([{"id": "a"}, {"id": "b"}]))
+        value = {"tenant_config": str(config), "introspect": True}[field]
+        rt = port_runtime.KarpenterRuntime(port_runtime.Options(
+            device="cpu", journal_dir=str(tmp_path / "j"), **{field: value}
+        ))
+        try:
+            rt.manager.reconcile_all()
+            if field == "tenant_config":
+                assert rt.tenancy.tenants() == ["a", "b"]
+                assert rt.tenant_scheduler.service is rt.solver_service
+                assert rt.tenancy.journal_dir_for("a") == str(
+                    tmp_path / "j" / "tenants" / "a"
+                )
+                assert rt.selfslo.tenant_source() == {"a": False, "b": False}
+                assert rt.solver_introspection.memory_source() is None
+            else:
+                assert rt.tenancy is None
+                assert rt.solver_introspection.enabled
+                # the CPU reports no device memory: the source stays quiet
+                assert rt.solver_introspection.memory_source() is None
+                assert rt.solver_introspection.snapshot()["enabled"] is True
+        finally:
+            rt.close()
 
     def test_solver_uri_fronts_the_sidecar(self):
         """Options.solver_uri builds the split: the service runs on the

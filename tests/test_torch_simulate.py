@@ -398,7 +398,8 @@ class TestCLI:
         assert set(json.loads(out)) == {"baseline", "what_if", "delta"}
 
     @pytest.mark.parametrize("flag,module", [
-        ("--multitenant", "tenancy/"), ("--failover", "replication/"),
+        pytest.param("--failover", "replication/",
+                     id="--failover-replication/"),
     ])
     def test_unported_worlds_exit_2_naming_their_module(self, flag, module,
                                                         capsys):
@@ -406,6 +407,19 @@ class TestCLI:
         assert (rc, out) == (2, "")
         err = capsys.readouterr().err
         assert module in err and "not ported" in err
+
+    def test_multitenant_world_runs_as_the_reference(self):
+        """--simulate --multitenant used to exit 2 naming tenancy/; it
+        now prints the reference's report (the service's own request and
+        dispatch counters aside: the rungs differ)."""
+        argv = ["--simulate", "--multitenant", "--tenants", "6"]
+        rc, out = run_main(PORT, argv + ["--device", "cpu"])
+        ref_rc, ref_out = run_main(REF, argv)
+        assert rc == ref_rc == 0
+        got, want = json.loads(out), json.loads(ref_out)
+        got.pop("solver")
+        want.pop("solver")
+        assert got == want
 
     def test_multitenant_and_failover_trails_still_work(self):
         from karpenter_tpu_torch.simlab import get_scenario
