@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (set-up, with ptxas's register,
-shared-memory and stack report), then runs seventeen phases and fails (exit 1,
+shared-memory and stack report), then runs eighteen phases and fails (exit 1,
 no result line) if any of them fails:
 
 1. fused kernel vs its plain version on the card: fused_assign against
@@ -289,6 +289,33 @@ no result line) if any of them fails:
    compile family, /debug/selfslo with the tenants' board. Past
    MT_LATE_S of smoke (a)'s CPU twin is skipped and its sequential arm
    runs one round.
+18. the replicated control plane (replication/, --partitions): (a) three
+   card KarpenterRuntime replicas (partitions 16, lease 5 s, a 16-tenant
+   config, one journal root) over phase 13 (c)'s 10,000-pod world in one
+   Store (workloads.ReplicaFleet), on a step clock of 5 s ticks: 4 ticks,
+   the replica owning the most partitions killed by its crash plan on
+   the next, 4 more ticks (2 past REPLICA_LATE_S of smoke), the first
+   already lease + skew past the victim's last renew; each live
+   replica's tick launches both kernels (counts set to 0 just before
+   each replica's tick, read just after); the survivors hold all 16
+   partitions, every victim tenant goes warmup -> serving at a fence
+   generation of 2 or more, and the victim's stale token is rejected by
+   each adopter's provider; every tick (ownership, handoffs, fence
+   generations, the replica and handoff series, the store's objects,
+   the cloud's replicas, each replica's exposition) equals a CPU twin's
+   run in a child process; device ms per launch at the last tick's
+   operands; (b) `--simulate --failover` through main() on the card ==
+   the reference's report (pinned), and simulate_failover at
+   bench-failover's 256 tenants x 4 replicas x 16 partitions x 40
+   ticks: the reference's writes digest (BASELINE.json); (c) two
+   `python -m karpenter_tpu_torch --apiserver URL --partitions 8
+   --lease-duration 3 --replica-id r0|r1` over one fake kube-apiserver
+   at 1,000 pods: the bigger owner SIGKILLed, the survivor's
+   /debug/replicas lists all 8 partitions within lease + skew + 3 of its
+   ticks, and it exits 0 on SIGTERM; (b) and (c) run in a child beside
+   (a); (d) the C quantity parser (native/quantity.c) builds and loads,
+   Quantity.parse through it equals the regex oracle on (a)'s world's
+   quantities, both rates printed.
 
 Then it profiles 20 main-path solves (torch.profiler: device time by
 kernel) and prints, before the last line, one JSON line of kernel records
@@ -2741,7 +2768,7 @@ class _Child:
     a file there, printed when it is joined; the card's line comes from
     this process."""
 
-    def __init__(self, function: str):
+    def __init__(self, function: str, env=None):
         import subprocess
         import tempfile
 
@@ -2754,7 +2781,8 @@ class _Child:
                  f"chip_smoke._child_main({function!r}, {self.root!r}))"],
                 cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
                 stderr=subprocess.STDOUT,
-                env=dict(os.environ, KARPENTER_SMOKE_CARD=CARD["line"]),
+                env=dict(os.environ, KARPENTER_SMOKE_CARD=CARD["line"],
+                         **(env or {})),
             )
 
     def path(self, name: str) -> str:
@@ -5166,6 +5194,399 @@ def phase_multitenant(torch, TF, TB, workloads, started):
     return out
 
 
+# -- phase 18: the replicated control plane (replication/, --partitions) ------
+
+# (a) three card replicas over phase 13 (c)'s world, 16 tenants
+REPLICA_IDS = ("r0", "r1", "r2")
+REPLICA_OPTIONS = dict(partitions=16, lease_duration_s=5.0)
+REPLICA_SKEW_S = 1.0  # LeaderElector's default skew tolerance
+REPLICA_TENANTS = 16
+REPLICA_BEFORE = 4  # ticks before the kill
+REPLICA_AFTER = 4  # ticks after it; 2 past REPLICA_LATE_S of smoke
+REPLICA_LATE_S = 1100.0
+REPLICA_DEVICE = None  # the replicas' Options.device: the card
+# (b) bench-failover's width (Makefile) and the reference's writes digest
+# there (BASELINE.json's "256 tenants x 4 replicas failover (cpu)")
+FAILOVER_WIDTH = dict(tenants=256, replicas=4, partitions=16, ticks=40, seed=0)
+FAILOVER_PINS = dict(
+    writes_digest="0ffab1567ef410bda2ba3e9ae58ab63d2ecaafdd06cdba931a9be850d2f4969b",
+    victim_tenants=73, blackout_ticks_p99=6, reconverge_ticks=6)
+# the reference's `--simulate --failover` report (its default world, seed
+# 0): _report_crc of it, and its writes digest
+FAILOVER_CLI_PINS = dict(
+    report_crc=1398028848,
+    writes_digest="fa414da7eb55db6357440b1f10d792903d5c84b9fbd056f2d5049fcffd753847")
+FAILOVER_CARD_ARGS = ()  # extra flags of (b)'s --simulate (none: the card)
+# (c) two binaries over one fake kube-apiserver
+REPLICA_BINARY_SHAPE = dict(pods=1_000, types=30, seed=0)
+REPLICA_BINARY_FLAGS = ("--partitions", "8", "--lease-duration", "3")
+REPLICA_BINARY_LEASE_S = 3.0
+REPLICA_BINARY_TICK_S = 0.5  # the binaries' --tick
+REPLICA_BINARY_ARGS = ()  # extra flags (none: they run on the card)
+
+
+def _replica_fleet(workloads, device, root, after, each=None, inputs=None):
+    """(a)'s script on `device`: phase 13 (c)'s world in one Store, three
+    replicas with REPLICA_OPTIONS and a REPLICA_TENANTS-tenant config over
+    it; REPLICA_BEFORE ticks of RUNTIME_TICK_S, the biggest owner
+    killed on the next, `after` more. Returns (victim, per tick (died,
+    fleet snapshot), the victim tenants' stale-write probe, the quantity
+    strings of the world's pods and nodes, tick ms)."""
+    from karpenter_tpu_torch.api.serialization import to_dict
+    from karpenter_tpu_torch.cloudprovider.fake import FakeFactory
+    from karpenter_tpu_torch.recovery.fence import FenceRejectedError
+    from karpenter_tpu_torch.store import Store
+
+    store, provider = Store(), FakeFactory()
+    world = workloads.build_runtime_world(store, provider, **BINARY_SHAPE)
+    quantities = [str(q) for pod in store.list("Pod")
+                  for c in pod.spec.containers for q in c.requests.values()]
+    quantities += [str(q) for node in store.list("Node")
+                   for q in node.status.allocatable.values()]
+    config = os.path.join(root, "tenants.json")
+    with open(config, "w") as f:
+        json.dump([{"id": f"tenant-{i:02d}"} for i in range(REPLICA_TENANTS)],
+                  f)
+    fleet = workloads.ReplicaFleet(
+        store, provider, list(REPLICA_IDS), _StepClock(),
+        dict(REPLICA_OPTIONS, tenant_config=config,
+             journal_dir=os.path.join(root, "j"), device=device))
+    trail, tick_ms = [], []
+
+    def record(tick, died):
+        tick_ms.append((time.perf_counter() - marks["t0"]) * 1e3)
+        trail.append((died, fleet.snapshot(to_dict)))
+        marks["t0"] = time.perf_counter()
+
+    marks = {"t0": time.perf_counter()}
+    try:
+        victim = fleet.failover(world, REPLICA_BEFORE, after,
+                                RECONCILE_CHURN, RUNTIME_TICK_S, record,
+                                each=each)
+        # the deposed replica's late write: its stale fence token against
+        # each adopter's provider, whose validator the adoption seeded
+        probe = {}
+        for tenant, handoff in sorted(fleet.dead[victim].handoffs.items()):
+            adopter = next(rid for rid in fleet.live()
+                           if tenant in fleet.plane(rid).handoffs)
+            validator = fleet.providers[adopter].fence_validator
+            try:
+                validator.admit(handoff.token())
+                probe[tenant] = "applied"
+            except FenceRejectedError:
+                probe[tenant] = "rejected"
+    finally:
+        fleet.close()
+    return victim, trail, probe, quantities, tick_ms
+
+
+def _replica_check(victim, trail, probe, after):
+    """(a)'s checks on one fleet's run: the victim died on its tick, the
+    survivors own every partition, every victim tenant went WARMUP ->
+    SERVING at a fence generation of 2 or more, and its stale write was
+    rejected. Returns the victim tenants."""
+    partitions = REPLICA_OPTIONS["partitions"]
+    died = [d for d, _ in trail]
+    need(died == [[]] * REPLICA_BEFORE + [[victim]] + [[]] * after,
+         f"(a) replicas died {died}, the victim {victim}")
+    owned = trail[REPLICA_BEFORE - 1][1]["state"][victim]["owned"]
+    tenants = sorted(trail[REPLICA_BEFORE - 1][1]["state"][victim]["tenants"])
+    need(owned and tenants, f"(a) the victim owned {owned}, {tenants}")
+    final = trail[-1][1]["state"]
+    held = sorted(p for s in final.values() for p in s["owned"])
+    need(held == list(range(partitions)),
+         f"(a) the survivors hold {held} of {partitions} partitions")
+    seen = {}
+    for _, snap in trail[REPLICA_BEFORE + 1:]:
+        for s in snap["state"].values():
+            for tenant in tenants:
+                if tenant in s["tenants"]:
+                    seen.setdefault(tenant, []).append(s["tenants"][tenant])
+    for tenant in tenants:
+        states = seen.get(tenant, [])
+        need(states and states[0][0] == "warmup"
+             and states[-1][0] == "serving"
+             and all(g >= 2 for _, g, _ in states),
+             f"(a) victim tenant {tenant}: {states}")
+    need(probe and set(probe.values()) == {"rejected"},
+         f"(a) the deposed replica's late writes: {probe}")
+    return tenants
+
+
+def _replica_cpu_child(workloads, out_dir: str) -> None:
+    """(a)'s CPU twin in a child: the same script with every replica on
+    the CPU, its snapshots pickled."""
+    import pickle
+
+    t0 = time.perf_counter()
+    after = int(os.environ["KARPENTER_SMOKE_REPLICA_AFTER"])
+    victim, trail, probe, _, tick_ms = _replica_fleet(
+        workloads, "cpu", out_dir, after)
+    with open(os.path.join(out_dir, "replica_cpu.pickle"), "wb") as f:
+        pickle.dump((victim, trail, probe), f)
+    report(f"phase 18 (a), the CPU twin beside it: {len(trail)} ticks of "
+           f"{len(REPLICA_IDS)} replicas in {time.perf_counter() - t0} s "
+           f"(tick ms {tick_ms})")
+
+
+def _failover_child(workloads, out_dir: str) -> None:
+    """(b) in a child: `--simulate --failover` on the card through main()
+    (the reference's report, pinned) and simulate_failover at
+    bench-failover's width (the reference's digest, pinned)."""
+    import contextlib
+    import io
+    import logging
+
+    from karpenter_tpu_torch import __main__ as cli
+    from karpenter_tpu_torch.simulate import simulate_failover
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--simulate", "--failover", *FAILOVER_CARD_ARGS])
+    cli_s = time.perf_counter() - t0
+    need(rc == 0, f"(b) --simulate --failover exited {rc}")
+    got = json.loads(out.getvalue())
+    crc = _report_crc(got)
+    need(crc == FAILOVER_CLI_PINS["report_crc"]
+         and got["writes_digest"] == FAILOVER_CLI_PINS["writes_digest"],
+         f"(b) --simulate --failover's report crc {crc}, digest "
+         f"{got['writes_digest']} != the reference's {FAILOVER_CLI_PINS}")
+    # the wide world's adoptions, one log line each, stay out of the log
+    logging.getLogger("karpenter_tpu_torch").setLevel(logging.WARNING)
+    t0 = time.perf_counter()
+    wide = simulate_failover(**FAILOVER_WIDTH)
+    wide_s = time.perf_counter() - t0
+    seen = dict(writes_digest=wide["writes_digest"],
+                victim_tenants=len(wide["victim_tenants"]),
+                blackout_ticks_p99=wide["blackout_ticks_p99"],
+                reconverge_ticks=wide["reconverge_ticks"])
+    need(seen == FAILOVER_PINS and wide["converged"]
+         and wide["duplicate_actuations"] == wide["lost_actuations"] == 0
+         and wide["stale_write_rejected"],
+         f"(b) the failover world at {FAILOVER_WIDTH}: {seen} != the "
+         f"reference's {FAILOVER_PINS}")
+    report(f"phase 18 (b): `--simulate --failover` on the card == the "
+           f"reference's report (crc {crc}) in {cli_s} s; at "
+           f"{FAILOVER_WIDTH} (bench-failover) {seen} == the reference's, "
+           f"{wide['handoffs_after_kill']} handoffs, fence rejections "
+           f"{wide['fence_rejections']}, in {wide_s} s of host work")
+
+
+def _replica_binaries(workloads):
+    """(c) two `python -m karpenter_tpu_torch --apiserver URL --partitions
+    8 --lease-duration 3 --replica-id r0|r1` over one fake: SIGKILL the
+    bigger owner; the survivor's /debug/replicas lists all 8 partitions
+    within lease + skew + 3 of its ticks."""
+    server = _fake_apiserver()()
+    server.start()
+    binaries = {}
+    try:
+        workloads.build_kube_world([server], **REPLICA_BINARY_SHAPE)
+        base = ["--apiserver", server.url, "--kube-insecure",
+                "--cloud-provider", "fake", "--metrics-port", "0",
+                "--tick", str(REPLICA_BINARY_TICK_S), "--leader-elect",
+                *REPLICA_BINARY_FLAGS, *REPLICA_BINARY_ARGS]
+        for rid in ("r0", "r1"):
+            binaries[rid] = _Binary(base + ["--replica-id", rid])
+        for binary in binaries.values():
+            binary.wait_serving(300)
+
+        def board(binary):
+            status, body = binary.get("/debug/replicas")
+            need(status == 200, f"(c) /debug/replicas answered {status}")
+            return json.loads(body)
+
+        partitions = int(REPLICA_BINARY_FLAGS[1])
+        deadline = time.perf_counter() + 120
+        while True:
+            boards = {rid: board(b) for rid, b in binaries.items()}
+            owned = sorted(p for b in boards.values() for p in b["owned"])
+            if owned == list(range(partitions)) and all(
+                    b["rounds"] >= 3 for b in boards.values()):
+                break
+            need(time.perf_counter() < deadline,
+                 f"(c) the binaries never held every partition: {boards}")
+            time.sleep(0.1)
+        need(all(b["enabled"] for b in boards.values()),
+             "(c) /debug/replicas is not enabled")
+        victim = max(boards, key=lambda rid: (len(boards[rid]["owned"]), rid))
+        survivor = next(rid for rid in boards if rid != victim)
+        split = {rid: b["owned"] for rid, b in boards.items()}
+        binaries[victim].proc.kill()
+        killed = time.perf_counter()
+        binaries[victim].proc.wait()
+        polls = []  # (seconds since the kill, rounds, owned)
+        deadline = killed + 60
+        while True:
+            b = board(binaries[survivor])
+            polls.append((time.perf_counter() - killed, b["rounds"],
+                          b["owned"]))
+            if b["owned"] == list(range(partitions)):
+                break
+            need(time.perf_counter() < deadline,
+                 f"(c) the survivor never took every partition: {polls[-1]}")
+            time.sleep(0.02)
+        expiry = REPLICA_BINARY_LEASE_S + REPLICA_SKEW_S
+        at_expiry = max([r for s, r, _ in polls if s <= expiry] or
+                        [polls[0][1]])
+        taken_s, taken_rounds = polls[-1][0], polls[-1][1]
+        need(taken_rounds - at_expiry <= 3,
+             f"(c) the survivor took every partition {taken_s} s after the "
+             f"kill, {taken_rounds - at_expiry} of its ticks past lease + "
+             f"skew ({expiry} s)")
+        need(all(h == survivor for h in b["holders"].values()),
+             f"(c) holders after the takeover {b['holders']}")
+        rc = binaries[survivor].stop()
+        need(rc == 0, f"(c) the survivor exited {rc} on SIGTERM")
+        leases = {d["metadata"]["name"]: d["spec"].get("holderIdentity")
+                  for d in server.objects("leases")}
+        report(f"phase 18 (c): two --apiserver --partitions {partitions} "
+               f"binaries over {REPLICA_BINARY_SHAPE}: partitions {split}; "
+               f"SIGKILL {victim}: {survivor}'s /debug/replicas listed all "
+               f"{partitions} {taken_s} s after (lease + skew {expiry} s, "
+               f"{taken_rounds - at_expiry} of its ticks past it); exit 0 "
+               f"on SIGTERM, leases after {leases}")
+    finally:
+        for binary in binaries.values():
+            binary.stop()
+        server.stop()
+
+
+def _replica_binaries_child(workloads, out_dir: str) -> None:
+    """(c) and (b) in a child."""
+    t0 = time.perf_counter()
+    _replica_binaries(workloads)
+    t1 = time.perf_counter()
+    _failover_child(workloads, out_dir)
+    report(f"phase 18 (c) {t1 - t0} s, (b) {time.perf_counter() - t1} s, "
+           f"beside (a)")
+
+
+def _quantity_parser(quantities):
+    """(d) the C parser (native/quantity.c) loaded, and Quantity.parse
+    through it == the Python oracle on `quantities`; both rates."""
+    from karpenter_tpu_torch import native
+    from karpenter_tpu_torch.utils import quantity as Q
+
+    loaded = native.peek_kquantity() is not None
+    t0 = time.perf_counter()
+    parser = native.load_kquantity()
+    build_s = time.perf_counter() - t0
+    need(parser is not None, "(d) the C quantity parser did not build")
+    Q._native_parser()
+    need(native.peek_kquantity() is parser, "(d) the parser is not loaded")
+    fast = [(q.value, q.format) for q in map(Q.Quantity.parse, quantities)]
+    t0 = time.perf_counter()
+    for s in quantities:
+        Q.Quantity.parse(s)
+    fast_s = time.perf_counter() - t0
+    real = Q._native_parser
+    Q._native_parser = lambda: None
+    try:
+        slow = [(q.value, q.format)
+                for q in map(Q.Quantity.parse, quantities)]
+        t0 = time.perf_counter()
+        for s in quantities:
+            Q.Quantity.parse(s)
+        slow_s = time.perf_counter() - t0
+    finally:
+        Q._native_parser = real
+    need(fast == slow, "(d) the C parser != the Python oracle")
+    rates = (len(quantities) / fast_s, len(quantities) / slow_s)
+    how = ("already loaded by the background build the world's first parse "
+           "started" if loaded else f"built and loaded in {build_s} s")
+    report(f"phase 18 (d): the C quantity parser {how}; on the world's "
+           f"{len(quantities)} quantities "
+           f"({len(set(quantities))} distinct) == the oracle; "
+           f"Quantity.parse {rates[0]} /s through it, {rates[1]} /s "
+           "through the regex oracle (host)")
+    return rates
+
+
+def phase_replication(torch, TF, TB, workloads, started):
+    """Phase 18: the replicated control plane with its replicas on the
+    card. (a)'s CPU twin, and (c) then (b), run in child processes beside
+    (a); (d) reads (a)'s world."""
+    import pickle
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    after = REPLICA_AFTER if t0 - started <= REPLICA_LATE_S else 2
+    twin = _Child("_replica_cpu_child",
+                  env={"KARPENTER_SMOKE_REPLICA_AFTER": str(after)})
+    others = _Child("_replica_binaries_child")
+    root = tempfile.mkdtemp(prefix="karpenter-replicas-")
+    launches, captured = [], {}
+    real_solve = TB.solve
+
+    def solve(inputs, *args, **kwargs):
+        if kwargs.get("backend") == "cuda":
+            captured["inputs"] = inputs
+        return real_solve(inputs, *args, **kwargs)
+
+    def each(rid, tick):
+        torch.cuda.synchronize()
+        TF.reset_launch_counts()
+        try:
+            tick()
+        finally:
+            torch.cuda.synchronize()
+            launches.append((rid, dict(TF.LAUNCHES)))
+
+    try:
+        TB.solve = solve
+        try:
+            victim, card, probe, quantities, tick_ms = _replica_fleet(
+                workloads, REPLICA_DEVICE, root, after, each=each)
+        finally:
+            TB.solve = real_solve
+        tenants = _replica_check(victim, card, probe, after)
+        per_tick = {name: [n[name] for _, n in launches]
+                    for name in ("fused_assign", "shelf_bfd")}
+        need(all(n >= 1 for counts in per_tick.values() for n in counts),
+             f"(a) a replica tick launched no kernel: {launches}")
+        need(len(launches) == len(REPLICA_IDS) * (REPLICA_BEFORE + 1)
+             + (len(REPLICA_IDS) - 1) * after,
+             f"(a) {len(launches)} replica ticks")
+        ms, ms_by = _deploy_kernel_ms(torch, TB, TF, captured["inputs"])
+        rows = captured["inputs"].pod_requests.shape[0]
+        groups = captured["inputs"].group_allocatable.shape[0]
+        t1 = time.perf_counter()
+        report(f"phase 18 (a): {len(REPLICA_IDS)} card replicas "
+               f"({REPLICA_OPTIONS}, {REPLICA_TENANTS} tenants) over "
+               f"{BINARY_SHAPE}: {REPLICA_BEFORE} ticks, {victim} (the "
+               f"biggest owner) killed, {after} more; the survivors hold "
+               f"all {REPLICA_OPTIONS['partitions']} partitions, "
+               f"{len(tenants)} victim tenants adopted at fence generation "
+               f">= 2, warmup -> serving, every stale write rejected; "
+               f"launches per replica tick {per_tick}; fleet tick ms "
+               f"{tick_ms}; device ms per launch at the last tick's "
+               f"operands ({rows} rows x {groups} groups, {ms_by}): {ms}; "
+               f"{t1 - t0} s")
+        rates = _quantity_parser(quantities)
+        twin.join()
+        with open(twin.path("replica_cpu.pickle"), "rb") as f:
+            cpu_victim, cpu, cpu_probe = pickle.load(f)
+        need(cpu_victim == victim and cpu_probe == probe,
+             f"(a) the CPU twin killed {cpu_victim}: {cpu_probe}")
+        need(len(cpu) == len(card), f"(a) {len(cpu)} CPU ticks")
+        for tick, (got, want) in enumerate(zip(card, cpu)):
+            need(got == want, f"(a) tick {tick}: the card != the CPU twin")
+        report(f"phase 18 (a): card == CPU twin on every one of {len(card)} "
+               f"ticks (ownership, handoffs, fence generations, series, "
+               f"objects, cloud replicas, exposition)")
+        others.join()
+    finally:
+        twin.close()
+        others.close()
+        shutil.rmtree(root, ignore_errors=True)
+    report(f"phase 18: {time.perf_counter() - t0} s")
+    return {"launches_per_replica_tick": per_tick, "ms": ms, "ms_by": ms_by,
+            "parse_rates": rates}
+
+
 def profile_solves(torch, TB, inputs, n=ITERS):
     """Where a solve's time goes: the mean of back-to-back solves by CUDA
     events, then a torch.profiler window of n solves (device time by
@@ -5277,7 +5698,7 @@ def device_ms(profile, wrapper):
 
 def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
                    service, disruption, runtime, simulate, kube, deployment,
-                   tenancy):
+                   tenancy, replication):
     """Per-kernel JSON records at the main path's shapes. `ms` is device
     time per launch from the profiler's rows of the kernel's own names
     (the fused row sums its two kernels); `call_ms` is the wrapper's time
@@ -5326,7 +5747,11 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
     (grpc and its version). `tenancy_launches_per_round` is the
     wrapper's count over one solve_all round of phase 17 (b)'s 64 tenants,
     `tenancy_ms` its device time per launch at their operands
-    (`tenancy_ms_by` as `sidecar_ms_by`)."""
+    (`tenancy_ms_by` as `sidecar_ms_by`).
+    `replication_launches_per_replica_tick` is the wrapper's count over
+    each live replica's tick of phase 18 (a), in tick and replica order,
+    `replication_ms` its device time per launch at the last tick's
+    operands (`replication_ms_by` as `sidecar_ms_by`)."""
     assigned, hist, demand, _ = TF.fused_assign(inputs, BUCKETS)
     plain_demand = TF.fused_assign_reference(inputs, BUCKETS)[2]
     # each kernel's analytic work on this run's data (the scan visits a
@@ -5417,6 +5842,10 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
                 name],
             "tenancy_ms": tenancy["ms"][name],
             "tenancy_ms_by": tenancy["ms_by"],
+            "replication_launches_per_replica_tick": replication[
+                "launches_per_replica_tick"][name],
+            "replication_ms": replication["ms"][name],
+            "replication_ms_by": replication["ms_by"],
             "max_abs_err": err,
             "ms": ms,
             "call_ms": call_ms,
@@ -5500,6 +5929,8 @@ def main() -> int:
             torch, TF, TB, workloads, started)),
         ("multi-tenant control plane", lambda: phase_multitenant(
             torch, TF, TB, workloads, started)),
+        ("replicated control plane", lambda: phase_replication(
+            torch, TF, TB, workloads, started)),
     ]
     for name, run in phases:
         try:
@@ -5524,9 +5955,10 @@ def main() -> int:
                              results["simulate"],
                              results["real-cluster mode"],
                              results["the shipped Deployment"],
-                             results["multi-tenant control plane"])
+                             results["multi-tenant control plane"],
+                             results["replicated control plane"])
     report(f"chip_smoke wall time: {time.perf_counter() - started} s "
-           f"(kernel build and all seventeen phases)")
+           f"(kernel build and all eighteen phases)")
     print(f"card: {CARD['line']}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

@@ -39,6 +39,12 @@ with `--tenant-deadline` its weighted deadlines; `--introspect` turns on
 the solver introspection plane behind /debug/solver
 (observability/devicetelemetry.py); `--simulate --multitenant --tenants
 N` replays N seeded tenant clusters in lockstep through one scheduler.
+
+`--partitions N` (with `--replica-id` and `--lease-duration`) runs the
+process as one replica of the replicated control plane (replication/):
+per-partition leases in the store replace the `--leader-elect` gate,
+and /debug/replicas serves the replica's scoreboard. `--simulate
+--failover` replays the seeded leader-kill world (simulate.py).
 """
 
 from __future__ import annotations
@@ -55,7 +61,6 @@ from karpenter_tpu_torch.utils.log import setup as log_setup
 # flag -> (is it set?, the reference's module it needs, by its path under
 # the package root): each exits 2
 NOT_PORTED_FLAGS = (
-    ("--partitions", lambda a: a.partitions > 0, "replication/"),
     ("--profiler-port", lambda a: bool(a.profiler_port),
      "the jax.profiler server of observability/profiler.py, "
      "which has no torch counterpart"),
@@ -925,15 +930,20 @@ def main(argv=None) -> int:
         # /debug/profile captures land next to the flight-recorder
         # dumps (and the recovery journal) — one incident directory
         profile_dir=args.journal_dir,
+        replication=runtime.replication,
     )
     port = metrics_server.start()
     print(f"serving /metrics and /healthz on :{port}", file=sys.stderr)
     webhook_server = None
     try:
         webhook_server = _start_webhook_server(args)
+        # with --partitions the per-partition lease plane IS the
+        # election: every replica must tick (each serves its owned
+        # partitions), so the global whole-process gate is superseded
         elector = (
             LeaderElector(runtime.store, clock=runtime.clock)
-            if args.leader_elect else None
+            if args.leader_elect and not args.partitions
+            else None
         )
         _run_loop(args, runtime, elector)
     finally:
@@ -1024,6 +1034,7 @@ def _build_runtime(args, store=None) -> KarpenterRuntime:
             # already applied above (before the first compile); carried
             # on Options so embedded runtimes resolve identically
             compile_cache_dir=args.compile_cache_dir,
+            partitions=args.partitions,
             replica_id=args.replica_id,
             lease_duration_s=args.lease_duration,
             device=args.device,

@@ -74,9 +74,8 @@ volume is visible on the same /metrics surface as the resilience
 counters it provokes.
 
 The port's copy of karpenter_tpu/faults/registry.py. The port
-instruments the points above (and simlab.step, the service's sim_step /
-sim_rollout, and constraints.mask, the constraint encoder), less those
-of modules it does not have yet: lease.*, replica.crash.*.
+instruments every point above, and simlab.step (the service's sim_step /
+sim_rollout) and constraints.mask (the constraint encoder).
 """
 
 from __future__ import annotations

@@ -1,14 +1,15 @@
-"""The numpy rung's C helper (binpack_kernel.c), built on demand, with a
-pure-numpy fallback.
+"""Native (C) host helpers, built on demand, with pure-Python and numpy
+fallbacks: the numpy rung's assignment helper (binpack_kernel.c) and the
+resource.Quantity parser (quantity.c).
 
-The port's copy of the kbinpack half of karpenter_tpu/native/__init__.py;
-binpack_kernel.c is the reference's source, code unchanged (two comments
-shortened). It is a host
-kernel of the numpy rung (ops/numpy_binpack.py), not a device kernel:
-absence of a C toolchain degrades to the numpy stages silently, exactly
-as in the reference. The reference's quantity parser (quantity.c) stays
-out: the port keeps the pure-Python parser, the reference's own oracle
-for it.
+The port's copy of karpenter_tpu/native/__init__.py. binpack_kernel.c is
+the reference's source, code unchanged (two comments shortened), and
+quantity.c is the reference's source unchanged. Both are host code, not
+device kernels: binpack_kernel.c serves the numpy rung
+(ops/numpy_binpack.py), and quantity.c the parse of every manifest and
+pod watch event (utils/quantity.py, whose regex parser is its oracle).
+Absence of a C toolchain degrades to the numpy stages and the Python
+parser silently, exactly as in the reference.
 
 Build: compiled once with the running interpreter's sysconfig compiler
 into karpenter_tpu_torch/_build/ (listed in .gitignore); rebuilt when
@@ -81,6 +82,15 @@ def _build_and_load(src_name: str, so_name: str, bind):
         return None
 
 
+def _bind_extension(so: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("_kquantity", so)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def _bind_ctypes(so: str):
     import ctypes
 
@@ -91,6 +101,24 @@ def _bind_ctypes(so: str):
     if hasattr(lib, "karpenter_assign_mt"):  # older prebuilt .so lacks it
         lib.karpenter_assign_mt.restype = None
     return lib
+
+
+_kquantity = None
+_tried = False
+
+
+def load_kquantity() -> Optional[object]:
+    """The _kquantity extension module, building it if needed; None when
+    no toolchain is available (callers use the Python path)."""
+    global _kquantity, _tried
+    with _lock:
+        if _kquantity is not None or _tried:
+            return _kquantity
+        _tried = True
+        _kquantity = _build_and_load(
+            "quantity.c", "_kquantity.so", _bind_extension
+        )
+        return _kquantity
 
 
 _kbinpack = None
@@ -122,10 +150,31 @@ def peek_kbinpack() -> Optional[object]:
 
 
 def ensure_kbinpack_async() -> None:
-    """Kick off the kernel build/load in a daemon thread."""
+    """Kick off the kernel build/load in a daemon thread (the
+    ensure_kquantity_async pattern)."""
     global _kbinpack_async_started
     with _lock:
         if _kbinpack_async_started or _kbinpack is not None:
             return
         _kbinpack_async_started = True
     threading.Thread(target=load_kbinpack, daemon=True).start()
+
+
+_async_started = False
+
+
+def peek_kquantity() -> Optional[object]:
+    """The extension if it has finished loading, else None. Never blocks."""
+    return _kquantity
+
+
+def ensure_kquantity_async() -> None:
+    """Kick off the build/load in a daemon thread. Callers use the Python
+    path until peek_kquantity() turns non-None, so a cold compile never
+    blocks a latency-sensitive first request (e.g. an admission webhook)."""
+    global _async_started
+    with _lock:
+        if _async_started or _kquantity is not None:
+            return
+        _async_started = True
+    threading.Thread(target=load_kquantity, daemon=True).start()

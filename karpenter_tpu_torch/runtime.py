@@ -9,10 +9,14 @@ The port's copy of karpenter_tpu/runtime.py. What differs:
   * `Options.device` names where the shared SolverService runs: None
     (or "cuda") is the CUDA card, and construction raises without one;
     "cpu" runs the plain PyTorch and numpy programs on the host.
-  * Options whose modules are not ported yet raise NotPortedError at
-    construction (partitions, solver_shard_mesh): nothing stands in for
-    them. The service has no shard route, so on one card it serves
-    exactly as the reference's does (whose mesh needs two devices).
+  * An option whose module is not ported yet raises NotPortedError at
+    construction (solver_shard_mesh): nothing stands in for it. The
+    service has no shard route, so on one card it serves exactly as the
+    reference's does (whose mesh needs two devices).
+  * With partitions the runtime is one replica of the replicated
+    control plane (replication/), as the reference's is. Its service is
+    built, and on the card its kernels too, before the plane writes any
+    Lease: without a card the construction raises first.
   * The solver introspection plane's memory source reads the card
     (torch.cuda.memory_stats); a runtime on the CPU reports none, as the
     reference's does on a CPU device.
@@ -270,7 +274,6 @@ class NotPortedError(RuntimeError):
 # option -> (is it set?, the reference's module it needs, by its path
 # under the package root)
 _NOT_PORTED = (
-    ("partitions", lambda v: v > 0, "replication/"),
     ("solver_shard_mesh", lambda v: v is not None,
      "the sharded dispatch of parallel/mesh.py"),
 )
@@ -518,6 +521,7 @@ class KarpenterRuntime:
             ),
         )
         self._build_tenancy(options)
+        self._build_replication(options)
         self._build_selfslo(options)
         self._finish_recovery_boot()
         self._maybe_prewarm(options)
@@ -652,15 +656,49 @@ class KarpenterRuntime:
             deadline_s=options.tenant_deadline_s,
         )
 
+    def _build_replication(self, options: Options) -> None:
+        """Replicated control plane (docs/resilience.md "Replicated
+        control plane"): with --partitions, this process becomes one
+        leader-elected replica — per-partition CAS leases over the
+        store, rendezvous-hash tenant assignment, fenced tenant handoff
+        on the per-tenant journal dirs, all advanced once per manager
+        tick. partitions=0 (the default) builds nothing: no Lease
+        objects, no lease traffic, no karpenter_replica_* gauges — the
+        single-replica wire stays byte-identical."""
+        self.replication = None
+        if options.partitions <= 0:
+            return
+        from karpenter_tpu_torch.replication import ReplicatedControlPlane
+
+        tenants_source = None
+        journal_dir_for = None
+        if self.tenancy is not None:
+            tenants_source = self.tenancy.tenants
+            journal_dir_for = self.tenancy.journal_dir_for
+        self.replication = ReplicatedControlPlane(
+            self.store,
+            replica_id=options.replica_id or None,
+            partitions=options.partitions,
+            lease_duration=options.lease_duration_s,
+            tenants_source=tenants_source,
+            journal_dir_for=journal_dir_for,
+            validator=getattr(
+                self.cloud_provider, "fence_validator", None
+            ),
+            warmup_ticks=options.recovery_warmup_ticks,
+            registry=self.registry,
+            clock=self.clock,
+            recorder=self.flight_recorder,
+        )
+
     def _build_selfslo(self, options: Options) -> None:
         """The control plane's self-SLO monitor (observability/selfslo):
         multi-window burn rates over its OWN e2e-latency histogram plus
         the solver backend FSM, (when multi-tenant) the per-tenant
-        breaker board and the card's memory watermark; evaluated once
-        per manager tick via the tick hook, served at /debug/selfslo.
-        Always built — one snapshot tuple per tick. The replica source
-        belongs to replication/, which is not ported: it stays None, as
-        the reference's does in a single-replica plane."""
+        breaker board, the card's memory watermark and (when replicated)
+        the replica's lease and handoff health; evaluated once per
+        manager tick via the tick hook, served at /debug/selfslo.
+        Always built — one snapshot tuple per tick."""
         from karpenter_tpu_torch.observability import SelfSLOMonitor
 
         tenant_source = None
@@ -686,18 +724,31 @@ class KarpenterRuntime:
             # card's memory high watermark — quiet (None) while the
             # introspection plane is off or the service is on the CPU
             memory_source=self.solver_introspection.memory_source,
+            # the fifth source (replication/plane.py): lease renew
+            # failures / in-flight handoffs burn budget — quiet (None)
+            # in the single-replica deployment
+            replica_source=(
+                self.replication.slo_source
+                if self.replication is not None else None
+            ),
             recorder=self.flight_recorder,
         )
 
     def _on_tick(self) -> None:
         """Composed manager tick hook: recovery bookkeeping (warm-up
-        countdown, checkpoint cadence), then the solver introspection
-        pass (compile-storm window close + device memory poll — it must
-        run BEFORE the self-SLO evaluation so the memory source reflects
-        THIS tick), then the self-SLO evaluation — the monitor must
-        observe the tick INCLUDING any degradation the tick just hit."""
+        countdown, checkpoint cadence), then the replica's lease round
+        and handoffs, then the solver introspection pass (compile-storm
+        window close + device memory poll — it must run BEFORE the
+        self-SLO evaluation so the memory source reflects THIS tick),
+        then the self-SLO evaluation — the monitor must observe the tick
+        INCLUDING any degradation the tick just hit."""
         if self.recovery is not None:
             self.recovery.on_tick()
+        replication = getattr(self, "replication", None)
+        if replication is not None:
+            # the lease round + fenced handoffs run BEFORE the self-SLO
+            # evaluation so a mid-failover tick burns budget as one
+            replication.on_tick()
         introspection = getattr(self, "solver_introspection", None)
         if introspection is not None:
             introspection.on_tick()
@@ -833,6 +884,11 @@ class KarpenterRuntime:
     def close(self) -> None:
         if self.manager is not None:
             self.manager.close()
+        if getattr(self, "replication", None) is not None:
+            # surrender leases BEFORE the tenancy teardown: successors
+            # can start adopting while this process finishes closing
+            self.replication.close()
+            self.replication = None
         if getattr(self, "tenancy", None) is not None:
             self.tenancy.close()
             self.tenancy = None

@@ -26,9 +26,6 @@ as the decide/cost/forecast kernels. Three planes:
 The port's copy of karpenter_tpu/simlab: the same registry, trails,
 gym envs and search, stepping through the port's SolverService (the
 tensor programs of ops/simstep.py on the card, or the numpy mirror).
-Of the built-in scenarios, `failover` keeps its registration and
-trails, but its CLI runner exits 2: its world needs replication/, which
-is not ported yet.
 """
 
 from karpenter_tpu_torch.simlab.env import (

@@ -20,9 +20,8 @@ recovery property the seeded fuzz test pins (step_limit 2.0 traverses
 
 The port's copy of karpenter_tpu/simlab/builtin.py: the same thirteen
 registrations in the same order, trails and selection predicates. Each
-runner passes --device to its world (the card unless `cpu` is named).
-The `failover` runner exits 2 naming replication/, which is not ported
-yet; its trails work.
+runner passes --device to its world (the card unless `cpu` is named),
+except `failover`'s, whose world is host code.
 """
 
 from __future__ import annotations
@@ -152,18 +151,6 @@ def _device(args):
     """Where a world runs: --device (the card by default; `cpu` names
     the host)."""
     return getattr(args, "device", None)
-
-
-def _not_ported(args, flag: str, module: str) -> int:
-    """The runner of a world whose modules are not ported: a usage error
-    naming the module, exit status 2 (as the binary's NOT_PORTED_FLAGS)."""
-    print(
-        f"karpenter_tpu_torch: error: --simulate {flag} needs the "
-        f"reference's {module}, which is not ported to karpenter_tpu_torch "
-        "yet",
-        file=sys.stderr,
-    )
-    return 2
 
 
 def _run_trace(args, store) -> int:
@@ -328,9 +315,21 @@ def _run_restart_storm(args, store) -> int:
 
 
 def _run_failover(args, store) -> int:
-    # a seeded leader-kill failover across a replicated control plane:
-    # the world needs replication/
-    return _not_ported(args, "--failover", "replication/")
+    # self-contained replay (own store/planes/journal root): a seeded
+    # leader-kill failover pinning the replicated-control-plane
+    # contract — fenced handoff, exactly-once actuation across the
+    # handoff, reconvergence, stale-write rejection. Host code: the
+    # device check ran before the dispatch, as for every world
+    from karpenter_tpu_torch.simulate import simulate_failover
+
+    report = simulate_failover(
+        replicas=args.replicas,
+        seed=_resolved_seed(args, 0),
+        journal_dir=args.journal_dir,
+        warmup_ticks=args.recovery_warmup_ticks,
+    )
+    print(json.dumps(report, indent=2, sort_keys=True))
+    return 0
 
 
 def _run_preempt(args, store) -> int:

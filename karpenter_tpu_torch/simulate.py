@@ -31,7 +31,8 @@ default, raising without one; "cpu" names the host. A world's `backend`
 names the port's rung ("torch", "cuda" or "numpy"; the reference's
 default "xla" becomes "torch", the tensor programs, except in the
 multi-tenant lockstep replay, whose default "auto" is the card's rung).
-`simulate_failover` waits for replication/, which is not ported yet.
+`simulate_failover` is host code (leases, fences and journals over an
+in-process store) and takes no device.
 """
 
 from __future__ import annotations
@@ -1582,6 +1583,334 @@ def simulate_restart_storm(  # lint: allow-complexity — scenario assembly: cra
             rt.close()
         if own_dir:
             shutil.rmtree(journal_dir, ignore_errors=True)
+
+
+def simulate_failover(  # lint: allow-complexity — scenario assembly: replica fleet + leader kill + handoff audit + report
+    tenants: int = 16,
+    replicas: int = 3,
+    partitions: Optional[int] = None,
+    ticks: int = 40,
+    kill_tick: int = 12,
+    seed: int = 0,
+    lease_duration: float = 5.0,
+    tick_s: float = 1.0,
+    warmup_ticks: int = 1,
+    journal_dir: Optional[str] = None,
+) -> dict:
+    """Seeded leader-kill failover replay (docs/resilience.md
+    "Replicated control plane"): N tenants partitioned across R
+    leader-elected replicas, each tenant's demand a seeded random walk,
+    each owner journaling its scale intent and actuating through a
+    fence-validated per-tenant cloud. Mid-storm the biggest owner (the
+    "leader") is SIGKILLed via the `replica.crash.*` chaos point — no
+    graceful release, its leases must expire. The report pins the
+    failover contract end to end: survivors adopt the victim's
+    partitions (fenced handoff: fence generation bump + journal replay
+    + per-tenant warm-up), every tenant reconverges to the no-fault
+    fixed point (demand is a pure function of the tick, so the
+    no-fault state IS the desired trace), zero duplicate and zero lost
+    `set_replicas` writes across the handoff (journal-audited), and
+    the deposed replica's late write is fence-rejected — not applied.
+    Self-contained: own store, scripted clock, temp journal root."""
+    import contextlib
+    import hashlib
+    import json
+    import shutil
+    import tempfile
+
+    from karpenter_tpu_torch.faults import (
+        FaultRegistry,
+        ProcessCrash,
+        install,
+        uninstall,
+    )
+    from karpenter_tpu_torch.recovery.fence import (
+        FenceRejectedError,
+        FenceValidator,
+    )
+    from karpenter_tpu_torch.replication import (
+        ReplicatedControlPlane,
+        crash_plan,
+    )
+    from karpenter_tpu_torch.store import Store
+
+    partitions = partitions or max(4, 2 * replicas)
+    rng = np.random.RandomState(seed)
+    own_dir = journal_dir is None
+    journal_root = journal_dir or tempfile.mkdtemp(
+        prefix="karpenter-failover-"
+    )
+
+    tenant_ids = [f"t{i:03d}" for i in range(tenants)]
+    replica_ids = [f"replica-{i}" for i in range(replicas)]
+    # seeded per-tenant demand walk: desired[tenant][tick], the pure
+    # function both arms (and the convergence check) share
+    desired = {}
+    for tenant in tenant_ids:
+        level = int(rng.randint(1, 9))
+        walk = []
+        for _ in range(ticks + 1):
+            if rng.rand() < 0.35:
+                level = int(np.clip(level + rng.randint(-2, 3), 1, 12))
+            walk.append(level)
+        desired[tenant] = walk
+
+    class _TenantCloud:
+        """One tenant's provider edge: fence-validated writes, the
+        exactly-once ledger the audit reads."""
+
+        def __init__(self):
+            self.validator = FenceValidator()
+            self.replicas = 0
+            self.writes = []
+
+        def set_replicas(self, count, token=None):
+            self.validator.admit(token)
+            self.replicas = count
+            self.writes.append(count)
+
+    clouds = {tenant: _TenantCloud() for tenant in tenant_ids}
+    clock = {"now": 1_000_000.0}
+
+    def journal_dir_for(tenant):
+        import os as _os
+
+        path = _os.path.join(journal_root, "tenants", tenant)
+        _os.makedirs(path, exist_ok=True)
+        return path
+
+    def build_plane(replica_id):
+        return ReplicatedControlPlane(
+            store,
+            replica_id=replica_id,
+            partitions=partitions,
+            lease_duration=lease_duration,
+            tenants_source=lambda: tenant_ids,
+            journal_dir_for=journal_dir_for,
+            validator_for=lambda tenant: clouds[tenant].validator,
+            warmup_ticks=warmup_ticks,
+            clock=lambda: clock["now"],
+        )
+
+    store = Store()
+    planes = {rid: build_plane(rid) for rid in replica_ids}
+    dead = set()
+    registry = FaultRegistry(seed=seed)
+    install(registry)
+
+    def serve(plane, tick):
+        """One replica's serving pass: journal intent, then actuate
+        every owned tenant toward this tick's desired level. Reading
+        the cloud before writing is the exactly-once seam: a handoff
+        adopter skips writes its predecessor already landed."""
+        for tenant in tenant_ids:
+            handoff = plane.handoff_for(tenant)
+            if handoff is None or handoff.released:
+                continue
+            want = desired[tenant][tick]
+            cloud = clouds[tenant]
+            if cloud.replicas == want:
+                continue
+            if handoff.recovery is not None:
+                handoff.recovery.handle("intent").set(
+                    (tenant,), {"desired": int(want)}
+                )
+            cloud.set_replicas(want, token=handoff.token())
+
+    victim = None
+    victim_partitions = []
+    victim_tenants = []
+    victim_handoffs = {}
+    adoption_tick = {}  # tenant -> first tick a survivor adopted it
+    recovered_tick = {}  # tenant -> first post-kill tick back at desired
+    stale_probe = {"done": False, "rejected": False, "applied": False}
+    fence_rejections = 0
+    try:
+        for tick in range(1, ticks + 1):
+            clock["now"] += tick_s
+            if tick == kill_tick:
+                # the leader: the replica owning the most partitions
+                victim = max(
+                    (rid for rid in replica_ids if rid not in dead),
+                    key=lambda rid: (
+                        len(planes[rid].leases.owned), rid
+                    ),
+                )
+                victim_partitions = sorted(planes[victim].leases.owned)
+                victim_tenants = sorted(
+                    t for t in tenant_ids if planes[victim].owns(t)
+                )
+                # retain the victim's handoffs: the zombie's stale
+                # fence tokens are the late-write probe's ammunition
+                victim_handoffs = dict(planes[victim].handoffs)
+                crash_plan(registry, victim, times=1)
+            for rid in replica_ids:
+                if rid in dead:
+                    continue
+                try:
+                    planes[rid].on_tick()
+                except ProcessCrash:
+                    dead.add(rid)  # SIGKILL: no release, no checkpoint
+                    continue
+                serve(planes[rid], tick)
+                for tenant in victim_tenants:
+                    if (
+                        tenant not in adoption_tick
+                        and planes[rid].handoff_for(tenant) is not None
+                    ):
+                        adoption_tick[tenant] = tick
+            # blackout ends when a survivor has adopted the tenant AND
+            # its cloud is back at this tick's desired level
+            for tenant in victim_tenants:
+                if (
+                    tenant not in recovered_tick
+                    and tenant in adoption_tick
+                    and clouds[tenant].replicas == desired[tenant][tick]
+                ):
+                    recovered_tick[tenant] = tick
+            # the deposed replica's in-flight write lands AFTER a
+            # survivor claimed the tenant's fence generation: it must
+            # be rejected, not applied
+            if (
+                victim_tenants
+                and not stale_probe["done"]
+                and victim_tenants[0] in adoption_tick
+            ):
+                stale_probe["done"] = True
+                probe_tenant = victim_tenants[0]
+                cloud = clouds[probe_tenant]
+                before = cloud.replicas
+                stale = victim_handoffs.get(probe_tenant)
+                try:
+                    cloud.set_replicas(
+                        desired[probe_tenant][kill_tick],
+                        token=stale.token() if stale else None,
+                    )
+                except FenceRejectedError:
+                    stale_probe["rejected"] = True
+                    if stale is not None and stale.recovery is not None:
+                        stale.recovery.count_fence_rejection()
+                stale_probe["applied"] = cloud.replicas != before
+
+        # -- audits --------------------------------------------------------
+        from karpenter_tpu_torch.recovery.journal import key_str
+
+        fence_rejections = sum(
+            cloud.validator.rejections for cloud in clouds.values()
+        )
+        converged = all(
+            clouds[t].replicas == desired[t][ticks] for t in tenant_ids
+        )
+        # journal audit: every tenant's LAST journaled intent must have
+        # landed exactly once — the live owner's replayed+mirrored table
+        # IS what a successor would replay, so compare it to the cloud
+        lost = 0
+        for tenant in tenant_ids:
+            owner = next(
+                (
+                    rid for rid in replica_ids
+                    if rid not in dead
+                    and planes[rid].handoff_for(tenant) is not None
+                ),
+                None,
+            )
+            if owner is None:
+                lost += 1  # nobody serves this tenant: its writes stop
+                continue
+            recovery = planes[owner].handoffs[tenant].recovery
+            if recovery is None:
+                continue  # unfenced world: no journal to audit
+            intent = recovery.table("intent").get(key_str((tenant,)))
+            if intent is None:
+                continue
+            if clouds[tenant].replicas != intent["desired"]:
+                lost += 1
+        duplicates = sum(
+            sum(1 for a, b in zip(c.writes, c.writes[1:]) if a == b)
+            for c in clouds.values()
+        )
+        digest = hashlib.sha256(
+            json.dumps(
+                {t: clouds[t].writes for t in tenant_ids},
+                sort_keys=True,
+            ).encode()
+        ).hexdigest()
+        blackouts = sorted(
+            recovered_tick.get(t, ticks) - kill_tick
+            for t in victim_tenants
+        ) or [0]
+        p99_idx = max(0, int(np.ceil(0.99 * len(blackouts))) - 1)
+        return {
+            "config": {
+                "tenants": tenants,
+                "replicas": replicas,
+                "partitions": partitions,
+                "ticks": ticks,
+                "kill_tick": kill_tick,
+                "seed": seed,
+                "lease_duration_s": lease_duration,
+                "tick_s": tick_s,
+                "warmup_ticks": warmup_ticks,
+            },
+            "victim": victim,
+            "victim_partitions": victim_partitions,
+            "victim_tenants": victim_tenants,
+            "tenants_reassigned": sorted(adoption_tick),
+            "adopters": {
+                tenant: next(
+                    (
+                        rid for rid in replica_ids
+                        if rid not in dead
+                        and planes[rid].handoff_for(tenant) is not None
+                    ),
+                    None,
+                )
+                for tenant in sorted(adoption_tick)
+            },
+            "reconverge_ticks": (
+                max(blackouts)
+                if converged
+                and len(recovered_tick) == len(victim_tenants)
+                else None
+            ),
+            "converged": converged,
+            "blackout_ticks_p99": blackouts[p99_idx],
+            "blackout_s_p99": blackouts[p99_idx] * tick_s,
+            "duplicate_actuations": duplicates,
+            "lost_actuations": lost,
+            "fence_rejections": fence_rejections,
+            "stale_write_rejected": stale_probe["rejected"],
+            "stale_write_applied": stale_probe["applied"],
+            "handoffs_after_kill": len(adoption_tick),
+            "fence_generations": {
+                tenant: max(
+                    (
+                        planes[rid].handoffs[tenant].generation
+                        for rid in replica_ids
+                        if rid not in dead
+                        and tenant in planes[rid].handoffs
+                    ),
+                    default=0,
+                )
+                for tenant in victim_tenants
+            },
+            "writes_digest": digest,
+        }
+    finally:
+        uninstall(registry)
+        for rid, plane in planes.items():
+            with contextlib.suppress(Exception):
+                if rid in dead:
+                    # the zombie's open journals: close without the
+                    # graceful release path (its successors own the
+                    # fence now; close() would checkpoint over them)
+                    for handoff in plane.handoffs.values():
+                        if handoff.recovery is not None:
+                            handoff.recovery.journal.close()
+                else:
+                    plane.close()
+        if own_dir:
+            shutil.rmtree(journal_root, ignore_errors=True)
 
 
 def _why_report(ledger, sample: int = 8) -> dict:

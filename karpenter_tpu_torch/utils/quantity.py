@@ -1,7 +1,7 @@
 """Kubernetes resource.Quantity semantics (the port's copy of
-karpenter_tpu/utils/quantity.py, with the pure-Python parser only: the
-reference's optional C parser is its own oracle-checked accelerator of
-this same parse, so values are identical).
+karpenter_tpu/utils/quantity.py: the C parser of native/quantity.c once
+its background build has loaded, the regex parser, its oracle, until
+then; and a memo of the canonical rendering).
 
 The reference accumulates pod resource requests and node allocatable as
 k8s.io/apimachinery resource.Quantity values and renders them into status
@@ -56,6 +56,30 @@ _QUANTITY_RE = re.compile(
     r"(?:(?P<suffix>Ki|Mi|Gi|Ti|Pi|Ei|[numkMGTPE])|(?P<exp>[eE][+-]?\d+))?$"
 )
 
+# format codes returned by the native parser (karpenter_tpu_torch/native)
+_NATIVE_FORMATS = (DECIMAL_SI, BINARY_SI, DECIMAL_EXPONENT)
+_native_kicked = False
+
+
+def _native_parser():
+    """The C parser once its background build/load completes, else None
+    (pure-Python oracle runs). The first call only KICKS OFF the build in a
+    daemon thread — a cold compile never blocks a parse, so e.g. the first
+    AdmissionReview a webhook validates is served at Python speed instead
+    of waiting on cc."""
+    global _native_kicked
+    try:
+        from karpenter_tpu_torch import native
+    except Exception:
+        return None
+    if not _native_kicked:
+        _native_kicked = True
+        try:
+            native.ensure_kquantity_async()
+        except Exception:
+            pass
+    return native.peek_kquantity()
+
 
 class Quantity:
     """Exact-arithmetic quantity with a preferred display format."""
@@ -73,6 +97,18 @@ class Quantity:
             return Quantity(s.value, s.format)
         if isinstance(s, (int, float)):
             return Quantity(Fraction(s), DECIMAL_SI)
+        native = _native_parser()
+        if native is not None:
+            try:
+                num, den, fmt = native.parse(s)
+            except ValueError:
+                pass  # overflow or unrecognized: the regex path decides
+            else:
+                q = cls.__new__(cls)
+                q.value = Fraction(num, den)
+                q.format = _NATIVE_FORMATS[fmt]
+                q._float = None
+                return q
         m = _QUANTITY_RE.match(s.strip())
         if m is None:
             raise ValueError(f"unable to parse quantity {s!r}")

@@ -2269,3 +2269,210 @@ def build_deployment_world(store, pods: int, types: int, seed: int, *,
                 ),
             ))
     return cluster
+
+
+# -- the replicated control plane (replication/, --partitions) ---------------
+
+REPLICA_API = {
+    "runtime": ("KarpenterRuntime", "Options"),
+    "cloudprovider.fake": ("FakeFactory",),
+    "faults": ("FaultRegistry", "ProcessCrash", "install", "uninstall"),
+    "replication": ("crash_plan",),
+}
+
+# the cloud's state the replicas of one fleet share (FakeFactory's dicts)
+_CLOUD_STATE = ("node_replicas", "node_templates", "queue_lengths",
+                "queue_oldest_ages")
+# the replication plane's own series, and the journal replay times (wall
+# clock: an adoption's, and the boot's of each replica's journal root)
+REPLICA_FAMILIES = ("karpenter_replica_", "karpenter_handoff_")
+REPLICA_SKIP = ("karpenter_handoff_replay_seconds",
+                "karpenter_recovery_replay_seconds")
+
+
+def replica_api_namespace(modules: Dict[str, object]) -> ReconcileAPI:
+    """The names of REPLICA_API taken from `modules`, which maps each of
+    its keys to a module object."""
+    return _namespace(REPLICA_API, modules)
+
+
+def replica_api() -> ReconcileAPI:
+    """REPLICA_API from this package."""
+    from karpenter_tpu_torch import faults, replication, runtime
+    from karpenter_tpu_torch.cloudprovider import fake
+
+    return replica_api_namespace({
+        "runtime": runtime, "cloudprovider.fake": fake, "faults": faults,
+        "replication": replication,
+    })
+
+
+def replica_series(registry) -> List[str]:
+    """The registry's exposition lines of the replica and handoff
+    families, less the wall-clock replay time."""
+    return [
+        line for line in registry.expose_text().splitlines()
+        if any(family in line for family in REPLICA_FAMILIES)
+        and not any(skip in line for skip in REPLICA_SKIP)
+    ]
+
+
+class ReplicaFleet:
+    """Replicas of the replicated control plane (`--partitions`) over one
+    store, as separate processes run them: one KarpenterRuntime per id in
+    `replica_ids`, built with `options` (an Options keyword dict of the
+    runtime's package) and its own replica_id, each with its own
+    FakeFactory, on one scripted clock. The first factory is `provider`
+    (the world's); the others share its cloud state (node-group
+    replicas, templates, queues) and keep their own fence validator, as
+    each process holds its own. `options["journal_dir"]` is one root for
+    all, so the tenants' fence and journal dirs (`<root>/tenants/<id>`)
+    are shared and an adoption claims the next generation there.
+
+    `tick()` runs one manager tick on every live replica in replica
+    order. `kill(rid)` installs rid's crash plan (replica.crash.<rid>):
+    its next tick raises ProcessCrash out of the tick hook, and the fleet
+    abandons the replica as a SIGKILL would, releasing no lease and
+    checkpointing no journal. `api` (replica_api) names the runtime's
+    package; the port's by default."""
+
+    def __init__(self, store, provider, replica_ids, clock, options: dict,
+                 api: Optional[ReconcileAPI] = None):
+        self.api = api if api is not None else replica_api()
+        self.store, self.clock = store, clock
+        self.providers: Dict[str, object] = {}
+        self.runtimes: Dict[str, object] = {}
+        self.dead: Dict[str, object] = {}  # rid -> the abandoned plane
+        self.faults = self.api.FaultRegistry(seed=0)
+        self.api.install(self.faults)
+        try:
+            for rid in replica_ids:
+                factory = provider
+                if self.providers:
+                    factory = self.api.FakeFactory()
+                    for name in _CLOUD_STATE:
+                        setattr(factory, name, getattr(provider, name))
+                self.providers[rid] = factory
+                self.runtimes[rid] = self.api.KarpenterRuntime(
+                    self.api.Options(**dict(options, replica_id=rid)),
+                    store=store, cloud_provider_factory=factory,
+                    clock=clock,
+                )
+        except BaseException:
+            self.close()
+            raise
+
+    def live(self) -> List[str]:
+        return [rid for rid in self.runtimes if rid not in self.dead]
+
+    def plane(self, rid: str):
+        return self.dead.get(rid) or self.runtimes[rid].replication
+
+    def tick(self, each: Optional[Callable] = None) -> List[str]:
+        """One manager tick on every live replica; returns the replicas
+        that died in it. `each(rid, run)`, when given, runs the replica's
+        tick by calling `run()` (a caller counting or timing per
+        replica)."""
+        died = []
+        for rid in self.live():
+            run = self.runtimes[rid].manager.reconcile_all
+            try:
+                if each is None:
+                    run()
+                else:
+                    each(rid, run)
+            except self.api.ProcessCrash:
+                self._abandon(rid)
+                died.append(rid)
+        return died
+
+    def biggest(self) -> str:
+        """The live replica owning the most partitions (ties: the
+        greatest id), simulate_failover's leader."""
+        return max(self.live(), key=lambda rid: (
+            len(self.plane(rid).leases.owned), rid))
+
+    def kill(self, rid: str) -> None:
+        self.api.crash_plan(self.faults, rid, times=1)
+
+    def _abandon(self, rid: str) -> None:
+        runtime = self.runtimes[rid]
+        plane, runtime.replication = runtime.replication, None
+        self.dead[rid] = plane
+        # the zombie's open journals close without the graceful path:
+        # its successors own the fences now
+        for handoff in plane.handoffs.values():
+            if handoff.recovery is not None:
+                handoff.recovery.journal.close()
+        if runtime.recovery is not None:
+            runtime.recovery.journal.close()
+            runtime.recovery = None
+        runtime.close()
+
+    def state(self) -> dict:
+        """Every live replica's ownership, handoffs (state, fence
+        generation, warm-up left) and replica/handoff series."""
+        out = {}
+        for rid in self.live():
+            plane = self.plane(rid)
+            out[rid] = {
+                "owned": sorted(plane.leases.owned),
+                "live": list(plane.last_round.live)
+                if plane.last_round else [],
+                "tenants": {
+                    tenant: (h.state, h.generation, h.warmup_remaining)
+                    for tenant, h in sorted(plane.handoffs.items())
+                },
+                "adopted": plane.adopted_total,
+                "released": plane.released_total,
+                "series": replica_series(self.runtimes[rid].registry),
+            }
+        return out
+
+    def failover(self, world, before: int, after: int, churn: int,
+                 tick_s: float, record: Callable,
+                 each: Optional[Callable] = None) -> str:
+        """The leader-kill script over a runtime world: `before` ticks,
+        then the biggest owner's crash plan and the tick it dies in,
+        then `after` more ticks. Each tick steps the clock (`.now`) by
+        `tick_s`, and from the second on walks the world's queues and
+        replaces `churn` pending pods first; `record(tick, died)` runs
+        after it. With 2 * tick_s >= lease + skew the first tick after
+        the kill is already lease + skew past the victim's last renew.
+        Returns the victim."""
+        victim = None
+        for tick in range(before + 1 + after):
+            self.clock.now += tick_s
+            if tick:
+                world.step_queues()
+                churn_reconcile(world.cluster, churn)()
+            if tick == before:
+                victim = self.biggest()
+                self.kill(victim)
+            record(tick, self.tick(each))
+        return victim
+
+    def snapshot(self, to_dict, skip: tuple = RUNG_SKIP) -> dict:
+        """state(), the store's objects and the cloud's node-group
+        replicas (runtime_snapshot with pods="fields", once: the
+        replicas share both), and every live replica's exposition, less
+        `skip` and the replay time."""
+        skip = skip + REPLICA_SKIP
+        live = self.live()
+        shared = runtime_snapshot(
+            self.store, self.runtimes[live[0]].registry,
+            self.providers[live[0]], to_dict, skip=skip, pods="fields")
+        return {
+            "state": self.state(),
+            "objects": shared["objects"],
+            "replicas": shared["replicas"],
+            "exposition": {
+                rid: exposition_lines(self.runtimes[rid].registry, skip)
+                for rid in live
+            },
+        }
+
+    def close(self) -> None:
+        for rid in self.live():
+            self.runtimes[rid].close()
+        self.api.uninstall(self.faults)

@@ -15,8 +15,9 @@ HTTP surface and leader election, against the reference's, on the CPU.
     providers' factories with no SDK bound); Options.solver_uri fronts
     the sidecar;
   * each flag whose module is not ported exits 2 naming that module, and
-    each such runtime option raises NotPortedError; `--tenant-config`
-    and `--introspect` (and their Options fields) run; `--simulate`,
+    each such runtime option raises NotPortedError; `--tenant-config`,
+    `--introspect` and `--partitions` (and their Options fields) run;
+    `--simulate`,
     `--list` and `--sim-seed` parse as the reference's and run, and
     Options.sim_seed is carried;
   * MetricsServer's routes and LeaderElector behave as in
@@ -88,8 +89,6 @@ class TestParseArgs:
         assert message in capsys.readouterr().err
 
     @pytest.mark.parametrize("argv,module", [
-        pytest.param(["--partitions", "2"], "replication",
-                     id="argv1-replication"),
         pytest.param(["--profiler-port", "9999"], "jax.profiler server",
                      id="argv3-jax.profiler server"),
         pytest.param(["--shard-mesh", "8x1"], "parallel/mesh.py",
@@ -141,6 +140,50 @@ class TestParseArgs:
             assert tenants == ["a", "b"] and not enabled
         else:
             assert tenants is None and enabled
+
+    def test_partitions_flag_runs(self, tmp_path, monkeypatch):
+        """--partitions used to exit 2 naming replication/: it now parses
+        as the reference's and runs main on the CPU as one replica, with
+        the lease plane in place of the --leader-elect gate (every
+        replica ticks) and the plane handed to /debug/replicas."""
+        argv = ["--partitions", "2", "--replica-id", "r0",
+                "--lease-duration", "3"]
+        ref_args = vars(mod(REF, "__main__").parse_args(argv))
+        port_args = vars(port_main.parse_args(argv))
+        assert {k: port_args[k] for k in ref_args if k in port_args} == {
+            k: v for k, v in ref_args.items() if k in port_args
+        }
+        seen = {}
+        real_server = port_main.MetricsServer
+
+        def server(*args, **kw):
+            seen["replication"] = kw.get("replication")
+            return real_server(*args, **kw)
+
+        real_loop = port_main._run_loop
+
+        def loop(args, runtime, elector):
+            seen["elector"] = elector
+            real_loop(args, runtime, elector)
+            seen["board"] = runtime.replication.scoreboard()
+            seen["leases"] = sorted(
+                lease.metadata.name for lease in runtime.store.list("Lease"))
+
+        monkeypatch.setattr(port_main, "MetricsServer", server)
+        monkeypatch.setattr(port_main, "_run_loop", loop)
+        rc = port_main.main(argv + [
+            "--device", "cpu", "--duration", "0.5", "--tick", "0.05",
+            "--metrics-port", "0", "--leader-elect",
+        ])
+        assert rc == 0
+        assert seen["elector"] is None
+        assert seen["replication"] is not None
+        board = seen["board"]
+        assert board["replica"] == "r0" and board["partitions"] == 2
+        assert board["owned"] == [0, 1]
+        assert seen["leases"] == ["karpenter-partition-0",
+                                  "karpenter-partition-1",
+                                  "karpenter-replica-r0"]
 
 
 @pytest.fixture()
@@ -373,8 +416,6 @@ class TestRealClusterFlags:
 
 class TestNotPortedOptions:
     @pytest.mark.parametrize("field,value,module", [
-        pytest.param("partitions", 2, "replication",
-                     id="partitions-2-replication"),
         pytest.param("solver_shard_mesh", (2, 1), "parallel/mesh.py",
                      id="solver_shard_mesh-value3-parallel/mesh.py"),
     ])
@@ -412,6 +453,32 @@ class TestNotPortedOptions:
                 assert rt.solver_introspection.snapshot()["enabled"] is True
         finally:
             rt.close()
+
+    def test_partitions_option_builds_the_plane(self, tmp_path):
+        """Options.partitions used to raise NotPortedError; it now builds
+        the replicated control plane as the reference's runtime does,
+        with the tenant registry as its tenant source, the fifth
+        self-SLO source, and every lease released on close."""
+        config = tmp_path / "tenants.json"
+        config.write_text(json.dumps([{"id": "a"}, {"id": "b"}]))
+        clock = {"now": 1000.0}
+        rt = port_runtime.KarpenterRuntime(port_runtime.Options(
+            device="cpu", partitions=2, replica_id="r0",
+            lease_duration_s=5.0, tenant_config=str(config),
+            journal_dir=str(tmp_path / "j"),
+        ), clock=lambda: clock["now"])
+        try:
+            plane = rt.replication
+            assert (plane.replica_id, plane.partitions) == ("r0", 2)
+            assert rt.selfslo.replica_source == plane.slo_source
+            for _ in range(2):
+                clock["now"] += 61.0
+                rt.manager.reconcile_all()
+            assert sorted(plane.handoffs) == ["a", "b"]
+            assert plane.leases.owned == {0, 1}
+        finally:
+            rt.close()
+        assert all(lease.holder == "" for lease in rt.store.list("Lease"))
 
     def test_solver_uri_fronts_the_sidecar(self):
         """Options.solver_uri builds the split: the service runs on the

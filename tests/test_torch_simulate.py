@@ -13,9 +13,9 @@ the reference's, on the CPU.
   * the CLI over data dirs written by either package's DurableStore: the
     port's `--simulate --device cpu` prints the reference's stdout byte
     for byte (dry run, --what-if, --consolidate, --list);
-  * `--multitenant` and `--failover` exit 2 naming tenancy/ and
-    replication/; without a card and without --device cpu the dry run
-    exits 1 with the reason; a non-list --what-if exits 2.
+  * `--multitenant` and `--failover` print the reference's reports;
+    without a card and without --device cpu the dry run exits 1 with
+    the reason; a non-list --what-if exits 2.
 
 The port's dry runs solve on a CPU SolverService; the reference's on its
 own default service (JAX on the CPU), as its tests run them.
@@ -397,16 +397,19 @@ class TestCLI:
         assert rc == 0
         assert set(json.loads(out)) == {"baseline", "what_if", "delta"}
 
-    @pytest.mark.parametrize("flag,module", [
-        pytest.param("--failover", "replication/",
-                     id="--failover-replication/"),
-    ])
-    def test_unported_worlds_exit_2_naming_their_module(self, flag, module,
-                                                        capsys):
-        rc, out = run_main(PORT, ["--simulate", flag, "--device", "cpu"])
-        assert (rc, out) == (2, "")
-        err = capsys.readouterr().err
-        assert module in err and "not ported" in err
+    @pytest.mark.parametrize("argv", [
+        ["--simulate", "--failover"],
+        ["--simulate", "--failover", "--replicas", "4", "--sim-seed", "3"],
+    ], ids=["default", "4-replicas-seed-3"])
+    def test_failover_world_runs_as_the_reference(self, argv, tmp_path):
+        """--simulate --failover used to exit 2 naming replication/; it
+        now prints the reference's report, byte for byte."""
+        rc, out = run_main(PORT, argv + ["--device", "cpu"])
+        ref_rc, ref_out = run_main(REF, argv)
+        assert rc == ref_rc == 0
+        assert out == ref_out
+        report = json.loads(out)
+        assert report["converged"] and report["stale_write_rejected"]
 
     def test_multitenant_world_runs_as_the_reference(self):
         """--simulate --multitenant used to exit 2 naming tenancy/; it
