@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (set-up, with ptxas's register,
-shared-memory and stack report), then runs eighteen phases and fails (exit 1,
+shared-memory and stack report), then runs nineteen phases and fails (exit 1,
 no result line) if any of them fails:
 
 1. fused kernel vs its plain version on the card: fused_assign against
@@ -86,7 +86,8 @@ no result line) if any of them fails:
    trips to degraded and the next request raises SolverDeviceError with
    no device attempt; with the plan cleared the probe (on an injected
    clock) heals it. The phase ends with every service at fallback_total
-   0, the main one healthy, and no shard route;
+   0, the main one healthy, and its shard route idle (one card: no mesh,
+   no shard request, the shard gauge 0);
 11. the HorizontalAutoscaler reconcile tick through SolverService() on the
    card (workloads.build_ha_fleet at BASELINE.json's 1000 tenants x 4
    autoscalers, 3 metrics, about half forecasting one metric over 64
@@ -100,8 +101,8 @@ no result line) if any of them fails:
    stage's share; fused_dispatches == ticks, no chained or numpy serve,
    one dispatch per tick, one graph capture, the FSM healthy; (b) the
    same world for 6 ticks through the card's chained wire (forecast,
-   decide, cost, poolgroup families) and through a CPU service (numpy):
-   the same replica trail, HA statuses, error maps and registry
+   decide, cost, poolgroup families) and through a CPU service (numpy,
+   in a child process beside (a)): the same replica trail, HA statuses, error maps and registry
    exposition as the fused tick's; (c) phase 8's batch through
    service.fused_tick == the direct FusedTickProgram replay, bitwise on
    every leaf, the two timed in turns; (d) under a fused.tick error plan
@@ -123,7 +124,8 @@ no result line) if any of them fails:
    candidate with pods; a profiler window of the largest plan's
    candidates (device kernels, launches, the fused instance, device ms
    per launch at T = 2,000 with the forbidden operand, busy us); (b) the
-   same world on a CPU numpy service: equal error maps, store state,
+   same world on a CPU numpy service (in a child process beside (a)):
+   equal error maps, store state,
    node groups, provider replicas, engine tables and exposition every
    round, and equal verdicts and plans; (c) service.preempt on bench.py's
    eviction fleet at the victim ceiling (64 x 2,000 x 16,384) ==
@@ -303,7 +305,8 @@ no result line) if any of them fails:
    each adopter's provider; every tick (ownership, handoffs, fence
    generations, the replica and handoff series, the store's objects,
    the cloud's replicas, each replica's exposition) equals a CPU twin's
-   run in a child process; device ms per launch at the last tick's
+   run in a child process (every journal of both fleets compacts on its
+   record count alone, not on the host's clock); device ms per launch at the last tick's
    operands; (b) `--simulate --failover` through main() on the card ==
    the reference's report (pinned), and simulate_failover at
    bench-failover's 256 tenants x 4 replicas x 16 partitions x 40
@@ -316,6 +319,30 @@ no result line) if any of them fails:
    (a); (d) the C quantity parser (native/quantity.c) builds and loads,
    Quantity.parse through it equals the regex oracle on (a)'s world's
    quantities, both rates printed.
+19. multi-device (parallel/mesh.py, parallel/multihost.py, the solve
+   service's shard route) over 8 virtual shards of the card
+   (utils/device.force_virtual_devices): (a) sharded_binpack on 4x2,
+   2x2x2 (slices=2) and 8x1 meshes at the main path == solve(backend=
+   "cuda") bitwise on all five outputs (nodes 20262), each launching
+   what launch_plan states (a scan per non-empty row slab, one
+   demand_reduce, a shelf per non-empty group slab: 8 + 1 + 8; counts
+   set to 0 just before, read just after); p50/p95 of 10 sharded beside
+   10 single-device solves in turns; device ms per launch at the slab
+   shape (profiler); dryrun_fleet_step(8) on the card; (b) SolverService()
+   over the shards: the main path's host arrays at the default
+   threshold take the shard route (shard_requests 1, shard_dispatches 1,
+   shard_fallbacks 0, fallback_total 0, the shard gauge 8) == single-
+   device bitwise; at shard_threshold=1, decide on phase 6's fleet,
+   forecast on phase 8's series, preempt on phase 12's eviction fleet, a
+   constrained solve and phase 12's profiled consolidation batch equal
+   the single-device service's answers bitwise; (c) in a child beside
+   (a) and (b): two ranks on the card join over gloo (4 shards each),
+   each runs dryrun_fleet_step(8) on its global meshes and a card-route
+   solve on a global 2x2x2 mesh equal to the single-process solve, and
+   beside them two `python -m karpenter_tpu_torch.sidecar --multihost`
+   processes:
+   Health device_count 2 and backend cuda, a Solve RPC at phase 16's
+   operands == an in-process solve.
 
 Then it profiles 20 main-path solves (torch.profiler: device time by
 kernel) and prints, before the last line, one JSON line of kernel records
@@ -350,6 +377,9 @@ MAIN_NODES = 20262
 BUCKETS = 32
 ITERS = 20
 # device kernels of each wrapper, by the names the profiler shows
+# the wrappers a single-device solve launches (a sharded one adds the
+# demand reduction as its own launch, LAUNCHES["demand_reduce"])
+SINGLE_KERNELS = ("fused_assign", "shelf_bfd")
 KERNEL_NAMES = {
     "fused_assign": ("assign_kernel", "demand_reduce_kernel"),
     "shelf_bfd": ("shelf_bfd_warp_kernel", "shelf_bfd_wide_kernel"),
@@ -588,8 +618,9 @@ def phase_main(torch, TB, TF, inputs):
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(TF.LAUNCHES)
-    for name, n in launches.items():
-        need(n > 0, f"kernel {name} was not launched on the main path")
+    for name in SINGLE_KERNELS:
+        need(launches[name] > 0,
+             f"kernel {name} was not launched on the main path")
     times = []
     for _ in range(ITERS):
         t0 = time.perf_counter()
@@ -697,8 +728,9 @@ def phase_fleet_step(torch, TB, TF, D, MESH, inputs, decision):
     dout, bout = MESH.fleet_step(dec, inputs, buckets=BUCKETS)
     torch.cuda.synchronize()
     launches = dict(TF.LAUNCHES)
-    for name, n in launches.items():
-        need(n > 0, f"kernel {name} was not launched by fleet_step")
+    for name in SINGLE_KERNELS:
+        need(launches[name] > 0,
+             f"kernel {name} was not launched by fleet_step")
     same_bits(dout.to_numpy(), cpu_decision, "fleet_step decision vs phase 6")
     plain = TB.solve(inputs, buckets=BUCKETS, backend="torch")
     outputs_equal(bout, plain, "fleet_step bin-pack vs solve(backend='torch')")
@@ -966,7 +998,7 @@ def phase_reconcile(torch, TB, TF, workloads):
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(TF.LAUNCHES)
     need(all(e is None for e in errors.values()), f"tick errors {errors}")
-    need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+    need(launches == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0},
          f"first reconcile tick launches {launches}")
     totals = _totals(cluster.producers)
     need(totals == RECONCILE_TOTALS,
@@ -996,7 +1028,8 @@ def phase_reconcile(torch, TB, TF, workloads):
         apply()
         cluster.tick()
         churned.append((time.perf_counter() - t0) * 1e3)
-    need(TF.LAUNCHES == {"fused_assign": ITERS, "shelf_bfd": ITERS},
+    need(TF.LAUNCHES == {"fused_assign": ITERS, "shelf_bfd": ITERS,
+                         "demand_reduce": 0},
          f"{ITERS} churned ticks launched {TF.LAUNCHES}")
     last, host = cluster.feed.encode_memo[1], cluster.feed.encode_memo[2]
     card = TB.solve(last)  # same inputs object: no upload
@@ -1032,7 +1065,8 @@ def phase_reconcile(torch, TB, TF, workloads):
     errors = mixed.tick()
     need(all(e is None for e in errors.values()), f"mixed errors {errors}")
     mixed_launches = dict(TF.LAUNCHES)
-    need(mixed_launches == {"fused_assign": 1, "shelf_bfd": 1},
+    need(mixed_launches == {"fused_assign": 1, "shelf_bfd": 1,
+                            "demand_reduce": 0},
          f"mixed draw launches {mixed_launches}")
     m_inputs = mixed.feed.encode_memo[1]
     need(all(getattr(m_inputs, f) is not None for f in
@@ -1130,7 +1164,7 @@ def _service_main_path(torch, TB, TF, svc, inputs, host_inputs):
     TF.reset_launch_counts()
     out = svc.solve(host_inputs, buckets=BUCKETS)
     launches = dict(TF.LAUNCHES)
-    need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+    need(launches == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0},
          f"service main path launches {launches}")
     n_lp = _service_outputs_equal(out, direct, inputs,
                                   "service main path vs direct cuda")
@@ -1146,7 +1180,8 @@ def _service_main_path(torch, TB, TF, svc, inputs, host_inputs):
 
     TF.reset_launch_counts()
     s50, s95 = host_ms(torch, service_call, ITERS)
-    need(TF.LAUNCHES == {"fused_assign": ITERS + 1, "shelf_bfd": ITERS + 1},
+    need(TF.LAUNCHES == {"fused_assign": ITERS + 1, "shelf_bfd": ITERS + 1,
+                         "demand_reduce": 0},
          f"{ITERS + 1} service solves launched {TF.LAUNCHES}")
     d50, d95 = host_ms(torch, direct_call, ITERS)
     report(f"service main path: SolverService().solve == direct "
@@ -1213,7 +1248,7 @@ def _service_reconcile(torch, TB, TF, PC, workloads, svc, reconcile):
     errors = cluster.tick(service_solver)
     launches = dict(TF.LAUNCHES)
     need(all(e is None for e in errors.values()), f"errors {errors}")
-    need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+    need(launches == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0},
          f"first service tick launches {launches}")
     totals = _totals(cluster.producers)
     need(totals == RECONCILE_TOTALS,
@@ -1224,7 +1259,8 @@ def _service_reconcile(torch, TB, TF, PC, workloads, svc, reconcile):
         TF.reset_launch_counts()
         errors = cluster.tick(service_solver)
         need(all(e is None for e in errors.values()), f"errors {errors}")
-        need(TF.LAUNCHES == {"fused_assign": 1, "shelf_bfd": 1},
+        need(TF.LAUNCHES == {"fused_assign": 1, "shelf_bfd": 1,
+                             "demand_reduce": 0},
              f"churned service tick launched {TF.LAUNCHES}")
         same_as_direct("churned service tick")
     report(f"reconcile via service: first tick totals {totals} (the "
@@ -1437,7 +1473,8 @@ def _service_numpy_and_ladder(torch, TB, TF, S, GaugeRegistry, inputs,
         TF.reset_launch_counts()
         got = fsvc.solve(host_inputs, buckets=BUCKETS)
         need(fsvc.backend_health() == "healthy", "the probe did not heal")
-        need(TF.LAUNCHES == {"fused_assign": 1, "shelf_bfd": 1},
+        need(TF.LAUNCHES == {"fused_assign": 1, "shelf_bfd": 1,
+                             "demand_reduce": 0},
              f"the probe launched {TF.LAUNCHES}")
         _service_outputs_equal(got, direct, inputs, "probe answer")
         need(fsvc.stats.fallbacks == 0, "a numpy answer on the card")
@@ -1475,14 +1512,16 @@ def phase_service(torch, TB, TF, workloads, inputs, host_inputs, reconcile):
              f"service fallbacks {svc.stats.fallbacks} / {fallback}")
         need(svc.backend_health() == "healthy", "service not healthy")
         need(svc.stats.device_failures == 0, "service device failures")
-        need(not any(k.startswith("shard") for k in vars(svc.stats)),
-             "a shard count exists")
-        need(not any("shard" in name
-                     for name in svc.registry._gauges.get("solver", {})),
-             "a shard gauge is registered")
+        st = svc.stats
+        need(svc._shard_mesh() is None
+             and (st.shard_requests, st.shard_dispatches,
+                  st.shard_fallbacks) == (0, 0, 0),
+             f"one card took the shard route: {st}")
+        need(svc._g_shard.get("-", "-") == 0.0,
+             "the shard gauge is not 0 on one card")
         print(f"service: {svc.stats.requests} requests, "
               f"{svc.stats.dispatches} dispatches, fallback_total 0, health "
-              f"{svc.backend_health()}, no shard route")
+              f"{svc.backend_health()}, the shard route idle (one card)")
         return main
     finally:
         svc.close()
@@ -1829,41 +1868,81 @@ def _ha_one_vector(workloads, svc, first_trail, spread_snapshot_ms):
            f"{spread_snapshot_ms / queries} ms per query; the same trail")
 
 
-def _ha_parity(workloads, S, GaugeRegistry, fused_run):
-    """(b) The card's chained wire and a CPU service (numpy) over the same
-    world: the same trail, statuses, error maps and exposition as (a)."""
+def _ha_cpu_child(workloads, out_dir: str) -> None:
+    """(b)'s CPU service (numpy) over the phase's world, in a child beside
+    (a): its records, exposition, seconds and family calls, pickled."""
+    import pickle
+
+    from karpenter_tpu_torch.metrics.registry import GaugeRegistry
+    from karpenter_tpu_torch.solver import service as S
+
+    svc = S.SolverService(registry=GaugeRegistry(), device="cpu",
+                          backend="numpy")
+    try:
+        t0 = time.perf_counter()
+        got, text = _ha_run_parity(workloads, svc, False, HA_PARITY_TICKS)
+        st = svc.stats
+        out = {"got": got, "text": text, "s": time.perf_counter() - t0,
+               "stats": (st.forecast_calls, st.decide_calls, st.cost_calls,
+                         st.poolgroup_calls, st.last_dispatches_per_tick)}
+    finally:
+        svc.close()
+    with open(os.path.join(out_dir, "ha_cpu.pickle"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _ha_same(name, got, got_text, fused_run):
     records, errors, text = fused_run
-    for name, kw in (("card, chained wire", {}),
-                     ("CPU, numpy", dict(device="cpu", backend="numpy"))):
-        svc = S.SolverService(registry=GaugeRegistry(), **kw)
-        try:
-            t0 = time.perf_counter()
-            got, got_text = _ha_run_parity(workloads, svc, False,
-                                           HA_PARITY_TICKS)
-            elapsed = time.perf_counter() - t0
-            for k, (trail, statuses, errs) in enumerate(got):
-                need(trail == records[k][0], f"{name}: trail differs, tick {k}")
-                need(statuses == records[k][1],
-                     f"{name}: statuses differ, tick {k}")
-                need(errs == errors[k], f"{name}: errors differ, tick {k}")
-            need(got_text == text, f"{name}: registry exposition differs")
-            st = svc.stats
-            if svc.device.type == "cuda":
-                need(st.fallbacks == 0 and st.poolgroup_independent_serves == 0,
-                     f"{name}: numpy answered")
-                need(st.forecast_dispatches == HA_PARITY_TICKS,
-                     f"{name}: {st.forecast_dispatches} forecast dispatches")
-                need(st.last_dispatches_per_tick >= 2,
-                     f"{name}: {st.last_dispatches_per_tick} dispatches")
-            report(f"HA parity, {name}: {HA_PARITY_TICKS} ticks equal to the "
-                   f"card's fused tick (trail of {len(records[0][0])} node "
-                   f"groups, statuses, error maps, {len(text)} bytes of "
-                   f"exposition); {elapsed} s; families: forecast "
-                   f"{st.forecast_calls}, decide {st.decide_calls}, cost "
-                   f"{st.cost_calls}, poolgroup {st.poolgroup_calls}, "
-                   f"dispatches per tick {st.last_dispatches_per_tick}")
-        finally:
-            svc.close()
+    for k, (trail, statuses, errs) in enumerate(got):
+        need(trail == records[k][0], f"{name}: trail differs, tick {k}")
+        need(statuses == records[k][1], f"{name}: statuses differ, tick {k}")
+        need(errs == errors[k], f"{name}: errors differ, tick {k}")
+    need(got_text == text, f"{name}: registry exposition differs")
+
+
+def _ha_parity_report(name, records, text, elapsed, stats):
+    forecast, decide, cost, poolgroup, per_tick = stats
+    report(f"HA parity, {name}: {HA_PARITY_TICKS} ticks equal to the "
+           f"card's fused tick (trail of {len(records[0][0])} node "
+           f"groups, statuses, error maps, {len(text)} bytes of "
+           f"exposition); {elapsed} s; families: forecast {forecast}, "
+           f"decide {decide}, cost {cost}, poolgroup {poolgroup}, "
+           f"dispatches per tick {per_tick}")
+
+
+def _ha_parity(workloads, S, GaugeRegistry, fused_run, twin):
+    """(b) The card's chained wire, and a CPU service (numpy) over the same
+    world in the child `twin`: the same trail, statuses, error maps and
+    exposition as (a)."""
+    import pickle
+
+    records, _, text = fused_run
+    name = "card, chained wire"
+    svc = S.SolverService(registry=GaugeRegistry())
+    try:
+        t0 = time.perf_counter()
+        got, got_text = _ha_run_parity(workloads, svc, False,
+                                       HA_PARITY_TICKS)
+        elapsed = time.perf_counter() - t0
+        _ha_same(name, got, got_text, fused_run)
+        st = svc.stats
+        need(st.fallbacks == 0 and st.poolgroup_independent_serves == 0,
+             f"{name}: numpy answered")
+        need(st.forecast_dispatches == HA_PARITY_TICKS,
+             f"{name}: {st.forecast_dispatches} forecast dispatches")
+        need(st.last_dispatches_per_tick >= 2,
+             f"{name}: {st.last_dispatches_per_tick} dispatches")
+        _ha_parity_report(name, records, text, elapsed, (
+            st.forecast_calls, st.decide_calls, st.cost_calls,
+            st.poolgroup_calls, st.last_dispatches_per_tick))
+    finally:
+        svc.close()
+    twin.join()
+    with open(twin.path("ha_cpu.pickle"), "rb") as f:
+        cpu = pickle.load(f)
+    name = "CPU, numpy (a child process beside (a))"
+    _ha_same(name, cpu["got"], cpu["text"], fused_run)
+    _ha_parity_report(name, records, text, cpu["s"], cpu["stats"])
 
 
 def _ha_fused_vs_direct(torch, workloads, S, FT, GaugeRegistry):
@@ -1948,12 +2027,16 @@ def _ha_failure_policy(workloads, S, GaugeRegistry):
 
 def phase_ha_tick(torch, FT, M, workloads):
     """Phase 11: the HorizontalAutoscaler reconcile tick through the
-    service on the card."""
+    service on the card; (b)'s CPU service runs in a child beside it."""
     from karpenter_tpu_torch.metrics.registry import GaugeRegistry
     from karpenter_tpu_torch.solver import service as S
 
-    fused_run = _ha_production(torch, workloads, S, M, GaugeRegistry)
-    _ha_parity(workloads, S, GaugeRegistry, fused_run)
+    twin = _Child("_ha_cpu_child")
+    try:
+        fused_run = _ha_production(torch, workloads, S, M, GaugeRegistry)
+        _ha_parity(workloads, S, GaugeRegistry, fused_run, twin)
+    finally:
+        twin.close()
     _ha_fused_vs_direct(torch, workloads, S, FT, GaugeRegistry)
     _ha_failure_policy(workloads, S, GaugeRegistry)
 
@@ -2075,7 +2158,8 @@ def _plan_profile(torch, TF, CP, world, svc, verdicts):
     prof, _ = profile_window(torch, lambda: svc.consolidate(inputs), n,
                              warmup=1)
     launches = {k: v / (n + 1) for k, v in TF.LAUNCHES.items()}
-    need(launches == {"fused_assign": len(inputs), "shelf_bfd": len(inputs)},
+    need(launches == {"fused_assign": len(inputs), "shelf_bfd": len(inputs),
+                      "demand_reduce": 0},
          f"a plan of {len(inputs)} candidates launched {launches}")
     rows = device_rows(torch, prof)
     need(rows, "profiler: no device rows for the consolidation plans")
@@ -2105,7 +2189,7 @@ def _plan_profile(torch, TF, CP, world, svc, verdicts):
                f"{key[:80]}")
     return {"launches_per_plan": launches, "fused_ms": fused_ms,
             "shelf_ms": shelf_ms, "instances": instances,
-            "candidates": len(inputs), "t": t}
+            "candidates": len(inputs), "t": t, "batch": inputs}
 
 
 def _disruption_production(torch, TF, workloads, S, GaugeRegistry):
@@ -2134,7 +2218,7 @@ def _disruption_production(torch, TF, workloads, S, GaugeRegistry):
         finally:
             timers.remove()
         launches = dict(TF.LAUNCHES)
-        need(all(v > 0 for v in launches.values()),
+        need(all(launches[name] > 0 for name in SINGLE_KERNELS),
              f"the disruption rounds launched {launches}")
         for r, row in enumerate(rounds, 1):
             need(all(e is None for e in row["errors"].values()),
@@ -2212,36 +2296,57 @@ def _disruption_production(torch, TF, workloads, S, GaugeRegistry):
         svc.close()
 
 
-def _disruption_parity(workloads, S, GaugeRegistry, card):
-    """(b) The same world and rounds on a CPU numpy service: equal
-    verdicts, plans, evictions, cordons, deleted nodes and pods, node
-    groups, provider replicas, engine tables and exposition."""
+def _disruption_cpu_rounds(workloads) -> dict:
+    """(b)'s world: the same world and rounds on a CPU numpy service;
+    each round's error map and snapshot, the verdicts and plans."""
+    from karpenter_tpu_torch.metrics.registry import GaugeRegistry
+    from karpenter_tpu_torch.solver import service as S
+
     svc = S.SolverService(registry=GaugeRegistry(), device="cpu",
                           backend="numpy")
     try:
         world = workloads.build_disruption_world(service=svc,
                                                  **DISRUPTION_SHAPE)
         t0 = time.perf_counter()
-        for r in range(DISRUPTION_ROUNDS):
-            errors = _errors(world.round())
-            need(errors == card["errors"][r], f"round {r + 1}: error maps")
-            snap = world.snapshot()
-            for key, value in snap.items():
-                need(value == card["snaps"][r][key],
-                     f"round {r + 1}: {key} differs from the card's")
-        need(world.verdicts == card["verdicts"], "consolidation verdicts")
-        need(world.plans == card["plans"], "preemption plans")
-        evictions = sum(len(p["evictions"]) for _, plans in world.plans
-                        for p in plans.values() if p)
-        print(f"disruption parity: the CPU numpy service equals the card on "
-              f"{DISRUPTION_ROUNDS} rounds ({len(world.verdicts)} "
-              f"consolidation plans, {len(world.plans)} preemption plans, "
-              f"{evictions} evictions, every store object, node group, "
-              f"provider replica, engine table and "
-              f"{len(snap['exposition'])} bytes of exposition) in "
-              f"{time.perf_counter() - t0} s")
+        errors, snaps = [], []
+        for _ in range(DISRUPTION_ROUNDS):
+            errors.append(_errors(world.round()))
+            snaps.append(world.snapshot())
+        return {"errors": errors, "snaps": snaps, "verdicts": world.verdicts,
+                "plans": world.plans, "s": time.perf_counter() - t0}
     finally:
         svc.close()
+
+
+def _disruption_cpu_child(workloads, out_dir: str) -> None:
+    """(b)'s world in a child, beside (a): its rounds, pickled."""
+    import pickle
+
+    with open(os.path.join(out_dir, "disruption_cpu.pickle"), "wb") as f:
+        pickle.dump(_disruption_cpu_rounds(workloads), f)
+
+
+def _disruption_parity(cpu, card):
+    """(b) The CPU numpy service's rounds equal the card's: verdicts,
+    plans, evictions, cordons, deleted nodes and pods, node groups,
+    provider replicas, engine tables and exposition."""
+    for r in range(DISRUPTION_ROUNDS):
+        need(cpu["errors"][r] == card["errors"][r],
+             f"round {r + 1}: error maps")
+        for key, value in cpu["snaps"][r].items():
+            need(value == card["snaps"][r][key],
+                 f"round {r + 1}: {key} differs from the card's")
+    need(cpu["verdicts"] == card["verdicts"], "consolidation verdicts")
+    need(cpu["plans"] == card["plans"], "preemption plans")
+    evictions = sum(len(p["evictions"]) for _, plans in cpu["plans"]
+                    for p in plans.values() if p)
+    print(f"disruption parity: the CPU numpy service equals the card on "
+          f"{DISRUPTION_ROUNDS} rounds ({len(cpu['verdicts'])} "
+          f"consolidation plans, {len(cpu['plans'])} preemption plans, "
+          f"{evictions} evictions, every store object, node group, "
+          f"provider replica, engine table and "
+          f"{len(cpu['snaps'][-1]['exposition'])} bytes of exposition) in "
+          f"{cpu['s']} s, in a child process beside the card's rounds")
 
 
 def _preempt_seam(torch, workloads, S, GaugeRegistry):
@@ -2359,12 +2464,21 @@ def _disruption_failure_policy(workloads, S, GaugeRegistry):
 
 def phase_disruption(torch, TF, workloads):
     """Phase 12: the disruption engines behind SolverService() on the
-    card, driven by the ScalableNodeGroup controller."""
+    card, driven by the ScalableNodeGroup controller. (b)'s CPU world
+    runs in a child process beside (a)."""
     from karpenter_tpu_torch.metrics.registry import GaugeRegistry
     from karpenter_tpu_torch.solver import service as S
 
-    card = _disruption_production(torch, TF, workloads, S, GaugeRegistry)
-    _disruption_parity(workloads, S, GaugeRegistry, card)
+    import pickle
+
+    twin = _Child("_disruption_cpu_child")
+    try:
+        card = _disruption_production(torch, TF, workloads, S, GaugeRegistry)
+        twin.join()
+        with open(twin.path("disruption_cpu.pickle"), "rb") as f:
+            _disruption_parity(pickle.load(f), card)
+    finally:
+        twin.close()
     seam = _preempt_seam(torch, workloads, S, GaugeRegistry)
     _disruption_failure_policy(workloads, S, GaugeRegistry)
     return {"launches": card["launches"], "profile": card["profile"],
@@ -2579,7 +2693,8 @@ def _runtime_production(torch, TF, workloads):
             runtime.manager.reconcile_all()
             first_ms = (time.perf_counter() - t0) * 1e3
             first_launches = dict(TF.LAUNCHES)
-            need(first_launches == {"fused_assign": 1, "shelf_bfd": 1},
+            need(first_launches == {"fused_assign": 1, "shelf_bfd": 1,
+                                    "demand_reduce": 0},
                  f"the first tick launched {first_launches}")
             pending = [runtime.store.get("MetricsProducer", "default",
                                          f"mp{g}")
@@ -2798,9 +2913,12 @@ class _Child:
                 self.proc.kill()
                 self.proc.wait()
             with open(self.log_path) as log:
-                print(log.read(), end="", flush=True)
+                text = log.read()
+            print(text, end="", flush=True)
+        # a child's traceback ends with its exception's line
+        last = [x for x in text.splitlines() if x.strip()][-1:]
         need(rc == 0, f"{self.what} failed in its child process (exit "
-             f"{rc}; its output above)")
+             f"{rc}; its output above, ending {last})")
 
     def close(self) -> None:
         import shutil
@@ -3292,7 +3410,8 @@ def _simulate_cli(torch, TF, workloads, root):
     for kind in ("plain", "what-if", "consolidate"):
         need(reports[(kind, "card")] == reports[(kind, "cpu")],
              f"--simulate {kind}: the card's report differs from the CPU's")
-    need(launches == {"fused_assign": with_pods, "shelf_bfd": with_pods},
+    need(launches == {"fused_assign": with_pods, "shelf_bfd": with_pods,
+                      "demand_reduce": 0},
          f"consolidation launched {launches} for {with_pods} candidates "
          f"with pods")
     report(f"--simulate --consolidate on the card (main() in process, "
@@ -3382,7 +3501,8 @@ def _simulate_in_process(torch, TF, workloads, root, plain, delta):
             launches = dict(TF.LAUNCHES)
         finally:
             SIM.encode_snapshot = real_encode
-        need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+        need(launches == {"fused_assign": 1, "shelf_bfd": 1,
+                          "demand_reduce": 0},
              f"the dry run launched {launches}")
         need(got == plain, "the in-process dry run != the binary's report")
         split = {
@@ -3398,7 +3518,8 @@ def _simulate_in_process(torch, TF, workloads, root, plain, delta):
             runtime.store, workloads.what_if_specs(), solver=svc.solve,
             template_resolver=resolver, cost_model=runtime.cost_model)
         what_if_launches = dict(TF.LAUNCHES)
-        need(what_if_launches == {"fused_assign": 2, "shelf_bfd": 2},
+        need(what_if_launches == {"fused_assign": 2, "shelf_bfd": 2,
+                                  "demand_reduce": 0},
              f"the what-if delta launched {what_if_launches}")
         need(got_delta == delta, "the in-process delta != the binary's")
         inputs = captured[0]
@@ -3849,7 +3970,7 @@ def _kube_dry_run(torch, TF, url, pins):
     launches = dict(TF.LAUNCHES)
     need(rc == 0, f"--simulate --apiserver exited {rc}")
     got = json.loads(out.getvalue())
-    need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+    need(launches == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0},
          f"--simulate --apiserver launched {launches}")
     totals = _dry_run_totals(got)
     want = {k: pins[k] for k in totals}
@@ -3908,7 +4029,8 @@ def _kube_production(torch, TF, workloads, dry_groups):
         first_parts, first_requests = timers.take()
         first_slices = slices.take()
         first_launches = dict(TF.LAUNCHES)
-        need(first_launches == {"fused_assign": 1, "shelf_bfd": 1},
+        need(first_launches == {"fused_assign": 1, "shelf_bfd": 1,
+                                "demand_reduce": 0},
              f"the first tick launched {first_launches}")
         producers = [stores[0].get("MetricsProducer", "default", f"mp{g}")
                      for g in range(KUBE_SHAPE["types"])]
@@ -3981,7 +4103,8 @@ def _kube_production(torch, TF, workloads, dry_groups):
             for part in slices.take():
                 for k, v in part.items():
                     parts[k] = parts.get(k, 0.0) + v
-            need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+            need(launches == {"fused_assign": 1, "shelf_bfd": 1,
+                              "demand_reduce": 0},
                  f"churned tick {t} launched {launches}")
             rv = workloads.apply_churn(servers[1], pairs)
             _kube_settle(workloads, servers[1], stores[1], rv)
@@ -4274,7 +4397,7 @@ DEPLOY_SHAPE = dict(pods=100_000, types=300, seed=0)
 DEPLOY_TPU_PODS = 24  # pending TPU pods per pool, times (pool index + 1)
 DEPLOY_TICKS = 3  # churned ticks after the first
 DEPLOY_TWIN_TICKS = 3  # the CPU twin's churned ticks
-DEPLOY_LATE_S = 1100.0  # smoke seconds past which the twin is cut to 1
+DEPLOY_LATE_S = 800.0  # smoke seconds past which the twin is cut to 1
 DEPLOY_SIDECAR = None  # the sidecar's device: the card
 DEPLOY_CONTROLLER = "cuda"  # the controller's --device
 # (b) the processes' world, and the sidecar process's extra flags
@@ -4437,7 +4560,8 @@ def _deploy_in_process(torch, TF, TB, workloads):
                 t2 = time.perf_counter()
                 launches = dict(TF.LAUNCHES)
                 rpcs = server.reset_rpcs()
-                need(launches == {"fused_assign": 1, "shelf_bfd": 1},
+                need(launches == {"fused_assign": 1, "shelf_bfd": 1,
+                                  "demand_reduce": 0},
                      f"tick {tick}: the kernels launched {launches}")
                 need(svc.stats.requests - requests == launches[
                     "fused_assign"], f"tick {tick}: the sidecar's service "
@@ -4480,7 +4604,7 @@ def _deploy_in_process(torch, TF, TB, workloads):
                f"operands {kernel} ({kernel_by}); Solve request "
                f"{request_bytes} bytes")
         return {"launches_per_tick": rows[-1][5], "ms": kernel,
-                "ms_by": kernel_by,
+                "ms_by": kernel_by, "solve_inputs": last["inputs"],
                 "request_bytes": request_bytes, "tick_p50_ms": p50,
                 "tick_p95_ms": p95, "decides": [r[4]["Decide"][0]
                                                 for r in rows]}
@@ -4900,7 +5024,7 @@ def _mt_solve_all(torch, TB, TF, workloads):
             round_ms.append((time.perf_counter() - t0) * 1e3)
             launches.append(dict(TF.LAUNCHES))
             need(launches[-1] == {"fused_assign": MT_TENANTS,
-                                  "shelf_bfd": MT_TENANTS},
+                                  "shelf_bfd": MT_TENANTS, "demand_reduce": 0},
                  f"(b) launches {launches[-1]} in a round of {MT_TENANTS} "
                  f"tenants")
         need(sched.stats.mirror_served == 0 and not sched.errors,
@@ -5203,7 +5327,7 @@ REPLICA_SKEW_S = 1.0  # LeaderElector's default skew tolerance
 REPLICA_TENANTS = 16
 REPLICA_BEFORE = 4  # ticks before the kill
 REPLICA_AFTER = 4  # ticks after it; 2 past REPLICA_LATE_S of smoke
-REPLICA_LATE_S = 1100.0
+REPLICA_LATE_S = 800.0
 REPLICA_DEVICE = None  # the replicas' Options.device: the card
 # (b) bench-failover's width (Makefile) and the reference's writes digest
 # there (BASELINE.json's "256 tenants x 4 replicas failover (cpu)")
@@ -5225,13 +5349,43 @@ REPLICA_BINARY_TICK_S = 0.5  # the binaries' --tick
 REPLICA_BINARY_ARGS = ()  # extra flags (none: they run on the card)
 
 
-def _replica_fleet(workloads, device, root, after, each=None, inputs=None):
+class _CountCompaction:
+    """While entered, every recovery journal built compacts on its record
+    count alone: the auto-compaction's 30 s floor reads the host's
+    monotonic clock, so phase 18's card fleet and its slower CPU twin
+    would compact on different ticks and expose different
+    karpenter_recovery_journal_bytes."""
+
+    def __enter__(self):
+        from karpenter_tpu_torch.recovery import journal as RJ
+
+        self.cls, self.real = RJ.StateJournal, RJ.StateJournal.__init__
+        real = self.real
+
+        def init(journal, *args, **kwargs):
+            real(journal, *args, **kwargs)
+            journal.compact_min_interval_s = 0.0
+
+        self.cls.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__ = self.real
+
+
+def _replica_fleet(workloads, device, root, after, each=None):
     """(a)'s script on `device`: phase 13 (c)'s world in one Store, three
     replicas with REPLICA_OPTIONS and a REPLICA_TENANTS-tenant config over
     it; REPLICA_BEFORE ticks of RUNTIME_TICK_S, the biggest owner
     killed on the next, `after` more. Returns (victim, per tick (died,
     fleet snapshot), the victim tenants' stale-write probe, the quantity
     strings of the world's pods and nodes, tick ms)."""
+    with _CountCompaction():
+        return _replica_fleet_run(workloads, device, root, after, each)
+
+
+def _replica_fleet_run(workloads, device, root, after, each):
+    """_replica_fleet's body."""
     from karpenter_tpu_torch.api.serialization import to_dict
     from karpenter_tpu_torch.cloudprovider.fake import FakeFactory
     from karpenter_tpu_torch.recovery.fence import FenceRejectedError
@@ -5311,6 +5465,22 @@ def _replica_check(victim, trail, probe, after):
     need(probe and set(probe.values()) == {"rejected"},
          f"(a) the deposed replica's late writes: {probe}")
     return tenants
+
+
+def _first_difference(a, b, path: str = "") -> str:
+    """The path of the first leaf where two nested dicts / sequences of
+    plain values differ, with both values (cut to 300 characters)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for key in sorted(set(a) | set(b), key=str):
+            if a.get(key) != b.get(key):
+                return _first_difference(a.get(key), b.get(key),
+                                         f"{path}/{key}")
+    if (isinstance(a, (list, tuple)) and isinstance(b, (list, tuple))
+            and len(a) == len(b)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return _first_difference(x, y, f"{path}[{i}]")
+    return f"{path or '/'}: card {str(a)[:300]!r}, CPU {str(b)[:300]!r}"
 
 
 def _replica_cpu_child(workloads, out_dir: str) -> None:
@@ -5573,7 +5743,8 @@ def phase_replication(torch, TF, TB, workloads, started):
              f"(a) the CPU twin killed {cpu_victim}: {cpu_probe}")
         need(len(cpu) == len(card), f"(a) {len(cpu)} CPU ticks")
         for tick, (got, want) in enumerate(zip(card, cpu)):
-            need(got == want, f"(a) tick {tick}: the card != the CPU twin")
+            need(got == want, f"(a) tick {tick}: the card != the CPU twin "
+                 f"at {_first_difference(got, want)}")
         report(f"phase 18 (a): card == CPU twin on every one of {len(card)} "
                f"ticks (ownership, handoffs, fence generations, series, "
                f"objects, cloud replicas, exposition)")
@@ -5585,6 +5756,367 @@ def phase_replication(torch, TF, TB, workloads, started):
     report(f"phase 18: {time.perf_counter() - t0} s")
     return {"launches_per_replica_tick": per_tick, "ms": ms, "ms_by": ms_by,
             "parse_rates": rates}
+
+
+# -- phase 19: multi-device (parallel/mesh.py, parallel/multihost.py) ---------
+
+# the shards: virtual copies of the card (utils/device.force_virtual_devices)
+SHARD_DEVICE = "cuda"
+SHARD_DEVICES = 8
+SHARD_MESHES = (("4x2", dict(n_devices=8)),
+                ("2x2x2", dict(n_devices=8, slices=2)),
+                ("8x1", dict(shape=(8, 1))))
+SHARD_ITERS = 10  # sharded and single-device solves, timed in turns
+# (b)'s constrained solve: the plain route on every shard (the cuda rung
+# reroutes constraint operands), claims, pack classes and a spread slot
+SHARD_CONSTRAINED = dict(pods=20_000, types=50, taints=8, labels=8, seed=3)
+# (c): each rank's card-route solve across the two processes
+SHARD_RANK_SHAPE = dict(pods=20_000, types=300, taints=64, labels=64, seed=0)
+
+# (c)'s two ranks: python -c _SHARD_RANK <rank> <port> <device>
+_SHARD_RANK = r"""
+import json, sys, time
+import torch
+rank, port, device = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+from karpenter_tpu_torch import workloads
+from karpenter_tpu_torch.ops import binpack as TB
+from karpenter_tpu_torch.ops import fused_assign as TF
+from karpenter_tpu_torch.parallel import mesh as PM, multihost
+from karpenter_tpu_torch.utils.device import force_virtual_devices
+force_virtual_devices(4, device)  # 4 shards per rank on one card
+t0 = time.perf_counter()
+assert multihost.initialize_multihost(f"127.0.0.1:{port}", 2, rank,
+                                      kind=torch.device(device).type)
+assert len(multihost.global_devices()) == 8
+joined = time.perf_counter() - t0
+PM.dryrun_fleet_step(8)  # global 4x2 and 2x2x2 meshes, then a service
+dry = time.perf_counter() - t0 - joined
+inputs = TB.inputs_from_numpy(workloads.build_inputs(**SHAPE), device)
+mesh = PM.build_mesh(n_devices=8, slices=2)
+assert mesh.multi_rank and len(mesh.local_positions()) == 4
+card = torch.device(device).type == "cuda"
+TF.reset_launch_counts()
+out = PM.sharded_binpack(mesh, inputs, 32, backend="cuda" if card else "auto")
+launches = dict(TF.LAUNCHES)
+single = TB.solve(inputs, buckets=32, backend="cuda" if card else "torch",
+                  device=device)
+for name in ("assigned", "assigned_count", "nodes_needed", "lp_bound",
+             "unschedulable"):
+    a, b = getattr(out, name).cpu().numpy(), getattr(single, name).cpu().numpy()
+    assert a.tobytes() == b.tobytes(), name
+if card:
+    want = PM.launch_plan(PM.shard_binpack_inputs(mesh, inputs))
+    assert launches == want and want["fused_assign"] == 4, (launches, want)
+print("RANK-OK " + json.dumps({"rank": rank, "join_s": joined,
+      "dryrun_s": dry, "launches": launches,
+      "nodes": int(out.nodes_needed.sum())}), flush=True)
+"""
+
+
+def _host_outputs(out) -> dict:
+    """{field: host array} of an outputs dataclass (tensors or arrays)."""
+    import dataclasses
+
+    import torch
+
+    return {
+        f.name: (getattr(out, f.name).cpu().numpy()
+                 if isinstance(getattr(out, f.name), torch.Tensor)
+                 else np.asarray(getattr(out, f.name)))
+        for f in dataclasses.fields(out)
+    }
+
+
+def _shard_profile_ms(torch, TF, MESH, mesh, inputs):
+    """({wrapper: device ms per launch at the slab shape}, how): the
+    profiler's rows over 5 sharded solves; where it lost a kernel's rows
+    (late in a long process), each wrapper's time by CUDA events around
+    50 calls on the first slab's operands."""
+    solve = lambda: MESH.sharded_binpack(  # noqa: E731
+        mesh, inputs, BUCKETS, backend="cuda")
+    names = {"fused_assign": ("assign_kernel",),
+             "demand_reduce": ("demand_reduce_kernel",),
+             "shelf_bfd": KERNEL_NAMES["shelf_bfd"]}
+    ms = {}
+    try:
+        prof, _ = profile_window(torch, solve, 5)
+        rows = device_rows(torch, prof)
+    except RuntimeError:
+        rows = []
+    for name, keys in names.items():
+        hits = [(us, c) for us, c, key in rows if any(k in key for k in keys)]
+        if hits:
+            ms[name] = sum(us for us, _ in hits) / sum(c for _, c in hits) / 1e3
+    if len(ms) == len(names):
+        return ms, "profiler, 5 sharded solves"
+    sh = MESH.shard_binpack_inputs(mesh, inputs)
+    start, stop = sh.bounds("pod_requests")[0]
+    words = TF._packed(sh.whole)
+    slab = sh.shards[0]
+    slab_words = (words[0][start:stop], words[1][start:stop], words[2],
+                  words[3])
+    _, hist, partial, unsched = TF.fused_assign_scan(slab, BUCKETS,
+                                                     slab_words)
+    t1 = -(-hist.shape[0] // mesh.size)
+    ms = {
+        "fused_assign": time_ms(lambda: TF.fused_assign_scan(
+            slab, BUCKETS, slab_words), 50),
+        "demand_reduce": time_ms(lambda: TF.demand_reduce(partial, unsched),
+                                 50),
+        "shelf_bfd": time_ms(lambda: TF.shelf_bfd(hist[:t1].contiguous(),
+                                                  BUCKETS), 50),
+    }
+    return ms, "CUDA events around 50 wrapper calls (the profiler lost rows)"
+
+
+def _shard_direct(torch, TF, TB, MESH, inputs):
+    """(a) sharded_binpack on the three meshes == solve(backend="cuda")
+    bitwise, with the stated launches; p50/p95 in turns; ms per launch
+    at the slab shape; the card's dry run."""
+    single = TB.solve(inputs, buckets=BUCKETS, backend="cuda")
+    want = _host_outputs(single)
+    launches = {}
+    for label, kwargs in SHARD_MESHES:
+        mesh = MESH.build_mesh(**kwargs)
+        plan = MESH.launch_plan(MESH.shard_binpack_inputs(mesh, inputs))
+        TF.reset_launch_counts()
+        out = MESH.sharded_binpack(mesh, inputs, BUCKETS, backend="cuda")
+        torch.cuda.synchronize()
+        launches[label] = dict(TF.LAUNCHES)
+        need(launches[label] == plan,
+             f"(a) {label}: launched {launches[label]}, stated {plan}")
+        need(plan == {"fused_assign": SHARD_DEVICES, "demand_reduce": 1,
+                      "shelf_bfd": SHARD_DEVICES},
+             f"(a) {label}: an empty slab at the main path: {plan}")
+        n = same_bits(_host_outputs(out), want,
+                      f"(a) {label} sharded vs solve(backend='cuda')")
+        need(int(out.nodes_needed.sum()) == MAIN_NODES,
+             f"(a) {label}: nodes {int(out.nodes_needed.sum())}")
+    mesh = MESH.build_mesh(n_devices=SHARD_DEVICES)
+    sharded = lambda: MESH.sharded_binpack(  # noqa: E731
+        mesh, inputs, BUCKETS, backend="cuda")
+    single_fn = lambda: TB.solve(  # noqa: E731
+        inputs, buckets=BUCKETS, backend="cuda")
+    times = {"sharded": [], "single": []}
+    for i in range(SHARD_ITERS):
+        order = (("sharded", sharded), ("single", single_fn))
+        for name, fn in (order if i % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    pct = {name: (float(np.percentile(t, 50)), float(np.percentile(t, 95)))
+           for name, t in times.items()}
+    ms, ms_by = _shard_profile_ms(torch, TF, MESH, mesh, inputs)
+    t0 = time.perf_counter()
+    MESH.dryrun_fleet_step(SHARD_DEVICES)
+    dry_s = time.perf_counter() - t0
+    report(f"phase 19 (a): sharded_binpack on {[l for l, _ in SHARD_MESHES]} "
+           f"x {SHARD_DEVICES} shards of {SHARD_DEVICE} == solve(backend="
+           f"'cuda') bitwise on {n} leaves (nodes {MAIN_NODES}); launches "
+           f"per sharded solve {launches['4x2']}; p50/p95 ms over "
+           f"{SHARD_ITERS} in turns: sharded {pct['sharded']}, single "
+           f"{pct['single']} (host clock); device ms per launch at the slab "
+           f"shape ({ms_by}): {ms}; dryrun_fleet_step({SHARD_DEVICES}) on "
+           f"the card {dry_s} s")
+    return {"launches": launches, "ms": ms, "ms_by": ms_by, "p50_p95": pct,
+            "dryrun_s": dry_s}
+
+
+def _shard_constrained(workloads):
+    """(b)'s constrained operands: SHARD_CONSTRAINED's draw with claims,
+    reservations, pack classes and a spread slot over per-domain caps."""
+    rng = np.random.default_rng(SHARD_CONSTRAINED["seed"])
+    fields = workloads.build_inputs(**SHARD_CONSTRAINED)
+    p, t = SHARD_CONSTRAINED["pods"], SHARD_CONSTRAINED["types"]
+    pack = np.zeros((p, 3), bool)
+    pack[np.arange(p), rng.integers(0, 3, p)] = True
+    fields.update(
+        pod_weight=rng.integers(1, 5, p).astype(np.int32),
+        pod_claim=rng.integers(0, 2, p, dtype=np.int32),
+        group_reservation=rng.integers(0, 2, t, dtype=np.int32),
+        pod_pack_class=pack,
+        pod_spread_slot=rng.integers(0, 3, p, dtype=np.int32),
+        group_domain=rng.integers(0, 4, t, dtype=np.int32),
+        spread_cap=rng.integers(500, 4000, (2, 4), dtype=np.int32),
+    )
+    return fields
+
+
+def _shard_service(torch, TF, TB, MESH, workloads, host_inputs, batch):
+    """(b) SolverService() on the card over the virtual shards: the main
+    path rides the shard route at the default threshold; at threshold 1
+    decide, forecast, preempt, a constrained solve and a consolidation
+    batch equal the single-device answers bitwise."""
+    from karpenter_tpu_torch.metrics.registry import GaugeRegistry
+    from karpenter_tpu_torch.solver import service as S
+
+    svc = S.SolverService(registry=GaugeRegistry())
+    svc1 = S.SolverService(registry=GaugeRegistry(), shard_threshold=1)
+    try:
+        single = _host_outputs(TB.solve(host_inputs, buckets=BUCKETS,
+                                        backend="cuda"))
+        mesh = MESH.build_mesh(n_devices=SHARD_DEVICES)
+        plan = MESH.launch_plan(MESH.shard_binpack_inputs(mesh, host_inputs))
+        TF.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = svc.solve(host_inputs)
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(TF.LAUNCHES)
+        st = svc.stats
+        need((st.shard_requests, st.shard_dispatches, st.shard_fallbacks,
+              st.fallbacks) == (1, 1, 0, 0),
+             f"(b) the main path through SolverService(): {st}")
+        need(launches == plan, f"(b) launched {launches}, stated {plan}")
+        svc.publish_gauges()
+        devices = svc._g_shard.get("-", "-")
+        need(devices == SHARD_DEVICES, f"(b) the shard gauge reads {devices}")
+        same_bits(_host_outputs(got), single, "(b) service main path vs "
+                  "single-device")
+        checks = {}
+        fleet = workloads.build_decision_inputs(0, FLEET_N, FLEET_M)
+        checks["decide"] = (svc1.decide(fleet), svc.decide(fleet))
+        forecast = workloads.build_fused_tick_inputs(0, **TICK_SHAPE)[
+            "forecast"]
+        checks["forecast"] = (svc1.forecast(forecast), svc.forecast(forecast))
+        evict = workloads.build_preempt_inputs(**PREEMPT_SEAM)
+        checks["preempt"] = (svc1.preempt(evict), svc.preempt(evict))
+        constrained = TB.BinPackInputs(**_shard_constrained(workloads))
+        checks["constrained"] = (svc1.solve(constrained),
+                                 svc.solve(constrained))
+        TF.reset_launch_counts()
+        consolidated = svc1.consolidate(batch)
+        batch_launches = dict(TF.LAUNCHES)
+        for i, (a, b) in enumerate(zip(consolidated, svc.consolidate(batch))):
+            checks[f"consolidate[{i}]"] = (a, b)
+        for what, (a, b) in checks.items():
+            same_bits(_host_outputs(a), _host_outputs(b),
+                      f"(b) {what}: threshold 1 vs single-device")
+        s1 = svc1.stats
+        want = 4 + len(batch)
+        need((s1.shard_dispatches, s1.shard_fallbacks, s1.fallbacks,
+              st.fallbacks, st.shard_dispatches) == (want, 0, 0, 0, 1),
+             f"(b) shard_dispatches {s1.shard_dispatches} (want {want}), "
+             f"fallbacks {s1.shard_fallbacks} / {s1.fallbacks} / "
+             f"{st.fallbacks}, single-device service {st.shard_dispatches}")
+        need(batch_launches["demand_reduce"] == len(batch),
+             f"(b) the batch launched {batch_launches}")
+        report(f"phase 19 (b): SolverService() over {SHARD_DEVICES} virtual "
+               f"shards: the main path at the default threshold took the "
+               f"shard route (requests 1, dispatches 1, shard_fallbacks 0, "
+               f"fallback_total 0, gauge {devices}), {solve_ms} ms, launches "
+               f"{launches}, == single-device bitwise; at threshold 1 "
+               f"{sorted(k for k in checks if '[' not in k)} and a "
+               f"{len(batch)}-candidate consolidation batch (launches "
+               f"{batch_launches}) == the single-device service bitwise")
+        return {"launches": launches, "solve_ms": solve_ms,
+                "batch_launches": batch_launches}
+    finally:
+        svc.close()
+        svc1.close()
+
+
+def _multidevice_child(workloads, out_dir: str) -> None:
+    """(c) in a child: two ranks of one card joined over gloo, and beside
+    them two `--multihost` sidecars joined into a fleet of their own."""
+    import subprocess
+
+    from karpenter_tpu_torch.ops import binpack as TB
+    from karpenter_tpu_torch.sidecar.client import SolverClient
+
+    t0 = time.perf_counter()
+    port, coord = _free_port(), _free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = _SHARD_RANK.replace("**SHAPE", f"**{SHARD_RANK_SHAPE!r}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, str(rank), str(port), SHARD_DEVICE],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True,
+    ) for rank in (0, 1)]
+    args = ("--multihost",) + (() if SHARD_DEVICE == "cuda"
+                               else ("--device", "cpu"))
+    sidecars = [_Sidecar(args, env=dict(
+        os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(coord),
+        WORLD_SIZE="2", RANK=str(rank))) for rank in (0, 1)]
+    outs = []
+    try:
+        ports = [sidecar.wait_serving() for sidecar in sidecars]
+        with np.load(os.environ["KARPENTER_SMOKE_OPERANDS"]) as data:
+            inputs = TB.BinPackInputs(**{k: data[k] for k in data.files})
+        with SolverClient(f"127.0.0.1:{ports[0]}",
+                          timeout_seconds=120.0) as client:
+            ok, health = client.health()
+            need(ok and health["device_count"] == 2
+                 and health["backend"] == SHARD_DEVICE,
+                 f"(c) the coordinator's Health: {health}")
+            remote = client.solve(inputs, buckets=BUCKETS)
+        local = TB.solve(inputs, buckets=BUCKETS,
+                         backend="cuda" if SHARD_DEVICE == "cuda" else "torch",
+                         device=SHARD_DEVICE)
+        n = same_bits(_host_outputs(remote), _host_outputs(local),
+                      "(c) a --multihost sidecar's Solve vs in-process")
+        t1 = time.perf_counter()
+        for proc in procs:
+            outs.append(proc.communicate(timeout=300)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        for sidecar in sidecars:
+            sidecar.stop()
+    for rank, (proc, out) in enumerate(zip(procs, outs)):
+        need(proc.returncode == 0 and "RANK-OK" in out,
+             f"(c) rank {rank} failed:\n{out[-3000:]}")
+        print(f"(c) rank {rank}: {out.strip().splitlines()[-1]}")
+    report(f"phase 19 (c), beside (a) and (b): two ranks on one card joined "
+           f"over gloo, each dryrun_fleet_step(8) on its global meshes and "
+           f"a card-route solve at {SHARD_RANK_SHAPE} on a 2x2x2 mesh == "
+           f"single-process bitwise; beside them two --multihost sidecars: "
+           f"Health device_count 2, backend {SHARD_DEVICE}, a Solve RPC at "
+           f"phase 16's operands ({inputs.pod_requests.shape[0]} rows x "
+           f"{inputs.group_allocatable.shape[0]} groups) == in-process on "
+           f"{n} leaves ({t1 - t0} s); (c) {time.perf_counter() - t0} s")
+
+
+def phase_multidevice(torch, TF, TB, workloads, inputs, host_inputs,
+                      deployment, disruption):
+    """Phase 19: the shard route on the card (module docstring)."""
+    import dataclasses
+    import tempfile
+
+    from karpenter_tpu_torch.parallel import mesh as MESH
+    from karpenter_tpu_torch.utils import device as UD
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="karpenter-multidevice-")
+    operands = os.path.join(root, "solve_operands.npz")
+    solve_inputs = deployment["solve_inputs"]
+    np.savez(operands, **{
+        f.name: np.asarray(getattr(solve_inputs, f.name))
+        for f in dataclasses.fields(solve_inputs)
+        if getattr(solve_inputs, f.name) is not None
+    })
+    child = _Child("_multidevice_child",
+                   env={"KARPENTER_SMOKE_OPERANDS": operands})
+    try:
+        UD.force_virtual_devices(SHARD_DEVICES, SHARD_DEVICE)
+        try:
+            direct = _shard_direct(torch, TF, TB, MESH, inputs)
+            service = _shard_service(torch, TF, TB, MESH, workloads,
+                                     host_inputs,
+                                     disruption["profile"]["batch"])
+        finally:
+            UD.reset_virtual_devices()
+        child.join(timeout=600)
+    finally:
+        child.close()
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    report(f"phase 19: {seconds} s")
+    return {"direct": direct, "service": service, "seconds": seconds}
 
 
 def profile_solves(torch, TB, inputs, n=ITERS):
@@ -5698,7 +6230,7 @@ def device_ms(profile, wrapper):
 
 def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
                    service, disruption, runtime, simulate, kube, deployment,
-                   tenancy, replication):
+                   tenancy, replication, multidevice):
     """Per-kernel JSON records at the main path's shapes. `ms` is device
     time per launch from the profiler's rows of the kernel's own names
     (the fused row sums its two kernels); `call_ms` is the wrapper's time
@@ -5751,7 +6283,14 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
     `replication_launches_per_replica_tick` is the wrapper's count over
     each live replica's tick of phase 18 (a), in tick and replica order,
     `replication_ms` its device time per launch at the last tick's
-    operands (`replication_ms_by` as `sidecar_ms_by`)."""
+    operands (`replication_ms_by` as `sidecar_ms_by`).
+    `shard_launches_per_solve` is the wrapper's count over one sharded
+    solve of the main path in phase 19 (a), by mesh (8 virtual shards of
+    the card), and `shard_ms` its device time per launch at the slab
+    shape (`shard_ms_by` as `sidecar_ms_by`); the fused record also
+    carries the sharded solve's one demand reduction
+    (`shard_reduce_launches_per_solve`, `shard_reduce_ms`), a launch of
+    fused_assign.cu's second kernel through its own host entry."""
     assigned, hist, demand, _ = TF.fused_assign(inputs, BUCKETS)
     plain_demand = TF.fused_assign_reference(inputs, BUCKETS)[2]
     # each kernel's analytic work on this run's data (the scan visits a
@@ -5846,6 +6385,17 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
                 "launches_per_replica_tick"][name],
             "replication_ms": replication["ms"][name],
             "replication_ms_by": replication["ms_by"],
+            "shard_launches_per_solve": {
+                label: counts[name]
+                for label, counts in multidevice["direct"]["launches"].items()
+            },
+            "shard_ms": multidevice["direct"]["ms"][name],
+            "shard_ms_by": multidevice["direct"]["ms_by"],
+            **({"shard_reduce_launches_per_solve": {
+                label: counts["demand_reduce"]
+                for label, counts in multidevice["direct"]["launches"].items()
+            }, "shard_reduce_ms": multidevice["direct"]["ms"]["demand_reduce"]}
+               if name == "fused_assign" else {}),
             "max_abs_err": err,
             "ms": ms,
             "call_ms": call_ms,
@@ -5855,6 +6405,22 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
             "library_ms": None,
         })
     return records
+
+
+def _failed_at(exc) -> str:
+    """The innermost line of this script that a phase's exception passed
+    through, less the `need` and `_Child.join` helpers: the check that
+    failed."""
+    import traceback
+
+    here = os.path.abspath(__file__)
+    frames = [f for f in traceback.extract_tb(exc.__traceback__)
+              if os.path.abspath(f.filename) == here
+              and f.name not in ("need", "join")]
+    if not frames:
+        return "an unknown line"
+    f = frames[-1]
+    return f"chip_smoke.py:{f.lineno} in {f.name} ({(f.line or '').strip()})"
 
 
 def main() -> int:
@@ -5931,19 +6497,31 @@ def main() -> int:
             torch, TF, TB, workloads, started)),
         ("replicated control plane", lambda: phase_replication(
             torch, TF, TB, workloads, started)),
+        ("multi-device", lambda: phase_multidevice(
+            torch, TF, TB, workloads, inputs, host_inputs,
+            results["the shipped Deployment"], results["disruption"])),
     ]
     for name, run in phases:
+        t0 = time.perf_counter()
         try:
             results[name] = run()
-            print(f"PHASE OK: {name}")
+            print(f"PHASE OK: {name} ({time.perf_counter() - t0} s; "
+                  f"{time.perf_counter() - started} s of smoke)")
         except Exception as exc:  # noqa: BLE001 — report every phase, then fail
             import traceback
 
             traceback.print_exc()
-            print(f"PHASE FAILED: {name}: {exc!r}")
-            failed.append(name)
+            print(f"PHASE FAILED: {name} ({time.perf_counter() - t0} s): "
+                  f"{exc!r}")
+            failed.append((name, _failed_at(exc), exc))
     if failed:
-        print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
+        # the reasons again at the very end of stderr, where a reader of
+        # only its last lines finds them after later phases' logging
+        for name, where, exc in failed:
+            print(f"chip_smoke: phase {name!r} failed at {where}: "
+                  f"{repr(exc)[:2000]}", file=sys.stderr)
+        print(f"chip_smoke: failed phases {[n for n, _, _ in failed]}",
+              file=sys.stderr)
         return 1
     _, launches = results["main path"]
     profile = profile_solves(torch, TB, inputs)
@@ -5956,9 +6534,10 @@ def main() -> int:
                              results["real-cluster mode"],
                              results["the shipped Deployment"],
                              results["multi-tenant control plane"],
-                             results["replicated control plane"])
+                             results["replicated control plane"],
+                             results["multi-device"])
     report(f"chip_smoke wall time: {time.perf_counter() - started} s "
-           f"(kernel build and all eighteen phases)")
+           f"(kernel build and all nineteen phases)")
     print(f"card: {CARD['line']}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

@@ -64,8 +64,6 @@ NOT_PORTED_FLAGS = (
     ("--profiler-port", lambda a: bool(a.profiler_port),
      "the jax.profiler server of observability/profiler.py, "
      "which has no torch counterpart"),
-    ("--shard-mesh", lambda a: bool(a.shard_mesh),
-     "the sharded dispatch of parallel/mesh.py"),
 )
 
 
@@ -708,6 +706,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def _parse_mesh_shape(spec):
+    """'8x1' -> (8, 1): the --shard-mesh override of the service's shard
+    route, with the reference's errors."""
+    if not spec:
+        return None
+    try:
+        pods, groups = spec.lower().split("x")
+        shape = (int(pods), int(groups))
+    except ValueError:
+        raise SystemExit(
+            f"--shard-mesh {spec!r}: expected PODSxGROUPS, e.g. 8x1"
+        )
+    if shape[0] < 1 or shape[1] < 1:
+        raise SystemExit(f"--shard-mesh {spec!r}: extents must be >= 1")
+    return shape
+
+
 def _run_simulation(args, store) -> int:
     """Registry-driven simulation dispatch (docs/simulator.md): the
     SimLab scenario catalog (karpenter_tpu_torch/simlab) owns both the
@@ -1012,6 +1027,7 @@ def _build_runtime(args, store=None) -> KarpenterRuntime:
             solver_watchdog_timeout_s=args.solver_watchdog_timeout,
             solver_shard_threshold=args.shard_threshold,
             solver_shard_devices=args.shard_devices,
+            solver_shard_mesh=_parse_mesh_shape(args.shard_mesh),
             solver_resident=not args.no_resident,
             forecast_history=args.forecast_history,
             stale_metric_max_age_s=args.stale_metric_max_age,

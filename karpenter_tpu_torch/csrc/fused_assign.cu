@@ -44,7 +44,12 @@
 //   * demand takes no float atomics (lp_bound = ceil(demand/alloc - 1e-5)
 //     is pinned exactly): a second launch reduces each (t, r) over the
 //     blocks with one warp and a fixed shuffle tree, rounds once to f32,
-//     and also reduces the per-block unschedulable counts.
+//     and also reduces the per-block unschedulable counts;
+//   * the host entry comes in two halves, the scan (fused_assign_scan)
+//     and the reduction (fused_assign_reduce), and fused_assign_launch
+//     runs both. A sharded solve (parallel/mesh.py) scans each row slab,
+//     a whole number of blocks, into its views of one partial buffer and
+//     reduces once: the same partials in the same order as one launch.
 // Built without --use_fast_math (approximate division would move bucket
 // boundaries) and with --fmad=false.
 
@@ -395,11 +400,15 @@ const char* fused_assign_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launches the assignment kernel and the demand reduction on `stream`,
-// with the launch plan of ops/fused_assign.py::fused_assign_plan
-// (n_blocks, narrow, shared_bytes, key_bits). Zeroes hist itself. partial
-// holds n_blocks * T * R doubles, unsched_partial n_blocks ints. Returns the cudaError_t (0 on success).
-int fused_assign_launch(
+// The first half of fused_assign_launch: zeroes hist, then launches the
+// assignment kernel on `stream` with the launch plan of
+// ops/fused_assign.py::fused_assign_plan (n_blocks, narrow, shared_bytes,
+// key_bits). It writes assigned, hist, each block's demand slab of
+// partial (n_blocks * T * R doubles) and each block's unschedulable count
+// (unsched_partial, n_blocks ints). A sharded solve runs it once per row
+// slab, each slab a whole number of blocks, into views of one partial
+// buffer. Returns the cudaError_t (0 on success).
+int fused_assign_scan(
     const void* req, const void* valid, const void* intol_w,
     const void* required_w, const void* weight, const void* alloc,
     const void* taint_w, const void* nolabel_w, const void* forbidden,
@@ -407,7 +416,7 @@ int fused_assign_launch(
     int P, int T, int R, int KW, int LW, int B,
     int n_blocks, int narrow, int shared_bytes, int key_bits,
     void* assigned, void* hist, void* partial, void* unsched_partial,
-    void* demand, void* unsched, void* stream)
+    void* stream)
 {
   if (n_blocks != (P + kRowsPerBlock - 1) / kRowsPerBlock || key_bits < 1 ||
       key_bits > 32)
@@ -429,15 +438,48 @@ int fused_assign_launch(
               required_w, weight, alloc, taint_w, nolabel_w, forbidden,
               score, exclusive, P, T, R, KW, LW, B, key_bits, assigned,
               hist, partial, unsched_partial);
-    if (err != cudaSuccess) return (int)err;
   }
-  const int n = T * R;
+  return (int)err;
+}
+
+// The second half: reduces partial[n_blocks, n] over the blocks into
+// demand f32[n] (n = T * R; one warp per entry, a fixed shuffle tree, so
+// the order of the f64 sums depends on n_blocks alone) and the blocks'
+// unschedulable counts into unsched. Returns the cudaError_t.
+int fused_assign_reduce(
+    const void* partial, const void* unsched_partial, int n_blocks, int n,
+    void* demand, void* unsched, void* stream)
+{
+  if (n_blocks < 0 || n < 0) return (int)cudaErrorInvalidValue;
   const int warps = n + 1;  // one per (t, r), one for unschedulable
-  demand_reduce_kernel<<<(warps * 32 + 255) / 256, 256, 0, s>>>(
+  demand_reduce_kernel<<<(warps * 32 + 255) / 256, 256, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(partial),
       static_cast<const int32_t*>(unsched_partial), n_blocks, n,
       static_cast<float*>(demand), static_cast<int32_t*>(unsched));
   return (int)cudaGetLastError();
+}
+
+// The scan and the reduction on `stream`, one after the other (the
+// single-device solve). Returns the cudaError_t (0 on success).
+int fused_assign_launch(
+    const void* req, const void* valid, const void* intol_w,
+    const void* required_w, const void* weight, const void* alloc,
+    const void* taint_w, const void* nolabel_w, const void* forbidden,
+    const void* score, const void* exclusive,
+    int P, int T, int R, int KW, int LW, int B,
+    int n_blocks, int narrow, int shared_bytes, int key_bits,
+    void* assigned, void* hist, void* partial, void* unsched_partial,
+    void* demand, void* unsched, void* stream)
+{
+  const int err = fused_assign_scan(
+      req, valid, intol_w, required_w, weight, alloc, taint_w, nolabel_w,
+      forbidden, score, exclusive, P, T, R, KW, LW, B, n_blocks, narrow,
+      shared_bytes, key_bits, assigned, hist, partial, unsched_partial,
+      stream);
+  if (err != 0) return err;
+  return fused_assign_reduce(partial, unsched_partial, n_blocks, T * R,
+                             demand, unsched, stream);
 }
 
 }  // extern "C"

@@ -39,6 +39,10 @@ _SIGNATURES = {
         # 11 operands; P, T, R, KW, LW, B; the launch plan (n_blocks,
         # narrow, shared_bytes, key_bits); 6 outputs and scratch; the stream
         "fused_assign_launch": ([_P] * 11 + [_I] * 10 + [_P] * 7, _I),
+        # its two halves: the scan (4 outputs and the stream) and the
+        # reduction (partials, n_blocks, T * R, 2 outputs, the stream)
+        "fused_assign_scan": ([_P] * 11 + [_I] * 10 + [_P] * 5, _I),
+        "fused_assign_reduce": ([_P, _P, _I, _I, _P, _P, _P], _I),
         "fused_assign_error_string": ([_I], ctypes.c_char_p),
     },
     "shelf_bfd": {

@@ -40,8 +40,8 @@ surfaces, as in the reference:
 
 `/debug/solver` (observability/server.py) reports the solver posture in
 ONE JSON document: dispatch keys per family + hit/miss counters + the
-ledger tail, resident LRU contents, the shard section (one card: no
-mesh), backend FSM state, and queue/pipeline depths.
+ledger tail, resident LRU contents, the shard route and its mesh
+extents, backend FSM state, and queue/pipeline depths.
 
 Posture: DEFAULT OFF behind `--introspect`. Disabled, the hot path pays
 one attribute read per hook and nothing else.
@@ -510,16 +510,18 @@ class SolverIntrospection:
             "rebuilds": stats.resident_rebuilds,
             "drops": stats.resident_drops,
         }
-        # one card, no shard route (ROADMAP Queue 1, multi-device): the
-        # reference's section as its single-device service reports it
+        mesh = service._mesh
         doc["shard"] = {
-            "threshold": None,
-            "broken": False,
-            "devices": 0,
-            "extents": None,
-            "requests": 0,
-            "dispatches": 0,
-            "fallbacks": 0,
+            "threshold": service.shard_threshold,
+            "broken": service._shard_broken,
+            "devices": mesh.size if mesh is not None else 0,
+            "extents": (
+                tuple(int(x) for x in mesh.devices.shape)
+                if mesh is not None else None
+            ),
+            "requests": stats.shard_requests,
+            "dispatches": stats.shard_dispatches,
+            "fallbacks": stats.shard_fallbacks,
         }
         doc["backend"] = {
             "state": service.backend_health(),

@@ -173,15 +173,44 @@ def has_constraint_operands(inputs: BinPackInputs) -> bool:
     return any(getattr(inputs, f) is not None for f in _CONSTRAINT_FIELDS)
 
 
-def constraint_mask(claim, reservation, slot, domain, caps, weight, valid):
+def _slot_contrib(slot, weight, valid, n_slots):
+    """(one-hot bool[P, S] of each row's spread slot s >= 1, i32[P, S]
+    each row's weighted contribution to its slot's rank)."""
+    i32 = torch.int32
+    valid_i = valid.to(i32)
+    w_eff = valid_i if weight is None else weight * valid_i
+    onehot = slot[:, None] == torch.arange(
+        1, n_slots + 1, dtype=i32, device=slot.device
+    )[None, :]
+    return onehot, w_eff[:, None] * onehot.to(i32)
+
+
+def slot_totals(inputs: BinPackInputs) -> Optional[torch.Tensor]:
+    """i32[S]: each spread slot's weighted row count over these rows (the
+    rank the rows after them start from), None without spread operands.
+    A sharded solve sums it over the slabs before a slab, in slab order,
+    for that slab's rank_offset."""
+    slot, caps = inputs.pod_spread_slot, inputs.spread_cap
+    if slot is None or inputs.group_domain is None or caps is None:
+        return None
+    _, contrib = _slot_contrib(
+        slot, inputs.pod_weight, inputs.pod_valid, caps.shape[0]
+    )
+    return contrib.sum(dim=0, dtype=torch.int32)
+
+
+def constraint_mask(claim, reservation, slot, domain, caps, weight, valid,
+                    rank_offset=None):
     """Feasibility mask (broadcastable against [P, T]) for the
     reservation-claim and topology-spread operands, or None when neither
     is present. Reservation: claim[p] == reservation[t], a missing side
     reading as zeros. Spread: rows of slot s >= 1 take an exclusive
     weighted prefix-sum rank over their slot and target the first domain
     whose cumulative cap has room for it; a rank past the total cap is
-    infeasible everywhere. Integer arithmetic throughout (int32, as in the
-    reference)."""
+    infeasible everywhere. `rank_offset` (i32[S]) is each slot's rank
+    before the first of these rows: a sharded solve's row slab starts
+    where the slabs before it end. Integer arithmetic throughout (int32,
+    as in the reference)."""
     mask = None
     if claim is not None or reservation is not None:
         if claim is None:
@@ -194,13 +223,10 @@ def constraint_mask(claim, reservation, slot, domain, caps, weight, valid):
     if slot is not None and domain is not None and caps is not None:
         i32 = torch.int32
         n_slots = caps.shape[0]
-        valid_i = valid.to(i32)
-        w_eff = valid_i if weight is None else weight * valid_i
-        onehot = slot[:, None] == torch.arange(
-            1, n_slots + 1, dtype=i32, device=slot.device
-        )[None, :]
-        contrib = w_eff[:, None] * onehot.to(i32)
+        onehot, contrib = _slot_contrib(slot, weight, valid, n_slots)
         rank = torch.cumsum(contrib, dim=0, dtype=i32) - contrib
+        if rank_offset is not None:
+            rank = rank + rank_offset[None, :]
         rank_p = torch.where(onehot, rank, 0).sum(dim=1, dtype=i32)
         cumcap = torch.cumsum(caps, dim=1, dtype=i32)
         row_caps = cumcap[torch.clamp(slot - 1, 0, n_slots - 1).long()]
@@ -214,8 +240,9 @@ def constraint_mask(claim, reservation, slot, domain, caps, weight, valid):
     return mask
 
 
-def _feasibility(inputs: BinPackInputs) -> torch.Tensor:
-    """bool[P, T]: pod p can run on a node of group t."""
+def _feasibility(inputs: BinPackInputs, rank_offset=None) -> torch.Tensor:
+    """bool[P, T]: pod p can run on a node of group t (rank_offset as in
+    constraint_mask)."""
     req = inputs.pod_requests
     alloc = inputs.group_allocatable
     fits = torch.ones(
@@ -247,6 +274,7 @@ def _feasibility(inputs: BinPackInputs) -> torch.Tensor:
         inputs.spread_cap,
         inputs.pod_weight,
         inputs.pod_valid,
+        rank_offset,
     )
     if cmask is not None:
         fits = fits & cmask
@@ -335,17 +363,25 @@ def weighted_histogram(assigned, bucket, weight_row, n_groups, buckets):
     return hist.view(n_groups, buckets)
 
 
-def weighted_demand(assigned, weight_row, requests, n_groups):
-    """f32[T, R]: sum of weight_row * requests over rows assigned to t.
-    Accumulated in f64 (every product of an i32 weight below 2^24 and an
-    f32 request is exact there) and rounded once to f32, so the order of
-    summation is invisible in all but the rarest last bit; the reference
-    pins the same product at f32 HIGHEST precision."""
+def weighted_demand64(assigned, weight_row, requests, n_groups):
+    """f64[T, R]: sum of weight_row * requests over rows assigned to t,
+    unrounded (every product of an i32 weight below 2^24 and an f32
+    request is exact in f64). A sharded solve adds its slabs' sums in
+    slab order and rounds once."""
     groups = torch.arange(n_groups, dtype=torch.int32, device=assigned.device)
     member_w = (assigned[:, None] == groups[None, :]).to(torch.float64) * (
         weight_row.to(torch.float64)[:, None]
     )
-    return (member_w.T @ requests.to(torch.float64)).to(torch.float32)
+    return member_w.T @ requests.to(torch.float64)
+
+
+def weighted_demand(assigned, weight_row, requests, n_groups):
+    """f32[T, R]: weighted_demand64 rounded once to f32, so the order of
+    summation is invisible in all but the rarest last bit; the reference
+    pins the same product at f32 HIGHEST precision."""
+    return weighted_demand64(
+        assigned, weight_row, requests, n_groups
+    ).to(torch.float32)
 
 
 def lp_bound_of(demand: torch.Tensor, alloc: torch.Tensor) -> torch.Tensor:
@@ -369,12 +405,11 @@ def _row_weight(inputs: BinPackInputs, has: torch.Tensor) -> torch.Tensor:
     return one if w is None else one * w
 
 
-def binpack(
-    inputs: BinPackInputs, buckets: int = DEFAULT_BUCKETS
-) -> BinPackOutputs:
-    """The plain PyTorch program: all five outputs, on whatever device the
-    inputs live on."""
-    feasible = _feasibility(inputs)
+def assign_rows(inputs: BinPackInputs, buckets: int, rank_offset=None):
+    """The plain program's per-row stage: (assigned i32[P], bucket i32[P],
+    each assigned row's weight i32[P], 0 elsewhere). rank_offset as in
+    constraint_mask."""
+    feasible = _feasibility(inputs, rank_offset)
     share = _dominant_share(inputs)
     any_feasible = feasible.any(dim=1)
     steer = steer_matrix(inputs.pod_priority, inputs.group_tier)
@@ -383,38 +418,69 @@ def binpack(
     else:
         choice = steered_choice(feasible, inputs.pod_group_score, steer)
     assigned = torch.where(any_feasible, choice.to(torch.int32), -1)
-    n_groups = inputs.group_allocatable.shape[0]
     w_row = _row_weight(inputs, any_feasible)
     col = assigned.clamp_min(0).long()[:, None]
     bucket = quantize_share(share.gather(1, col)[:, 0], buckets)
     if inputs.pod_exclusive is not None:
         # hostname self-anti-affinity: the pod takes a whole node
         bucket = torch.where(inputs.pod_exclusive, buckets, bucket)
-    assigned_count = torch.zeros(n_groups, dtype=torch.int32, device=col.device)
-    assigned_count.scatter_add_(0, col[:, 0], w_row)
+    return assigned, bucket, w_row
 
-    pc = inputs.pod_pack_class
-    if pc is None:
-        hist = weighted_histogram(assigned, bucket, w_row, n_groups, buckets)
-        nodes_needed = _shelf_bfd(hist, buckets)
-    else:
-        # isolation classes never share a node: one shelf solve per class,
-        # rows with no class bit folding into the shared class 0
-        fold0 = pc[:, 0] | ~pc.any(dim=1)
-        nodes_needed = torch.zeros_like(assigned_count)
-        for c in range(pc.shape[1]):
-            cls = fold0 if c == 0 else pc[:, c]
-            hist_c = weighted_histogram(
-                assigned, bucket, w_row * cls.to(torch.int32), n_groups,
-                buckets,
-            )
-            nodes_needed = nodes_needed + _shelf_bfd(hist_c, buckets)
 
+def group_counts(assigned, w_row, n_groups) -> torch.Tensor:
+    """i32[T]: the weighted rows assigned to each group."""
+    counts = torch.zeros(n_groups, dtype=torch.int32, device=assigned.device)
+    counts.scatter_add_(0, assigned.clamp_min(0).long(), w_row)
+    return counts
+
+
+def class_histograms(assigned, bucket, w_row, pack_class, n_groups, buckets):
+    """i32[C, T, B]: the weighted histogram of each isolation class
+    (C = 1 without pack classes; rows with no class bit fold into the
+    shared class 0)."""
+    if pack_class is None:
+        return weighted_histogram(
+            assigned, bucket, w_row, n_groups, buckets
+        )[None]
+    fold0 = pack_class[:, 0] | ~pack_class.any(dim=1)
+    hists = [
+        weighted_histogram(
+            assigned, bucket,
+            w_row * (fold0 if c == 0 else pack_class[:, c]).to(torch.int32),
+            n_groups, buckets,
+        )
+        for c in range(pack_class.shape[1])
+    ]
+    if not hists:
+        return torch.zeros((0, n_groups, buckets), dtype=torch.int32,
+                           device=assigned.device)
+    return torch.stack(hists)
+
+
+def nodes_of(hists: torch.Tensor, buckets: int) -> torch.Tensor:
+    """i32[T]: the shelf node count of each class's histogram, summed
+    (isolation classes never share a node)."""
+    nodes = torch.zeros(hists.shape[1], dtype=torch.int32, device=hists.device)
+    for c in range(hists.shape[0]):
+        nodes = nodes + _shelf_bfd(hists[c], buckets)
+    return nodes
+
+
+def binpack(
+    inputs: BinPackInputs, buckets: int = DEFAULT_BUCKETS
+) -> BinPackOutputs:
+    """The plain PyTorch program: all five outputs, on whatever device the
+    inputs live on."""
+    assigned, bucket, w_row = assign_rows(inputs, buckets)
+    n_groups = inputs.group_allocatable.shape[0]
+    hists = class_histograms(
+        assigned, bucket, w_row, inputs.pod_pack_class, n_groups, buckets
+    )
     demand = weighted_demand(assigned, w_row, inputs.pod_requests, n_groups)
     return BinPackOutputs(
         assigned=assigned,
-        assigned_count=assigned_count,
-        nodes_needed=nodes_needed,
+        assigned_count=group_counts(assigned, w_row, n_groups),
+        nodes_needed=nodes_of(hists, buckets),
         lp_bound=lp_bound_of(demand, inputs.group_allocatable),
         unschedulable=unschedulable_of(
             assigned, inputs.pod_valid, inputs.pod_weight

@@ -12,9 +12,17 @@ runs the shelf best-fit-decreasing node count, one warp per group, and
 also returns each group's item count (csrc/shelf_bfd.cu). `binpack_fused`
 composes them with the lp_bound tail, the counterpart of binpack_pallas.
 
+The fused stage's host entry also comes in its two halves, for a sharded
+solve (parallel/mesh.py): `fused_assign_scan` runs the assignment kernel
+into a row slab's views of shared buffers (assigned, hist, the f64 demand
+partials per block and the unschedulable partials), and `demand_reduce`
+reduces every slab's partials, gathered in global block order, in one
+launch.
+
 Each wrapper launches its kernel for CUDA tensors, counts the launch in
 LAUNCHES, and raises on any failure; for CPU tensors, and only for them, it
 runs its plain PyTorch version (fused_assign_reference,
+fused_assign_scan_reference, demand_reduce_reference,
 shelf_bfd_reference), which is also what the kernels are held against on
 the card.
 """
@@ -43,8 +51,11 @@ from karpenter_tpu_torch.ops.binpack import (
     weighted_histogram,
 )
 
-# kernel launches by wrapper; only the wrappers below add to it
-LAUNCHES = {"fused_assign": 0, "shelf_bfd": 0}
+# kernel launches by wrapper; only the wrappers below add to it. A
+# single-device solve's fused launch (the scan and the reduction in one
+# host entry) counts under "fused_assign"; a sharded solve counts each row
+# slab's scan there and its one reduction under "demand_reduce"
+LAUNCHES = {"fused_assign": 0, "shelf_bfd": 0, "demand_reduce": 0}
 
 # the largest dynamic shared memory one block may take on Hopper
 _MAX_SHARED_BYTES = 232448
@@ -176,15 +187,17 @@ def fused_assign_plan(
 FusedOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def fused_assign_reference(inputs: BinPackInputs, buckets: int) -> FusedOutputs:
-    """Plain PyTorch version of the fused stage, on the same packed words
-    the kernel reads. Returns (assigned i32[P], hist i32[T, B],
-    demand f32[T, R], unschedulable i32 scalar)."""
+def _fused_rows(inputs: BinPackInputs, buckets: int, words=None):
+    """The per-row half of the fused stage's plain version, on the packed
+    words the kernel reads: (assigned i32[P], bucket i32[P], the row
+    weight of each assigned row i32[P])."""
     _check_operands(inputs)
     req = inputs.pod_requests
     alloc = inputs.group_allocatable
     n_pods, n_groups = req.shape[0], alloc.shape[0]
-    intol_w, required_w, taint_w, nolabel_w = _packed(inputs)
+    intol_w, required_w, taint_w, nolabel_w = (
+        _packed(inputs) if words is None else words
+    )
 
     fits = torch.ones((n_pods, n_groups), dtype=torch.bool, device=req.device)
     for r in range(req.shape[1]):
@@ -217,11 +230,64 @@ def fused_assign_reference(inputs: BinPackInputs, buckets: int) -> FusedOutputs:
     bucket = quantize_share(share, buckets)
     if inputs.pod_exclusive is not None:
         bucket = torch.where(inputs.pod_exclusive, buckets, bucket)
-    w_row = _row_weight(inputs, has)
+    return assigned, bucket, _row_weight(inputs, has)
+
+
+def fused_assign_reference(inputs: BinPackInputs, buckets: int) -> FusedOutputs:
+    """Plain PyTorch version of the fused stage, on the same packed words
+    the kernel reads. Returns (assigned i32[P], hist i32[T, B],
+    demand f32[T, R], unschedulable i32 scalar)."""
+    assigned, bucket, w_row = _fused_rows(inputs, buckets)
+    n_groups = inputs.group_allocatable.shape[0]
     hist = weighted_histogram(assigned, bucket, w_row, n_groups, buckets)
-    demand = weighted_demand(assigned, w_row, req, n_groups)
+    demand = weighted_demand(assigned, w_row, inputs.pod_requests, n_groups)
     unsched = unschedulable_of(assigned, inputs.pod_valid, inputs.pod_weight)
     return assigned, hist, demand, unsched
+
+
+ScanOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def fused_assign_scan_reference(
+    inputs: BinPackInputs, buckets: int, words=None
+) -> ScanOutputs:
+    """Plain PyTorch version of the scan half: (assigned i32[P], hist
+    i32[T, B], partial f64[n_blocks, T, R], unsched_partial
+    i32[n_blocks]), each block's demand and unschedulable sums over its
+    ROWS_PER_BLOCK rows (the f64 products are exact; a block's sum is
+    taken in row order)."""
+    assigned, bucket, w_row = _fused_rows(inputs, buckets, words)
+    req = inputs.pod_requests
+    n_pods, n_res = req.shape
+    n_groups = inputs.group_allocatable.shape[0]
+    n_blocks = -(-n_pods // ROWS_PER_BLOCK)
+    hist = weighted_histogram(assigned, bucket, w_row, n_groups, buckets)
+    block = torch.arange(n_pods, device=req.device) // ROWS_PER_BLOCK
+    has = assigned >= 0
+    slot = torch.where(has, block * n_groups + assigned.long(), 0)
+    partial = torch.zeros(
+        (n_blocks * n_groups, n_res), dtype=torch.float64, device=req.device
+    )
+    partial.index_add_(
+        0, slot, w_row.to(torch.float64)[:, None] * req.to(torch.float64)
+    )
+    unsched_row = ((assigned < 0) & inputs.pod_valid).to(torch.int32)
+    if inputs.pod_weight is not None:
+        unsched_row = unsched_row * inputs.pod_weight
+    unsched_partial = torch.zeros(n_blocks, dtype=torch.int32, device=req.device)
+    unsched_partial.index_add_(0, block, unsched_row)
+    return (assigned, hist, partial.view(n_blocks, n_groups, n_res),
+            unsched_partial)
+
+
+def demand_reduce_reference(
+    partial: torch.Tensor, unsched_partial: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the reduction half: (demand f32[T, R],
+    unschedulable i32 scalar) of partial f64[n_blocks, T, R] and
+    unsched_partial i32[n_blocks], summed in f64 and rounded once."""
+    return (partial.sum(dim=0).to(torch.float32),
+            unsched_partial.sum(dtype=torch.int32))
 
 
 def _ptr(t):
@@ -238,25 +304,27 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: want a contiguous tensor on {device}")
 
 
-def fused_assign(inputs: BinPackInputs, buckets: int) -> FusedOutputs:
-    """(assigned i32[P], hist i32[T, B], demand f32[T, R], unschedulable
-    i32 scalar). CUDA tensors launch csrc/fused_assign.cu; CPU tensors run
-    fused_assign_reference."""
+def _launch_operands(inputs: BinPackInputs, buckets: int, words=None):
+    """(plan, the 21 operand and shape arguments of a fused launch) for
+    CUDA inputs, after checking every operand's dtype, shape, device and
+    layout."""
     dev = inputs.pod_requests.device
-    if dev.type == "cpu":
-        return fused_assign_reference(inputs, buckets)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_assign: unsupported device {dev}")
     _check_operands(inputs)
     req, alloc = inputs.pod_requests, inputs.group_allocatable
     n_pods, n_res = req.shape
     n_groups = alloc.shape[0]
-    intol_w, required_w, taint_w, nolabel_w = _packed(inputs)
+    intol_w, required_w, taint_w, nolabel_w = (
+        _packed(inputs) if words is None else words
+    )
     kw, lw = intol_w.shape[1], required_w.shape[1]
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    f32, i32, b8, i64 = torch.float32, torch.int32, torch.bool, torch.int64
     _require(req, "pod_requests", f32, (n_pods, n_res), dev)
     _require(inputs.pod_valid, "pod_valid", b8, (n_pods,), dev)
     _require(alloc, "group_allocatable", f32, (n_groups, n_res), dev)
+    _require(intol_w, "intolerant words", i64, (n_pods, kw), dev)
+    _require(required_w, "required words", i64, (n_pods, lw), dev)
+    _require(taint_w, "taint words", i64, (n_groups, kw), dev)
+    _require(nolabel_w, "~label words", i64, (n_groups, lw), dev)
     for name, shape, dtype in (
         ("pod_weight", (n_pods,), i32),
         ("pod_group_forbidden", (n_pods, n_groups), b8),
@@ -267,6 +335,31 @@ def fused_assign(inputs: BinPackInputs, buckets: int) -> FusedOutputs:
             _require(getattr(inputs, name), name, dtype, shape, dev)
 
     plan = fused_assign_plan(n_pods, n_groups, n_res, kw, lw, buckets)
+    args = (
+        _ptr(req), _ptr(inputs.pod_valid), _ptr(intol_w), _ptr(required_w),
+        _ptr(inputs.pod_weight), _ptr(alloc), _ptr(taint_w),
+        _ptr(nolabel_w), _ptr(inputs.pod_group_forbidden),
+        _ptr(inputs.pod_group_score), _ptr(inputs.pod_exclusive),
+        n_pods, n_groups, n_res, kw, lw, buckets,
+        plan.n_blocks, int(plan.narrow), plan.shared_bytes, plan.key_bits,
+    )
+    return plan, args
+
+
+def fused_assign(inputs: BinPackInputs, buckets: int) -> FusedOutputs:
+    """(assigned i32[P], hist i32[T, B], demand f32[T, R], unschedulable
+    i32 scalar). CUDA tensors launch csrc/fused_assign.cu (the scan and
+    the reduction through one host entry, one count); CPU tensors run
+    fused_assign_reference."""
+    dev = inputs.pod_requests.device
+    if dev.type == "cpu":
+        return fused_assign_reference(inputs, buckets)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_assign: unsupported device {dev}")
+    plan, args = _launch_operands(inputs, buckets)
+    n_pods, n_res = inputs.pod_requests.shape
+    n_groups = inputs.group_allocatable.shape[0]
+    i32 = torch.int32
     lib = kernels.library("fused_assign")
     assigned = torch.empty(n_pods, dtype=i32, device=dev)
     hist = torch.empty((n_groups, buckets), dtype=i32, device=dev)
@@ -274,24 +367,106 @@ def fused_assign(inputs: BinPackInputs, buckets: int) -> FusedOutputs:
         max(1, plan.partial_bytes // 8), dtype=torch.float64, device=dev
     )
     unsched_partial = torch.empty(max(1, plan.n_blocks), dtype=i32, device=dev)
-    demand = torch.empty((n_groups, n_res), dtype=f32, device=dev)
+    demand = torch.empty((n_groups, n_res), dtype=torch.float32, device=dev)
     unsched = torch.empty((), dtype=i32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.fused_assign_launch(
-            _ptr(req), _ptr(inputs.pod_valid), _ptr(intol_w), _ptr(required_w),
-            _ptr(inputs.pod_weight), _ptr(alloc), _ptr(taint_w),
-            _ptr(nolabel_w), _ptr(inputs.pod_group_forbidden),
-            _ptr(inputs.pod_group_score), _ptr(inputs.pod_exclusive),
-            n_pods, n_groups, n_res, kw, lw, buckets,
-            plan.n_blocks, int(plan.narrow), plan.shared_bytes,
-            plan.key_bits,
-            _ptr(assigned), _ptr(hist), _ptr(partial), _ptr(unsched_partial),
-            _ptr(demand), _ptr(unsched), stream,
+            *args, _ptr(assigned), _ptr(hist), _ptr(partial),
+            _ptr(unsched_partial), _ptr(demand), _ptr(unsched), stream,
         )
     kernels.check("fused_assign", err, "fused_assign launch")
     LAUNCHES["fused_assign"] += 1
     return assigned, hist, demand, unsched
+
+
+def scan_buffers(n_pods: int, n_groups: int, n_res: int, buckets: int,
+                 device) -> ScanOutputs:
+    """Empty (assigned, hist, partial, unsched_partial) buffers for a scan
+    of n_pods rows, in the shapes fused_assign_scan writes."""
+    n_blocks = -(-n_pods // ROWS_PER_BLOCK)
+    return (
+        torch.empty(n_pods, dtype=torch.int32, device=device),
+        torch.empty((n_groups, buckets), dtype=torch.int32, device=device),
+        torch.empty((n_blocks, n_groups, n_res), dtype=torch.float64,
+                    device=device),
+        torch.empty(n_blocks, dtype=torch.int32, device=device),
+    )
+
+
+def fused_assign_scan(
+    inputs: BinPackInputs, buckets: int, words=None, out=None
+) -> ScanOutputs:
+    """The scan half: (assigned i32[P], hist i32[T, B], partial
+    f64[n_blocks, T, R], unsched_partial i32[n_blocks]), written into
+    `out` (buffers in those shapes, as scan_buffers makes them; views of
+    a sharded solve's global buffers) or into new ones. `words` are the
+    packed (intolerant, required, taint, ~label) words, packed here when
+    None. CUDA tensors launch csrc/fused_assign.cu's fused_assign_scan;
+    CPU tensors run fused_assign_scan_reference."""
+    dev = inputs.pod_requests.device
+    n_pods, n_res = inputs.pod_requests.shape
+    n_groups = inputs.group_allocatable.shape[0]
+    if out is None:
+        out = scan_buffers(n_pods, n_groups, n_res, buckets, dev)
+    n_blocks = -(-n_pods // ROWS_PER_BLOCK)
+    for buf, name, dtype, shape in zip(
+        out, ("assigned", "hist", "partial", "unsched_partial"),
+        (torch.int32, torch.int32, torch.float64, torch.int32),
+        ((n_pods,), (n_groups, buckets), (n_blocks, n_groups, n_res),
+         (n_blocks,)),
+    ):
+        _require(buf, name, dtype, shape, dev)
+    if dev.type == "cpu":
+        for buf, value in zip(
+            out, fused_assign_scan_reference(inputs, buckets, words)
+        ):
+            buf.copy_(value)
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"fused_assign_scan: unsupported device {dev}")
+    _, args = _launch_operands(inputs, buckets, words)
+    lib = kernels.library("fused_assign")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.fused_assign_scan(
+            *args, *(_ptr(buf) for buf in out), stream
+        )
+    kernels.check("fused_assign", err, "fused_assign_scan launch")
+    LAUNCHES["fused_assign"] += 1
+    return out
+
+
+def demand_reduce(
+    partial: torch.Tensor, unsched_partial: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reduction half: (demand f32[T, R], unschedulable i32 scalar) of
+    partial f64[n_blocks, T, R] and unsched_partial i32[n_blocks], on
+    their device. CUDA tensors launch csrc/fused_assign.cu's
+    fused_assign_reduce (the order of its f64 sums depends on n_blocks
+    alone); CPU tensors run demand_reduce_reference."""
+    dev = partial.device
+    if dev.type == "cpu":
+        return demand_reduce_reference(partial, unsched_partial)
+    if dev.type != "cuda":
+        raise ValueError(f"demand_reduce: unsupported device {dev}")
+    n_blocks, n_groups, n_res = partial.shape
+    _require(partial, "partial", torch.float64, (n_blocks, n_groups, n_res),
+             dev)
+    _require(unsched_partial, "unsched_partial", torch.int32, (n_blocks,),
+             dev)
+    lib = kernels.library("fused_assign")
+    demand = torch.empty((n_groups, n_res), dtype=torch.float32, device=dev)
+    unsched = torch.empty((), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.fused_assign_reduce(
+            _ptr(partial), _ptr(unsched_partial), n_blocks,
+            n_groups * n_res, _ptr(demand), _ptr(unsched), stream,
+        )
+    kernels.check("fused_assign", err, "demand_reduce launch")
+    LAUNCHES["demand_reduce"] += 1
+    return demand, unsched
 
 
 # csrc/shelf_bfd.cu: the largest B whose per-warp row, bins and
@@ -435,9 +610,13 @@ __all__ = [
     "LAUNCHES",
     "FusedPlan",
     "binpack_fused",
+    "demand_reduce",
+    "demand_reduce_reference",
     "fused_assign",
     "fused_assign_plan",
     "fused_assign_reference",
+    "fused_assign_scan",
+    "fused_assign_scan_reference",
     "pack_bits",
     "reset_launch_counts",
     "shelf_bfd",

@@ -9,10 +9,10 @@ The port's copy of karpenter_tpu/runtime.py. What differs:
   * `Options.device` names where the shared SolverService runs: None
     (or "cuda") is the CUDA card, and construction raises without one;
     "cpu" runs the plain PyTorch and numpy programs on the host.
-  * An option whose module is not ported yet raises NotPortedError at
-    construction (solver_shard_mesh): nothing stands in for it. The
-    service has no shard route, so on one card it serves exactly as the
-    reference's does (whose mesh needs two devices).
+  * The three shard options (solver_shard_threshold,
+    solver_shard_devices, solver_shard_mesh) reach the service as in the
+    reference; its mesh spans the process's own devices, so on one card
+    it serves exactly as the reference's does (whose mesh needs two).
   * With partitions the runtime is one replica of the replicated
     control plane (replication/), as the reference's is. Its service is
     built, and on the card its kernels too, before the plane writes any
@@ -267,29 +267,6 @@ class Options:
     device: Optional[str] = None
 
 
-class NotPortedError(RuntimeError):
-    """An option or flag needs a module the port does not have yet."""
-
-
-# option -> (is it set?, the reference's module it needs, by its path
-# under the package root)
-_NOT_PORTED = (
-    ("solver_shard_mesh", lambda v: v is not None,
-     "the sharded dispatch of parallel/mesh.py"),
-)
-
-
-def refuse_unported(options: "Options") -> None:
-    """Raise NotPortedError naming the module when an option needs one
-    the port does not have yet."""
-    for field_name, is_set, module in _NOT_PORTED:
-        if is_set(getattr(options, field_name)):
-            raise NotPortedError(
-                f"Options.{field_name} needs the reference's {module}, "
-                "which is not ported to karpenter_tpu_torch yet"
-            )
-
-
 class KarpenterRuntime:
     def __init__(
         self,
@@ -303,7 +280,6 @@ class KarpenterRuntime:
         import time as _time
 
         options = options or Options()
-        refuse_unported(options)
         self.options = options
         self.manager = self.solver_service = self.recovery = None
         # a client of options.solver_uri whose Health gate the caller
@@ -369,6 +345,9 @@ class KarpenterRuntime:
             health_failure_threshold=options.solver_health_threshold,
             health_probe_interval_s=options.solver_probe_interval_s,
             watchdog_timeout_s=options.solver_watchdog_timeout_s,
+            shard_threshold=options.solver_shard_threshold,
+            shard_devices=options.solver_shard_devices,
+            shard_mesh_shape=options.solver_shard_mesh,
             resident=options.solver_resident,
             device="cpu" if split else options.device,
             card_rule=split and options.device != "cpu",

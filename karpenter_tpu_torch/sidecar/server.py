@@ -19,7 +19,14 @@ What differs from the reference:
     accelerator is not copied, so a controller that asked for the card
     never gets CPU answers from a sidecar that silently lost it.
   * `--compile-cache-dir` names the CUDA kernels' build directory.
-  * `--multihost` exits 2: parallel/multihost.py is not ported.
+  * `--multihost` joins torch.distributed (parallel/multihost.py: the
+    topology from torch's rendezvous env, MASTER_ADDR + MASTER_PORT,
+    WORLD_SIZE and RANK) before the device check, as the reference joins
+    before its backend probe; with no topology it serves single-host. A
+    joined member computes where `--device` says and never falls back
+    to the CPU (no sidecar of the port does), and Health's
+    `device_count` is then the fleet's global device count. Each
+    member's Solve runs on its own process's devices.
   * each server counts the RPCs it answered and their request bytes
     (`rpcs`), per method.
   * `main` stops the server on SIGTERM and exits 0 (the reference's
@@ -86,14 +93,18 @@ def _decide(request: bytes, device=None) -> bytes:
 
 def _health(request: bytes, device=None) -> bytes:
     """`backend` is the device the server computes on ("cuda" or "cpu"),
-    `device_count` the CUDA cards the process sees."""
+    `device_count` the CUDA cards the process sees, or after a multihost
+    join every rank's devices."""
+    from karpenter_tpu_torch.parallel import multihost
     from karpenter_tpu_torch.utils.device import resolve_device
 
     return codec.pack(
         {"ok": np.asarray(True)},
         meta={
             "backend": resolve_device(device).type,
-            "device_count": torch.cuda.device_count(),
+            "device_count": (len(multihost.global_devices())
+                             if multihost.joined()
+                             else torch.cuda.device_count()),
         },
     )
 
@@ -267,8 +278,9 @@ def parse_args(argv=None):
     ap.add_argument(
         "--multihost",
         action="store_true",
-        help="join a multi-host deployment before serving (not ported: "
-        "exits 2)",
+        help="join a multi-host deployment before serving (topology from "
+        "MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK; none configured "
+        "= single-host)",
     )
     ap.add_argument(
         "--compile-cache-dir",
@@ -284,13 +296,7 @@ def parse_args(argv=None):
         help="where the sidecar computes: the CUDA card (default; the "
         "process exits 1 when there is none) or the host CPU",
     )
-    args = ap.parse_args(argv)
-    if args.multihost:
-        ap.error(
-            "--multihost needs the reference's parallel/multihost.py, "
-            "which is not ported to karpenter_tpu_torch yet"
-        )
-    return args
+    return ap.parse_args(argv)
 
 
 def main(argv=None) -> int:
@@ -304,6 +310,18 @@ def main(argv=None) -> int:
     device = None if args.device == "cuda" else "cpu"
     server = None
     try:
+        if args.multihost:
+            # the join precedes the device check, as the reference's
+            # precedes its backend probe; a configured but broken
+            # topology raises (N independent solvers would double-solve
+            # the fleet)
+            from karpenter_tpu_torch.parallel.multihost import (
+                initialize_multihost,
+            )
+
+            if not initialize_multihost(kind=args.device):
+                print("multihost: no topology configured; serving "
+                      "single-host", file=sys.stderr)
         # the card and every kernel, before the port is bound: a sidecar
         # that cannot compute on the card serves nothing
         note = ensure_usable_backend(device)

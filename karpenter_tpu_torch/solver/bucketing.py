@@ -35,9 +35,9 @@ tests/test_torch_solver_service.py pins service outputs against direct
 ops/binpack calls element for element, and the ladder and the padding
 byte-equal to the reference's.
 
-The port's copy of the bin-pack half of karpenter_tpu/solver/bucketing.py
-and its eviction-planning half (the mesh helpers come with their
-slice). Padding runs on
+The port's copy of karpenter_tpu/solver/bucketing.py: the bin-pack
+ladder, the eviction-planning half and the shard route's
+mesh_aligned_shape. Padding runs on
 the host, in numpy: operands given as tensors are read back first, so a
 padded request always holds host arrays.
 """
@@ -120,6 +120,24 @@ def constraint_shape(inputs: BinPackInputs) -> Tuple[int, ...]:
     s = 0 if caps is None else bucket_up(caps.shape[0], SLOT_FLOOR)
     d = 0 if caps is None else bucket_up(caps.shape[1], DOMAIN_FLOOR)
     return (c, s, d)
+
+
+def mesh_aligned_shape(
+    shape: Tuple[int, int, int, int, int], extents: Tuple[int, int]
+) -> Tuple[int, int, int, int, int]:
+    """Grow a bucket shape's pod/group axes to the mesh-divisible
+    multiples the reference's padding keeps (extents =
+    parallel.mesh.mesh_extents). Constraint-universe axes are whole on
+    every shard and stay on their own ladders. The result is a
+    deterministic function of (bucket shape, extents), so the sharded
+    dispatch key only needs to carry the extents."""
+    from karpenter_tpu_torch.utils.functional import pad_to_multiple
+
+    p, t, r, k, l = shape
+    rows, cols = extents
+    return (pad_to_multiple(p, rows) if rows > 1 else p,
+            pad_to_multiple(t, cols) if cols > 1 else t,
+            r, k, l)
 
 
 def _rung_part(part) -> str:

@@ -266,8 +266,9 @@ class ResidentFleetState:
 
         `put` is the service's placement hook — (host pytree) -> device
         pytree — billed to the "upload" stage ring by the rebuild's full
-        stack. `mode` keys the placement: a mode change misses identity
-        on purpose and rebuilds.
+        stack. `mode` keys the placement, ("single",) or the shard
+        route's ("shard", extents): a mode change (a threshold crossing
+        either way) misses identity on purpose and rebuilds.
 
         Never raises past the full-upload fallback: a scatter that
         fails for ANY reason rebuilds instead."""

@@ -48,8 +48,7 @@ production pipeline:
   * METRICS: queue depth, coalesce factor, first-seen keys,
     rejections/expiries/fallbacks, and per-stage latency percentiles,
     registered through the same GaugeRegistry the runtime serves on
-    /metrics (subsystem "solver"), under the reference's names (less
-    the shard route's gauge, which comes with that route).
+    /metrics (subsystem "solver"), under the reference's names.
 
 Who answers when the device path cannot. On the CPU (device="cpu") the
 reference's never-block ladder holds: a full queue, an expired deadline
@@ -143,7 +142,30 @@ and the kernels' build or load are noted into its compile ledger, and a
 cuda-rung solve key carries the kernels' analytic cost
 (ops/fused_assign.solve_cost) on its later dispatch spans.
 
-Left out (it comes with multi-device): the shard route.
+Sharded dispatch (the reference's "Sharded dispatch"): a request whose
+pods x groups cell count (forecast: series x history slots; preempt:
+candidates x victims; decide: autoscalers x metrics) reaches
+`shard_threshold` rides a mesh (parallel/mesh.py) of the process's own
+devices (utils/device.visible_devices: every CUDA card, or the virtual
+devices of force_virtual_devices), when one of two or more devices can be
+built; `shard_devices` caps it and `shard_mesh_shape` pins its (pods,
+groups) extents. Only device-resolved traffic shards (the cuda and torch
+rungs, and the fleet-tick families on torch): a CPU service on its
+default numpy rung never does. The key gains ("shard", extents)
+("vmap_shard" for a consolidation batch). On the cuda rung each request
+is one sharded solve whose shards launch the CUDA kernels (the card
+route); on the torch rung the batch pads to mesh_aligned_shape and runs
+the plain program on every shard, with residency keyed by mode, so a
+threshold crossing rebuilds. The dispatch completes inline. A failure
+retries the same requests on the single-device path of the same rung
+(counted in shard_fallbacks, logged, and recorded), which on the card
+is the card's kernels again, never numpy, and stops routing new traffic
+to the mesh until reset_caches re-arms it. The reference builds its mesh
+over jax.devices(), the global set after a multi-host join; the port's
+service keeps to its own process's devices, and a joined fleet's global
+mesh is parallel/mesh.py's (build_mesh). The fused tick keeps its one
+graph whatever its size (the reference sends a fleet past the threshold
+to its chained rung, whose decide shards).
 """
 
 from __future__ import annotations
@@ -174,6 +196,7 @@ from karpenter_tpu_torch.ops.binpack import (
     _as_field,
     has_constraint_operands,
 )
+from karpenter_tpu_torch.solver import bucketing
 from karpenter_tpu_torch.solver.bucketing import (
     bucket_shape,
     bucket_up,
@@ -186,8 +209,9 @@ from karpenter_tpu_torch.solver.bucketing import (
     presence,
 )
 from karpenter_tpu_torch.utils.device import DeviceLike, resolve_device
+from karpenter_tpu_torch.utils.functional import pad_to_multiple
 from karpenter_tpu_torch.utils.log import logger
-from karpenter_tpu_torch.utils.operands import fetch, host_seam
+from karpenter_tpu_torch.utils.operands import _field_of, fetch, host_seam
 
 SUBSYSTEM = "solver"
 
@@ -207,6 +231,7 @@ COALESCE_BATCH_SIZE = "coalesce_batch_size"
 WINDOW_MS = "window_ms"
 PIPELINE_DEPTH = "pipeline_depth"
 UPLOAD_MS = "upload_ms"
+SHARD_DEVICES = "shard_devices"
 # device-resident fleet state (solver/resident.py)
 RESIDENT_BYTES = "resident_bytes"
 RESIDENT_ROWS = "resident_rows"
@@ -217,6 +242,13 @@ PREWARM_COMPILES = "prewarm_compiles_total"
 PREWARM_MS = "prewarm_ms"
 # device programs the last reconcile tick paid (note_tick)
 DISPATCHES_PER_TICK = "dispatches_per_tick"
+
+# The shard route (module docstring): a request whose cell count reaches
+# this many cells rides the mesh when one of >= 2 devices exists. 2^24
+# cells is about the north-star 100k x 300 fleet with headroom: small
+# fleets (10k x 50 = 5 x 10^5) never pay the mesh, fleet-scale ones
+# always shard. 0 disables sharding outright.
+DEFAULT_SHARD_THRESHOLD = 1 << 24
 
 # Forecast shape ladders (forecast requests bucket on (series, history
 # length))
@@ -341,6 +373,10 @@ class SolverStatistics:
     resident_rebuilds: int = 0  # full uploads (re)establishing residency
     resident_drops: int = 0  # wholesale discards (ladder / recovery boot)
     pipeline_splits: int = 0  # lone batches chunked so the pipeline overlaps
+    # the shard route (module docstring)
+    shard_dispatches: int = 0  # dispatches answered by the sharded program
+    shard_requests: int = 0  # requests routed onto the mesh at submit
+    shard_fallbacks: int = 0  # shard-route failures retried single-device
     # host bytes sent to the device: full uploads plus resident scatters'
     # index vectors and update blocks
     upload_bytes: int = 0
@@ -461,6 +497,9 @@ class SolverService:
         health_failure_threshold: int = 3,
         health_probe_interval_s: float = 5.0,
         watchdog_timeout_s: float = 0.0,  # 0 = watchdog disabled
+        shard_threshold: int = DEFAULT_SHARD_THRESHOLD,
+        shard_devices: Optional[int] = None,
+        shard_mesh_shape: Optional[tuple] = None,
         resident: bool = True,
         device: DeviceLike = None,
         card_rule: bool = False,
@@ -526,6 +565,18 @@ class SolverService:
         self._window_now_s = 0.0 if adaptive_window else window_s
         self._inflight: collections.deque = collections.deque()
         self._last_pipeline_depth = 0
+        # the shard route (module docstring): the mesh is built lazily on
+        # first use; one shard-route failure stops routing NEW traffic to
+        # it (the single-device path keeps serving) until reset_caches
+        self.shard_threshold = shard_threshold
+        self.shard_devices = shard_devices
+        self.shard_mesh_shape = (
+            tuple(shard_mesh_shape) if shard_mesh_shape else None
+        )
+        self._mesh = None
+        self._mesh_ready = False
+        self._mesh_lock = threading.Lock()
+        self._shard_broken = False
         # device-resident fleet state (solver/resident.py): singleton
         # torch-rung dispatches keep their operand stack on device and
         # churn applies as row scatters. `resident=False` pins the
@@ -589,6 +640,8 @@ class SolverService:
         )
         self._g_window = reg(SUBSYSTEM, WINDOW_MS)
         self._g_pipeline = reg(SUBSYSTEM, PIPELINE_DEPTH)
+        # devices behind the shard route (0: no mesh, or the route tripped)
+        self._g_shard = reg(SUBSYSTEM, SHARD_DEVICES)
         # host->device transfer p50 of recent dispatches; also present
         # per-dispatch under stage_p50_ms{upload}
         self._g_upload = reg(SUBSYSTEM, UPLOAD_MS)
@@ -648,6 +701,10 @@ class SolverService:
         # last dispatch
         self._g_window.set("-", "-", self._window_now_s * 1e3)
         self._g_pipeline.set("-", "-", float(self._last_pipeline_depth))
+        n_shard = 0
+        if self._mesh is not None and not self._shard_broken:
+            n_shard = self._mesh.size
+        self._g_shard.set("-", "-", float(n_shard))
         self._g_resident_bytes.set(
             "-", "-", float(self._resident.resident_bytes())
         )
@@ -704,6 +761,9 @@ class SolverService:
         are a pure function of their sources."""
         with self._cond:
             self._compile_seen = set()
+        # a recovery boot also re-arms the shard route: a pre-crash shard
+        # failure must not pin the successor single-device forever
+        self._shard_broken = False
         self._resident.drop_all()
         # a reset plane may legitimately want a fresh warm-up
         self._prewarmed = set()
@@ -904,6 +964,69 @@ class SolverService:
             )
         return backend
 
+    def _shard_mesh(self):
+        """The lazily-built mesh of the shard route (parallel/mesh.py)
+        over this process's devices of the service's type, or None when
+        sharding is unavailable: disabled (shard_threshold <= 0), fewer
+        than 2 devices, or mesh construction failed (logged once; the
+        single-device path serves)."""
+        if self._mesh_ready:
+            return self._mesh
+        with self._mesh_lock:
+            if self._mesh_ready:
+                return self._mesh
+            mesh = None
+            try:
+                if self.shard_threshold > 0:
+                    from karpenter_tpu_torch.parallel.mesh import build_mesh
+                    from karpenter_tpu_torch.utils.device import visible_devices
+
+                    devices = visible_devices(self.device.type)
+                    n = len(devices)
+                    if self.shard_devices is not None:
+                        n = min(n, self.shard_devices)
+                    shape = self.shard_mesh_shape
+                    if shape is not None and shape[0] * shape[1] >= 2:
+                        mesh = build_mesh(devices=devices[:n], shape=shape)
+                    elif shape is None and n >= 2:
+                        # a 1-device "mesh" (an explicit 1x1 included)
+                        # would route traffic through the sharded path
+                        # with no parallelism while reporting sharding
+                        # active: below 2 devices the single-device
+                        # program IS the right path
+                        mesh = build_mesh(devices=devices[:n])
+            except Exception as error:  # noqa: BLE001 — optional route
+                logger().warning(
+                    "sharded dispatch unavailable (%s: %s); staying "
+                    "single-device",
+                    type(error).__name__, error,
+                )
+            self._mesh = mesh
+            self._mesh_ready = True
+            return mesh
+
+    def _shard_extents(self, resolved: str, n_pods: int, n_groups: int):
+        """Route one request: the mesh extents it rides, or None. A
+        request of the cuda or torch rung whose cell count reaches
+        shard_threshold rides the mesh on the same rung; below threshold
+        (or with sharding unavailable or tripped, or under a
+        device_solver override, where device math lives out of process)
+        nothing changes."""
+        if (
+            self.shard_threshold <= 0
+            or self._shard_broken
+            or self.device_solver is not None
+            or resolved not in ("cuda", "torch")
+            or n_pods * n_groups < self.shard_threshold
+        ):
+            return None
+        mesh = self._shard_mesh()
+        if mesh is None:
+            return None
+        from karpenter_tpu_torch.parallel.mesh import mesh_extents
+
+        return mesh_extents(mesh)
+
     def submit(
         self,
         inputs: BinPackInputs,
@@ -929,10 +1052,14 @@ class SolverService:
                 self.stats.constraint_reroutes += 1
             else:
                 self._ensure_kernels()
+        extents = self._shard_extents(resolved, n_pods, n_groups)
         key = (
             bucket_shape(inputs), buckets, resolved, presence(inputs),
             constraint_shape(inputs),
         )
+        if extents is not None:
+            key += ("shard", extents)
+            self.stats.shard_requests += 1
         timeout = self.default_timeout_s if timeout is None else timeout
         now = self._clock()
         request = _Request(
@@ -1138,7 +1265,8 @@ class SolverService:
         6th key element ("vmap", the reference's name) keeps these groups
         from mixing with plain solve() traffic: on the torch rung a
         consolidation batch never splits into pipeline chunks and never
-        takes the resident singleton path."""
+        takes the resident singleton path. Fleet-scale candidates also
+        ride the mesh ("vmap_shard" + extents, the shard route)."""
         if resolved == "cuda" and self.device_solver is None:
             if has_constraint_operands(inputs):
                 # the planner folds taints, selectors and affinity into
@@ -1150,10 +1278,19 @@ class SolverService:
                     "operands, which the cuda rung does not take"
                 )
             self._ensure_kernels()
-        return (
-            bucket_shape(inputs), buckets, resolved, presence(inputs),
-            constraint_shape(inputs), "vmap",
+        extents = self._shard_extents(
+            resolved,
+            inputs.pod_requests.shape[0],
+            inputs.group_allocatable.shape[0],
         )
+        key = (
+            bucket_shape(inputs), buckets, resolved, presence(inputs),
+            constraint_shape(inputs),
+        )
+        if extents is None:
+            return key + ("vmap",)
+        self.stats.shard_requests += 1
+        return key + ("vmap_shard", extents)
 
     def _enqueue_batch(
         self, inputs_list, buckets: int, resolved: str, timeout
@@ -1207,12 +1344,14 @@ class SolverService:
     def decide(self, inputs):
         """The HPA decision program through the service: same metrics
         surface and error accounting, no coalescing (the batch
-        autoscaler already evaluates the whole fleet in one call).
-        Single-card: runs the port's ops/decision.decide on the
-        service's device. Host operands (numpy fields) are answered as
-        host numpy in one fetch; DecisionInputs already holding tensors
-        keep tensors (_decide_dispatch). An injected `decider` gets the
-        inputs as given."""
+        autoscaler already evaluates the whole fleet in one call). Runs
+        the port's ops/decision.decide on the service's device; a fleet
+        whose N x M cell count reaches shard_threshold rides the mesh
+        (the fleet axis split over its shards), with a single-device
+        retry on any mesh failure. Host operands (numpy fields) are
+        answered as host numpy in one fetch; DecisionInputs already
+        holding tensors keep tensors (_decide_dispatch). An injected
+        `decider` gets the inputs as given."""
         self.stats.decide_calls += 1
         t0 = _time.perf_counter()
         try:
@@ -1241,11 +1380,36 @@ class SolverService:
             return self._decider(inputs)
         from karpenter_tpu_torch.ops import decision as D
 
-        if isinstance(inputs, D.DecisionInputs) and isinstance(
+        tensors = isinstance(inputs, D.DecisionInputs) and isinstance(
             inputs.metric_value, torch.Tensor
-        ):
+        )
+        out = self._sharded_decide(inputs)
+        if out is not None:
+            return out if tensors else fetch(out)
+        if tensors:
             return D.decide(inputs.to(self.device))
         return host_seam(D.decide, D.DecisionInputs, self.device)(inputs)
+
+    def _sharded_decide(self, inputs):
+        """The shard route of one fleet decide (tensors on the mesh's
+        home device), or None: below threshold, or the mesh failed — a
+        failure is counted in shard_fallbacks, trips the route like the
+        bin-pack ladder's, and the caller retries single-device."""
+        n = int(np.shape(_field_of(inputs, "spec_replicas"))[0])
+        m = int(np.shape(_field_of(inputs, "metric_value"))[1])
+        extents = self._shard_extents(self._family_backend(None), n, max(m, 1))
+        if extents is None:
+            return None
+        from karpenter_tpu_torch.parallel.mesh import sharded_decide
+
+        self.stats.shard_requests += 1
+        try:
+            out = sharded_decide(self._shard_mesh(), inputs)
+        except Exception as error:  # noqa: BLE001 — shard-route failure
+            self._note_shard_fallback(error, [], family="decide")
+            return None
+        self.stats.shard_dispatches += 1
+        return out
 
     def _family_backend(self, backend: Optional[str]) -> str:
         """The rung a fleet-tick family runs: the service's resolution,
@@ -1316,11 +1480,18 @@ class SolverService:
         resolved = self._family_backend(backend)
         now = self._clock()
         t_bucket = bucket_up(int(inputs.values.shape[1]), FORECAST_T_FLOOR)
+        # fleet-scale forecasts split their SERIES axis over the mesh
+        # (cells = series x history slots)
+        extents = self._shard_extents(resolved, n_series, t_bucket)
+        key = ("forecast", t_bucket, resolved)
+        if extents is not None:
+            key += ("shard", extents)
+            self.stats.shard_requests += 1
         return _Request(
             inputs=M.pad_forecast_inputs(inputs, t_bucket),
             buckets=0,
             backend=resolved,
-            key=("forecast", t_bucket, resolved),
+            key=key,
             n_pods=n_series,
             n_groups=0,
             deadline=(now + timeout) if timeout else None,
@@ -1347,16 +1518,27 @@ class SolverService:
                 request.finish(result=M.forecast_numpy(request.inputs))
                 self._record_stage("dispatch", _time.perf_counter() - t0)
             return
+        mesh = self._shard_mesh_for(key)
         t0 = _time.perf_counter()
         sizes = [request.n_pods for request in live]
         s_bucket = bucket_up(sum(sizes), FORECAST_S_FLOOR)
+        if mesh is not None:
+            # the series bucket grows to the mesh's row extent (the
+            # reference's padding); padding series are all-invalid
+            s_bucket = pad_to_multiple(s_bucket, key[4][0])
         stacked = M.concat_forecast_inputs(
             [request.inputs for request in live], s_bucket
         )
         self._record_stage("pad", _time.perf_counter() - t0)
-        fresh = self._count_key(("forecast", s_bucket, t_bucket, backend))
+        cache_key = ("forecast", s_bucket, t_bucket, backend)
+        if mesh is not None:
+            cache_key += ("shard", key[4])
+        fresh = self._count_key(cache_key)
         t0 = _time.perf_counter()
-        with self._dispatch_span("solver.dispatch.forecast", live):
+        with self._dispatch_span(
+            "solver.dispatch.forecast" + (".shard" if mesh is not None else ""),
+            live,
+        ):
             with self._device_section(
                 live, grace=COMPILE_GRACE_S if fresh else 0.0
             ):
@@ -1365,15 +1547,22 @@ class SolverService:
                     # plan exercises the failure answer + FSM, a hang
                     # plan the watchdog drain
                     inject("forecast.predict")
-                    host = host_seam(
-                        M.forecast, M.ForecastInputs, self.device
-                    )(stacked)
+                    if mesh is not None:
+                        from karpenter_tpu_torch.parallel.mesh import (
+                            sharded_forecast,
+                        )
+
+                        host = fetch(sharded_forecast(mesh, stacked))
+                    else:
+                        host = host_seam(
+                            M.forecast, M.ForecastInputs, self.device
+                        )(stacked)
         if self._stale():
             return  # the watchdog already answered these
         if fresh:
             self._note_compile(
-                "forecast", ("forecast", s_bucket, t_bucket, backend),
-                _time.perf_counter() - t0, live,
+                "forecast", cache_key, _time.perf_counter() - t0, live,
+                extents=key[4] if mesh is not None else None,
             )
         self.stats.upload_bytes += sum(
             np.asarray(getattr(stacked, f.name)).nbytes
@@ -1382,6 +1571,8 @@ class SolverService:
         self._record_stage("dispatch", _time.perf_counter() - t0)
         self._count_dispatch()
         self.stats.forecast_dispatches += 1
+        if mesh is not None:
+            self.stats.shard_dispatches += 1
         t0 = _time.perf_counter()
         offset = 0
         for request, size in zip(live, sizes):
@@ -1430,11 +1621,20 @@ class SolverService:
         timeout = self.default_timeout_s if timeout is None else timeout
         now = self._clock()
         resolved = self._family_backend(backend)
+        # fleet-scale eviction storms split their CANDIDATE axis over the
+        # mesh (cells = candidates x victims)
+        extents = self._shard_extents(
+            resolved, n_candidates, max(n_victims, 1)
+        )
+        key = ("preempt", preempt_bucket_shape(inputs), resolved)
+        if extents is not None:
+            key += ("shard", extents)
+            self.stats.shard_requests += 1
         request = _Request(
             inputs=inputs,
             buckets=0,
             backend=resolved,
-            key=("preempt", preempt_bucket_shape(inputs), resolved),
+            key=key,
             n_pods=n_candidates,
             n_groups=n_victims,
             deadline=(now + timeout) if timeout else None,
@@ -1478,7 +1678,14 @@ class SolverService:
                 request.finish(result=PK.preempt_numpy(request.inputs))
                 self._record_stage("dispatch", _time.perf_counter() - t0)
             return
+        mesh = self._shard_mesh_for(key)
         cache_key = ("preempt", shape, backend)
+        if mesh is not None:
+            # the CANDIDATE axis grows to the mesh's row extent; padding
+            # candidates are invalid and forbidden everywhere
+            c, n, r, v = shape
+            shape = (pad_to_multiple(c, key[4][0]), n, r, v)
+            cache_key = ("preempt", shape, backend, "shard", key[4])
         fresh = self._count_key(cache_key)
         grace = COMPILE_GRACE_S if fresh else 0.0
         for request in live:
@@ -1486,14 +1693,27 @@ class SolverService:
             padded = pad_preempt_inputs(request.inputs, shape)
             self._record_stage("pad", _time.perf_counter() - t0)
             t0 = _time.perf_counter()
-            with self._dispatch_span("solver.dispatch.preempt", [request]):
+            with self._dispatch_span(
+                "solver.dispatch.preempt"
+                + (".shard" if mesh is not None else ""),
+                [request],
+            ):
                 with self._device_section([request], grace=grace):
                     with solver_trace("solver.preempt"):
                         # the preempt-path fault-injection point: an
                         # error plan exercises the failure answer + FSM,
                         # a hang plan the watchdog drain
                         inject("preempt.plan")
-                        host = fetch(PK.preempt_plan(padded, self.device))
+                        if mesh is not None:
+                            from karpenter_tpu_torch.parallel.mesh import (
+                                sharded_preempt,
+                            )
+
+                            host = fetch(sharded_preempt(mesh, padded))
+                        else:
+                            host = fetch(
+                                PK.preempt_plan(padded, self.device)
+                            )
             grace = 0.0  # only the first dispatch of the group is a first launch
             if self._stale():
                 return  # the watchdog already answered these
@@ -1501,7 +1721,7 @@ class SolverService:
                 fresh = False  # only the first dispatch paid the first launch
                 self._note_compile(
                     "preempt", cache_key, _time.perf_counter() - t0,
-                    [request],
+                    [request], extents=key[4] if mesh is not None else None,
                 )
             self.stats.upload_bytes += sum(
                 np.asarray(getattr(padded, f.name)).nbytes
@@ -1510,6 +1730,8 @@ class SolverService:
             self._record_stage("dispatch", _time.perf_counter() - t0)
             self._count_dispatch()
             self.stats.preempt_dispatches += 1
+            if mesh is not None:
+                self.stats.shard_dispatches += 1
             t0 = _time.perf_counter()
             self._finish_device(request, crop_preempt_outputs(
                 host, request.n_pods, request.n_groups
@@ -2222,6 +2444,77 @@ class SolverService:
             live.append(request)
         return live
 
+    @staticmethod
+    def _shard_strategy(key: tuple) -> Optional[str]:
+        """The shard marker of a request key, or None for a single-device
+        key. Sharded bin-pack keys: (shape, buckets, backend, presence,
+        cshape, "shard"|"vmap_shard", extents); sharded forecast and
+        preempt keys: ("forecast"|"preempt", shape-ish, backend, "shard",
+        extents)."""
+        if key[0] in ("forecast", "preempt"):
+            return "shard" if len(key) > 3 and key[3] == "shard" else None
+        if len(key) > 6 and key[5] in ("shard", "vmap_shard"):
+            return key[5]
+        return None
+
+    @staticmethod
+    def _single_device_key(key: tuple) -> tuple:
+        """The single-device key a sharded group retries on: the same
+        shape, buckets, backend and presence, the mesh marker stripped
+        ("vmap_shard" keeps the consolidation batch's "vmap")."""
+        if key[0] in ("forecast", "preempt"):
+            return key[:3]
+        if key[5] == "vmap_shard":
+            return key[:5] + ("vmap",)
+        return key[:5]
+
+    def _shard_mesh_for(self, key: tuple):
+        """The mesh a group's key routes it onto, None for a
+        single-device key; raises when a sharded key finds no mesh."""
+        if self._shard_strategy(key) is None:
+            return None
+        mesh = self._shard_mesh()
+        if mesh is None:
+            raise RuntimeError("shard mesh unavailable for a shard-routed batch")
+        return mesh
+
+    def _note_shard_fallback(self, error, live, **fields) -> None:
+        """Count, log and record a shard-route failure, and stop routing
+        new traffic to the mesh (reset_caches re-arms it)."""
+        self.stats.shard_fallbacks += 1
+        self._shard_broken = True
+        logger().warning(
+            "sharded dispatch failed (%s: %s); retrying %d request(s) on "
+            "the single-device path and disabling the shard route",
+            type(error).__name__, error, max(len(live), 1),
+        )
+        default_flight_recorder().record(
+            "shard_fallback",
+            trace_ids=self._trace_ids(live),
+            subsystem="solver",
+            error=type(error).__name__,
+            requests=len(live),
+            **fields,
+        )
+
+    def _retry_unsharded(
+        self, key: tuple, live: List[_Request], error: BaseException
+    ) -> Optional[BaseException]:
+        """The shard rung of the ladder: shard -> single-device on the
+        same rung BEFORE any other answer — the mesh failing is not the
+        device failing, so the same program re-runs unpartitioned (on the
+        card, the card's kernels). Returns None on success, else the
+        error the caller answers with."""
+        self._note_shard_fallback(error, live)
+        pending = [r for r in live if not r.event.is_set()]
+        try:
+            self._solve_group(self._single_device_key(key), pending)
+            return None
+        except Exception as single_error:  # noqa: BLE001
+            if not self._stale():
+                self._record_device_failure(pending)
+            return single_error
+
     def _dispatch_group(
         self, key: tuple, requests: List[_Request], lone: bool = False
     ) -> None:
@@ -2248,6 +2541,10 @@ class SolverService:
             error: BaseException = exc
             if device_path and not self._stale():
                 self._record_device_failure(live)
+        if self._shard_strategy(key) is not None and not self._stale():
+            error = self._retry_unsharded(key, live, error)
+            if error is None:
+                return
         logger().warning(
             "solver device path failed (%s: %s); answering %d "
             "request(s) %s",
@@ -2361,6 +2658,14 @@ class SolverService:
                     self._count_dispatch()
                     self._finish_device(request, out)
             return
+        if self._shard_strategy(key) is not None:
+            # mesh-partitioned dispatch: completes INLINE (two in-flight
+            # fleet-scale batches would double peak memory, and a
+            # synchronous failure is what lets _dispatch_group walk the
+            # shard -> single-device ladder)
+            self._drain_inflight()
+            self._sharded_dispatch(shape, buckets, live, key)
+            return
         if backend == "cuda":
             # the fused kernel has no batched entry; requests still
             # share the single worker (bounded device pressure).
@@ -2458,6 +2763,104 @@ class SolverService:
             self._record_stage("fetch", _time.perf_counter() - t0)
             self._finish_device(request, host)
 
+    def _sharded_dispatch(
+        self, shape, buckets: int, live: List[_Request], key: tuple
+    ) -> None:
+        """The shard route (the reference's _sharded_xla): on the cuda
+        rung each request is one parallel/mesh.sharded_binpack on its own
+        operands, whose shards launch the CUDA kernels (no padding but
+        the mesh's); on the torch rung the group pads up the bucket
+        ladder grown to mesh_aligned_shape, stacks (resident under the
+        ("shard", extents) mode for a singleton), and runs the plain
+        program on every shard per item. Completes inline; one fetch per
+        request (cuda) or batch (torch)."""
+        from karpenter_tpu_torch.parallel import mesh as MESH
+
+        mesh = self._shard_mesh_for(key)
+        backend, extents = key[2], key[6]
+        strategy = "vmap" if key[5] == "vmap_shard" else "map"
+        span_args = dict(strategy=strategy, devices=mesh.size)
+        if backend == "cuda":
+            cache_key = ("cuda", shape, buckets, key[3], "shard", extents)
+            fresh = self._count_key(cache_key)
+            grace = COMPILE_GRACE_S if fresh else 0.0
+            for request in live:
+                with self._dispatch_span(
+                    "solver.dispatch.shard", [request], **span_args
+                ):
+                    with self._device_section([request], grace=grace):
+                        t0 = _time.perf_counter()
+                        with solver_trace("solver.shard"):
+                            out = MESH.sharded_binpack(
+                                mesh, request.inputs, buckets, backend="cuda"
+                            )
+                        _sync_mesh(mesh)
+                grace = 0.0
+                if self._stale():
+                    return  # the watchdog already answered these
+                if fresh:
+                    fresh = False
+                    self._note_compile(
+                        "solve", cache_key, _time.perf_counter() - t0,
+                        [request], extents=extents,
+                    )
+                self._record_stage("dispatch", _time.perf_counter() - t0)
+                self._count_dispatch()
+                self.stats.shard_dispatches += 1
+                t0 = _time.perf_counter()
+                host = _fetch_outputs(out)
+                self._record_stage("fetch", _time.perf_counter() - t0)
+                self._finish_device(request, host)
+            return
+        aligned = bucketing.mesh_aligned_shape(shape, extents)
+        mode = ("shard", extents)
+        resident = (
+            self._resident_stack(aligned, live, mode)
+            if strategy == "map" else None
+        )
+        if resident is not None:
+            stacked, n_batch = resident, 1
+        else:
+            stacked, n_batch = self._stack_group(aligned, live)
+        cache_key = (
+            "torch", aligned, n_batch, buckets, key[3], key[4], strategy,
+            "shard", extents,
+        )
+        fresh = self._count_key(cache_key)
+        t0 = _time.perf_counter()
+        with self._dispatch_span(
+            "solver.dispatch.shard", live, batch=n_batch, **span_args
+        ):
+            with self._device_section(
+                live, grace=COMPILE_GRACE_S if fresh else 0.0
+            ):
+                with solver_trace("solver.shard"):
+                    if resident is None:
+                        stacked = self._upload(stacked)
+                    out = run_batched(stacked, buckets, functools.partial(
+                        MESH.sharded_binpack, mesh, backend="torch"
+                    ))
+                    _sync_mesh(mesh)
+        if self._stale():
+            return  # the watchdog already answered these
+        if fresh:
+            self._note_compile(
+                "solve", cache_key, _time.perf_counter() - t0, live,
+                extents=extents,
+            )
+        self._record_stage("dispatch", _time.perf_counter() - t0)
+        self._count_dispatch()
+        self.stats.shard_dispatches += 1
+        t0 = _time.perf_counter()
+        host = _fetch_outputs(out)
+        self._record_stage("fetch", _time.perf_counter() - t0)
+        t0 = _time.perf_counter()
+        for i, request in enumerate(live):
+            self._finish_device(request, crop_outputs(
+                _index_outputs(host, i), request.n_pods, request.n_groups,
+            ))
+        self._record_stage("scatter", _time.perf_counter() - t0)
+
     def _begin_batched_torch(
         self, shape, buckets: int, live: List[_Request],
         strategy: str = "map",
@@ -2538,7 +2941,7 @@ class SolverService:
         self._record_stage("pad", _time.perf_counter() - t0)
         return stacked, n_batch
 
-    def _resident_stack(self, shape, live: List[_Request]):
+    def _resident_stack(self, shape, live: List[_Request], mode=("single",)):
         """The device-resident serve path for a SINGLETON group: returns
         the resident stacked operands (batch axis 1), or None when
         residency does not apply — disabled, a coalesced multi-request
@@ -2560,7 +2963,7 @@ class SolverService:
         t0 = _time.perf_counter()
         try:
             stacked, kind = self._resident.obtain(
-                request.inputs, shape, ("single",), self._upload,
+                request.inputs, shape, mode, self._upload,
                 tenant=request.tenant,
                 now=self._clock(),
             )
@@ -2701,15 +3104,19 @@ class SolverService:
         return binpack_numpy(inputs, buckets=buckets)
 
 
-def run_batched(stacked: BinPackInputs, buckets: int) -> BinPackOutputs:
+def run_batched(
+    stacked: BinPackInputs, buckets: int, program=None
+) -> BinPackOutputs:
     """The torch rung's batched program: the plain per-item program
-    (ops/binpack.binpack, what solve(backend="torch") runs) over the
+    (ops/binpack.binpack, what solve(backend="torch") runs, unless
+    `program(item, buckets)` is given: the shard route's) over the
     leading batch axis, one item after another, outputs stacked along a
     new leading axis. No host sync: every op is enqueued on the current
     stream, so the worker can dispatch the next batch before this one
     finishes."""
     from karpenter_tpu_torch.ops import binpack as B
 
+    program = program or B.binpack
     n_batch = stacked.pod_requests.shape[0]
     outs = []
     for i in range(n_batch):
@@ -2718,11 +3125,18 @@ def run_batched(stacked: BinPackInputs, buckets: int) -> BinPackOutputs:
             else getattr(stacked, f.name)[i]
             for f in dataclasses.fields(BinPackInputs)
         })
-        outs.append(B.binpack(item, buckets=buckets))
+        outs.append(program(item, buckets))
     return BinPackOutputs(**{
         name: torch.stack([getattr(o, name) for o in outs])
         for name in _OUTPUT_FIELDS
     })
+
+
+def _sync_mesh(mesh) -> None:
+    """Wait for the current stream of every CUDA device of the mesh."""
+    for device in {mesh.device_at(p) for p in mesh.local_positions()}:
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
 
 
 def _record_done(device: torch.device):

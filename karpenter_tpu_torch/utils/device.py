@@ -1,22 +1,68 @@
-"""Device resolution and card identity (counterpart of
-karpenter_tpu/utils/backend.py's device half).
+"""Device resolution, the devices a mesh may span, and card identity
+(counterpart of karpenter_tpu/utils/backend.py's device half).
 
 The reference's "auto" backend quietly drops to the CPU when the
 accelerator is missing. The port does not: an entry point resolves its
 device here, which gives the CUDA card by default, the CPU only when the
 caller names it, and raises when the card is asked for (explicitly or by
 default) and absent.
+
+`visible_devices` is the one list the mesh (parallel/mesh.py) and the
+solve service's shard route read. It holds the process's CUDA cards,
+unless `force_virtual_devices(n, device)` made it n copies of one device:
+the counterpart of the reference's `force_virtual_cpu`, which gives JAX n
+virtual CPU devices. Shards that share one device run one after another
+on it, with every partition, slab and reduction of a real mesh. Tests
+call it in a fixture and undo it with `reset_virtual_devices()`; the chip
+smoke calls it for cuda:0; nothing in production does.
 """
 
 from __future__ import annotations
 
 import shutil
 import subprocess
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 
 DeviceLike = Union[None, str, torch.device]
+
+# (n, device) after force_virtual_devices, else None
+_VIRTUAL: Optional[tuple] = None
+
+
+def force_virtual_devices(n: int, device: DeviceLike = "cpu") -> None:
+    """Make visible_devices() n copies of `device` (the CPU by default; a
+    CUDA device must exist). Replaces any earlier setting."""
+    global _VIRTUAL
+    if n < 1:
+        raise ValueError(f"need at least one virtual device, got {n}")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    _VIRTUAL = (int(n), dev)
+
+
+def reset_virtual_devices() -> None:
+    """Undo force_virtual_devices: visible_devices() is the real cards
+    again."""
+    global _VIRTUAL
+    _VIRTUAL = None
+
+
+def visible_devices(kind: Optional[str] = None) -> List[torch.device]:
+    """The devices a mesh may span in this process: the virtual list of
+    force_virtual_devices, else every CUDA card (raising without one).
+    `kind` ("cuda" or "cpu") asks for devices of that type: the virtual
+    list when its devices are of it, else the process's own (every CUDA
+    card; the one CPU)."""
+    if _VIRTUAL is not None and (kind is None or _VIRTUAL[1].type == kind):
+        n, dev = _VIRTUAL
+        return [dev] * n
+    if kind == "cpu":
+        return [torch.device("cpu")]
+    resolve_device("cuda")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -1241,9 +1241,11 @@ RUNTIME_KINDS = ("Pod", "Node", "MetricsProducer", "ScalableNodeGroup",
 # the e2e-latency histogram and dumps the flight recorder when it does;
 # the introspection plane's compile seconds), the process-wide tracer's
 # span counts (shared by every runtime of one process), the card's
-# memory (a CPU runtime reports none), and the reference's shard route's
-# gauge, which only it registers. The plane's storm counter and
-# resident-entry gauges are compared: the card and the CPU equal there.
+# memory (a CPU runtime reports none), and the shard route's gauge (the
+# devices behind each side's mesh: the reference's tests give JAX eight
+# virtual CPU devices, the port's runtimes see their own). The plane's
+# storm counter and resident-entry gauges are compared: the card and the
+# CPU equal there.
 SNAPSHOT_SKIP = (
     "karpenter_reconcile_e2e_seconds", "karpenter_runtime_tick_seconds",
     "karpenter_solver_stage_", "karpenter_selfslo_",

@@ -14,8 +14,9 @@ HTTP surface and leader election, against the reference's, on the CPU.
     reference's and run (the controller beside a CPU sidecar, the
     providers' factories with no SDK bound); Options.solver_uri fronts
     the sidecar;
-  * each flag whose module is not ported exits 2 naming that module, and
-    each such runtime option raises NotPortedError; `--tenant-config`,
+  * `--profiler-port` (no torch counterpart) exits 2 naming its module;
+    `--shard-mesh` parses with the reference's errors, and the three
+    shard options reach the runtime's service; `--tenant-config`,
     `--introspect` and `--partitions` (and their Options fields) run;
     `--simulate`,
     `--list` and `--sim-seed` parse as the reference's and run, and
@@ -91,8 +92,6 @@ class TestParseArgs:
     @pytest.mark.parametrize("argv,module", [
         pytest.param(["--profiler-port", "9999"], "jax.profiler server",
                      id="argv3-jax.profiler server"),
-        pytest.param(["--shard-mesh", "8x1"], "parallel/mesh.py",
-                     id="argv4-parallel/mesh.py"),
     ])
     def test_unported_flag_exits_2_naming_its_module(self, argv, module,
                                                      capsys):
@@ -101,6 +100,28 @@ class TestParseArgs:
         assert exit_info.value.code == 2
         err = capsys.readouterr().err
         assert module in err and "not ported" in err
+
+    @pytest.mark.parametrize("spec,want", [
+        ("8x1", (8, 1)), ("2X4", (2, 4)), ("", None),
+    ])
+    def test_shard_mesh_parses_as_the_reference(self, spec, want):
+        """--shard-mesh (the sharded dispatch of parallel/mesh.py, which
+        used to exit 2) parses PODSxGROUPS as the reference's does."""
+        from karpenter_tpu.__main__ import _parse_mesh_shape as ref_parse
+
+        assert port_main._parse_mesh_shape(spec) == want == ref_parse(spec)
+        args = port_main.parse_args(["--shard-mesh", spec] if spec else [])
+        assert args.shard_mesh == (spec or None)
+
+    @pytest.mark.parametrize("spec", ["8", "ax1", "0x2"])
+    def test_bad_shard_mesh_exits_as_the_reference(self, spec):
+        from karpenter_tpu.__main__ import _parse_mesh_shape as ref_parse
+
+        with pytest.raises(SystemExit) as port_exit:
+            port_main._parse_mesh_shape(spec)
+        with pytest.raises(SystemExit) as ref_exit:
+            ref_parse(spec)
+        assert str(port_exit.value) == str(ref_exit.value)
 
     @pytest.mark.parametrize("flag", ["--tenant-config", "--introspect"])
     def test_ported_flag_runs(self, flag, tmp_path, monkeypatch, capsys):
@@ -415,14 +436,46 @@ class TestRealClusterFlags:
 
 
 class TestNotPortedOptions:
-    @pytest.mark.parametrize("field,value,module", [
-        pytest.param("solver_shard_mesh", (2, 1), "parallel/mesh.py",
+    @pytest.mark.parametrize("field,value,attr", [
+        pytest.param("solver_shard_mesh", (2, 1), "shard_mesh_shape",
                      id="solver_shard_mesh-value3-parallel/mesh.py"),
+        pytest.param("solver_shard_threshold", 12345, "shard_threshold",
+                     id="solver_shard_threshold"),
+        pytest.param("solver_shard_devices", 3, "shard_devices",
+                     id="solver_shard_devices"),
     ])
-    def test_option_raises_at_construction(self, field, value, module):
-        options = port_runtime.Options(device="cpu", **{field: value})
-        with pytest.raises(port_runtime.NotPortedError, match=module):
-            port_runtime.KarpenterRuntime(options)
+    def test_shard_option_reaches_the_service(self, field, value, attr):
+        """The three shard options (solver_shard_mesh used to raise
+        NotPortedError; the other two were carried and reached no
+        service) reach the runtime's SolverService as the reference's
+        do."""
+        rt = port_runtime.KarpenterRuntime(
+            port_runtime.Options(device="cpu", **{field: value})
+        )
+        try:
+            assert getattr(rt.solver_service, attr) == value
+        finally:
+            rt.close()
+
+    def test_main_passes_shard_flags_to_the_service(self, monkeypatch):
+        seen = {}
+        real = port_runtime.KarpenterRuntime.__init__
+
+        def spy(self, options=None, *args, **kwargs):
+            seen.update(threshold=options.solver_shard_threshold,
+                        devices=options.solver_shard_devices,
+                        mesh=options.solver_shard_mesh)
+            real(self, options, *args, **kwargs)
+
+        monkeypatch.setattr(port_runtime.KarpenterRuntime, "__init__", spy)
+        rc = port_main.main([
+            "--device", "cpu", "--duration", "0.3", "--tick", "0.05",
+            "--metrics-port", "0", "--no-leader-elect",
+            "--shard-threshold", "99", "--shard-devices", "4",
+            "--shard-mesh", "4x1",
+        ])
+        assert rc == 0
+        assert seen == {"threshold": 99, "devices": 4, "mesh": (4, 1)}
 
     @pytest.mark.parametrize("field", ["tenant_config", "introspect"])
     def test_ported_option_builds_its_plane(self, field, tmp_path):

@@ -78,7 +78,7 @@ def test_consolidate_batch_launches_each_kernel_once_per_candidate():
         TF.reset_launch_counts()
         got = svc.consolidate(inputs)
         assert TF.LAUNCHES == {"fused_assign": len(inputs),
-                               "shelf_bfd": len(inputs)}
+                               "shelf_bfd": len(inputs), "demand_reduce": 0}
         cpu = SolverService(registry=GaugeRegistry(), device="cpu",
                             backend="torch")
         try:

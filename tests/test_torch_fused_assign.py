@@ -254,8 +254,10 @@ class TestWrappers:
 
     def test_reset_launch_counts(self):
         TF.LAUNCHES["fused_assign"] += 3
+        TF.LAUNCHES["demand_reduce"] += 1
         TF.reset_launch_counts()
-        assert TF.LAUNCHES == {"fused_assign": 0, "shelf_bfd": 0}
+        assert TF.LAUNCHES == {"fused_assign": 0, "shelf_bfd": 0,
+                               "demand_reduce": 0}
 
     def test_rejects_operands_it_cannot_take(self):
         rng = np.random.default_rng(2)

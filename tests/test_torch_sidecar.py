@@ -13,8 +13,9 @@ reference's (karpenter_tpu.sidecar), on the CPU.
     answers (integers exact, lp_bound bitwise);
   * both servers refuse a 100k x 300 x 64 x 64 request (past gRPC's
     default 4 MiB receive limit) with the same status code;
-  * the flags: `--multihost` exits 2; the sidecar without a card exits
-    1 before it binds unless `--device cpu`; the controller's Health
+  * the flags: `--multihost` with no topology serves single-host; the
+    sidecar without a card exits 1 before it binds unless `--device
+    cpu`; the controller's Health
     gate and failure rule under both `--device` values;
   * the shipped Deployment's world (workloads.build_deployment_world:
     TPU pools behind a fake GKE cluster manager, one scaled from zero)
@@ -501,12 +502,31 @@ def _no_card(monkeypatch):
 
 
 class TestSidecarFlags:
-    def test_multihost_exits_2_naming_its_module(self, capsys):
-        with pytest.raises(SystemExit) as exit_info:
-            server_mod.parse_args(["--multihost"])
-        assert exit_info.value.code == 2
-        err = capsys.readouterr().err
-        assert "parallel/multihost.py" in err and "not ported" in err
+    def test_multihost_without_topology_serves_single_host(
+        self, monkeypatch, capsys
+    ):
+        """--multihost (parallel/multihost.py, which used to exit 2) with
+        no topology configured serves single-host: the join returns
+        False before the device check, the server binds, and Health
+        counts the process's own devices."""
+        for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+            monkeypatch.delenv(var, raising=False)
+        served = []
+        monkeypatch.setattr(server_mod, "_serve_until_signalled",
+                            lambda server: served.append(server))
+        assert server_mod.parse_args(["--multihost"]).multihost
+        try:
+            assert server_mod.main(["--multihost", "--device", "cpu",
+                                    "--port", "0", "--host",
+                                    "127.0.0.1"]) == 0
+            assert "serving single-host" in capsys.readouterr().err
+            (server,) = served
+            _, meta = codec.unpack(server_mod._health(b"", "cpu"))
+            assert meta["backend"] == "cpu"
+            assert meta["device_count"] == __import__("torch").cuda.device_count()
+        finally:
+            for server in served:
+                server.stop()
 
     @pytest.mark.parametrize("argv", [
         [], ["--port", "9090", "--host", "0.0.0.0"],

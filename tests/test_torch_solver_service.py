@@ -723,9 +723,7 @@ class TestMetricsSurface:
         port = new_service(registry=port_reg, resident=False)
         ref = ref_solver.SolverService(registry=ref_reg)
         try:
-            # the shard route's gauge comes with that route
-            assert surface(port_reg) == surface(ref_reg) - {
-                ("solver", "shard_devices", "gauge")}
+            assert surface(port_reg) == surface(ref_reg)
             inputs = make_inputs(20, 3)
             port.solve(inputs, backend="torch")
             port.publish_gauges()
