@@ -162,7 +162,12 @@ no result line) if any of them fails:
    requests, no fallback and every producer's pending_capacity series,
    exit 0 on SIGTERM, every producer with a status when D is reopened;
    restarted on D and J it answers the recovery warm-up, then "ok", with
-   a higher fence generation; (d) with CUDA_VISIBLE_DEVICES="" the same
+   a higher fence generation; both runs with --profiler-port P: the
+   first takes GET :P/profile?ms=PROFILE_MS, the restart
+   /debug/profile?ms=PROFILE_MS into J, each spanning the first tick
+   (the one that solves): each trace parses and holds both kernels
+   (KERNEL_NAMES), and the count of solver.* ranges is reported;
+   (d) with CUDA_VISIBLE_DEVICES="" the same
    command exits non-zero with the reason, serves nothing and writes
    nothing.
 14. the --simulate entry point and SimLab (simulate.py, simlab/): (a)
@@ -2508,6 +2513,9 @@ BINARY_SHAPE = dict(pods=10_000, types=300, n_has=400, metrics=3, seed=0,
                     groups=16, pools=4)
 BINARY_DURATION_S = 30
 BINARY_ARGS = ()  # extra flags of the binary (none: it runs on the card)
+# each run's profiler capture, opened as the server serves (its warm-up
+# done, the first tick starting): long enough to span that tick
+PROFILE_MS = 6000
 
 
 class _StepClock:
@@ -2968,6 +2976,8 @@ class _Binary:
         self.lines = []
         self.port = None
         self.serving = threading.Event()
+        self.profiling = threading.Event()  # --profiler-port serves
+        self.seen_at = {}  # marker -> perf_counter when its line came
         self.started = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "karpenter_tpu_torch", *args],
@@ -2983,16 +2993,21 @@ class _Binary:
         for line in self.proc.stderr:
             self.lines.append(line.rstrip())
             if marker in line and self.port is None:
+                self.seen_at["serving"] = time.perf_counter()
                 self.port = int(line.rsplit(":", 1)[1])
                 self.serving.set()
+            if "torch profiler listening on :" in line:
+                self.seen_at["profiling"] = time.perf_counter()
+                self.profiling.set()
 
-    def get(self, path):
+    def get(self, path, port=None, timeout=30):
         import urllib.error
         import urllib.request
 
         try:
             with urllib.request.urlopen(
-                f"http://127.0.0.1:{self.port}{path}", timeout=30
+                f"http://127.0.0.1:{port or self.port}{path}",
+                timeout=timeout,
             ) as response:
                 return response.status, response.read().decode()
         except urllib.error.HTTPError as error:
@@ -3018,11 +3033,25 @@ class _Binary:
         return rc
 
 
-def _binary_run(args, recovered):
+def _binary_run(args, recovered, capture):
     """Start the binary, poll /readyz until "ok" (noting any not-ready
     answers), read /metrics, SIGTERM it: (readyz answers, metrics text,
-    seconds to ready, exit code, seconds from SIGTERM to exit)."""
+    seconds to ready, exit code, seconds from SIGTERM to exit, stderr
+    lines, what `capture(binary)` returned). `capture` runs on a thread
+    beside the polling, from the start; it is joined before SIGTERM."""
+    import threading
+
     binary = _Binary(args)
+    captured = {}
+
+    def run_capture():
+        try:
+            captured["value"] = capture(binary)
+        except BaseException as error:  # noqa: BLE001 — raised below
+            captured["error"] = error
+
+    capturing = threading.Thread(target=run_capture, daemon=True)
+    capturing.start()
     try:
         binary.wait_serving(300)
         answers = []
@@ -3050,6 +3079,10 @@ def _binary_run(args, recovered):
                     or time.perf_counter() > deadline):
                 break
             time.sleep(0.1)
+        capturing.join(timeout=300)
+        need(not capturing.is_alive(), "the profiler capture hung")
+        if "error" in captured:
+            raise captured["error"]
         t0 = time.perf_counter()
         rc = binary.stop()
         stop_s = time.perf_counter() - t0
@@ -3058,9 +3091,86 @@ def _binary_run(args, recovered):
         need(stop_s < BINARY_DURATION_S and ready_s + stop_s
              < BINARY_DURATION_S + 300,
              f"the binary took {stop_s} s to stop")
-        return answers, metrics, ready_s, rc, stop_s, binary.lines
+        return (answers, metrics, ready_s, rc, stop_s, binary.lines,
+                captured["value"])
     finally:
         binary.stop()
+
+
+def _trace_kernels(text: str, what: str) -> dict:
+    """A Chrome trace's device kernels of each wrapper (KERNEL_NAMES) and
+    its solver.* ranges; fails unless it parses and holds both wrappers'
+    kernels."""
+    events = json.loads(text)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {wrapper: sum(any(n in k for n in names) for k in kernels)
+             for wrapper, names in KERNEL_NAMES.items()}
+    need(all(found.values()), f"{what}: the capture holds kernels {found} "
+         f"of {len(kernels)} device kernels (both wrappers' needed)")
+    ranges = [e for e in events if str(e.get("name", "")).startswith("solver.")]
+    # where in the window the wrappers' first kernel ran
+    start = min(e["ts"] for e in events if "ts" in e)
+    first = min(e["ts"] for e in events if e.get("cat") == "kernel" and any(
+        n in e["name"] for names in KERNEL_NAMES.values() for n in names))
+    return {"kernels": found, "device_kernels": len(kernels),
+            "first_kernel_at_ms": (first - start) / 1e3,
+            "solver_ranges": len(ranges),
+            "solver_range_cats": sorted({str(e.get("cat")) for e in ranges})}
+
+
+def _server_start_s(binary) -> float:
+    """Seconds from the metrics server's line to the profiler server's:
+    the webhook start (none here) and the profiler's warm-up window."""
+    return binary.seen_at["profiling"] - binary.seen_at["serving"]
+
+
+def _profile_route(port):
+    """The first run's capture: GET :port/profile as soon as the profiler
+    server serves."""
+
+    def capture(binary):
+        if not binary.profiling.wait(300):
+            need(False, f"--profiler-port never served: {binary.lines[-5:]}")
+        t0 = time.perf_counter()
+        status, body = binary.get(f"/profile?ms={PROFILE_MS}", port=port,
+                                  timeout=300)
+        need(status == 200, f"GET /profile answered {status}: {body[:200]}")
+        return dict(_trace_kernels(body, "GET /profile"),
+                    seconds=time.perf_counter() - t0, bytes=len(body),
+                    server_start_s=_server_start_s(binary))
+
+    return capture
+
+
+def _debug_profile(journal):
+    """The restart's capture: /debug/profile into the journal dir as soon
+    as the profiler server serves (the same single-flight capture)."""
+
+    def capture(binary):
+        if not binary.profiling.wait(300):
+            need(False, f"--profiler-port never served: {binary.lines[-5:]}")
+        t0 = time.perf_counter()
+        status, body = binary.get(f"/debug/profile?ms={PROFILE_MS}",
+                                  timeout=300)
+        need(status == 200, f"/debug/profile answered {status}: {body[:200]}")
+        path = json.loads(body)["path"]
+        need(os.path.dirname(path) == journal,
+             f"the capture is not in the journal dir: {path}")
+        with open(os.path.join(path, "trace.json")) as fh:
+            text = fh.read()
+        return dict(_trace_kernels(text, "/debug/profile"),
+                    seconds=time.perf_counter() - t0, bytes=len(text),
+                    server_start_s=_server_start_s(binary))
+
+    return capture
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        return sock.getsockname()[1]
 
 
 def _metric(text, family, name="-", namespace="-"):
@@ -3101,8 +3211,10 @@ def _runtime_binary_in(workloads, root):
                "--data-dir", data, "--journal-dir", journal,
                "--metrics-port", "0", "--no-leader-elect", "--tick", "0.1",
                "--duration", str(BINARY_DURATION_S)]
-    args = command + list(BINARY_ARGS)
-    answers, metrics, ready_s, rc, stop_s, lines = _binary_run(args, False)
+    port = _free_port()
+    args = command + list(BINARY_ARGS) + ["--profiler-port", str(port)]
+    answers, metrics, ready_s, rc, stop_s, lines, profile = _binary_run(
+        args, False, _profile_route(port))
     requests = _metric(metrics, "karpenter_solver_requests_total")
     fallbacks = _metric(metrics, "karpenter_solver_fallback_total") or 0.0
     need(requests and requests > 0, "/metrics shows no solver request")
@@ -3121,6 +3233,9 @@ def _runtime_binary_in(workloads, root):
            f"karpenter_pending_capacity_* for all {BINARY_SHAPE['types']} "
            f"producers; SIGTERM -> exit {rc} in {stop_s} s; fence "
            f"generation {generation}")
+    report(f"binary GET :P/profile?ms={PROFILE_MS} over the first tick: "
+           f"{profile}; manager tick "
+           f"{_metric(metrics, 'karpenter_runtime_tick_seconds', 'manager')} s")
     store = open_store(data)
     try:
         mps = store.list("MetricsProducer")
@@ -3131,7 +3246,8 @@ def _runtime_binary_in(workloads, root):
              f"no status in the data dir, e.g. {bare[:3]}")
     finally:
         store.close()
-    answers, metrics, ready_s, rc, stop_s, _ = _binary_run(args, True)
+    answers, metrics, ready_s, rc, stop_s, _, profile = _binary_run(
+        args, True, _debug_profile(journal))
     regenerated = read_generation(journal)
     need(regenerated > generation,
          f"fence generation {generation} -> {regenerated}")
@@ -3139,6 +3255,9 @@ def _runtime_binary_in(workloads, root):
            f"{ready_s} s; SIGTERM -> exit {rc} in {stop_s} s; fence "
            f"generation {generation} -> {regenerated}; all "
            f"{len(mps)} producers had a status on reopen")
+    report(f"binary restart /debug/profile?ms={PROFILE_MS} into J over the "
+           f"first tick: {profile}; manager tick "
+           f"{_metric(metrics, 'karpenter_runtime_tick_seconds', 'manager')} s")
     wal = os.path.join(data, "wal.jsonl")
     wal_size = os.path.getsize(wal)
     hidden = dict(os.environ, CUDA_VISIBLE_DEVICES="")

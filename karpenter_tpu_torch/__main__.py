@@ -9,8 +9,9 @@ The port's copy of karpenter_tpu/__main__.py: the same flags, defaults,
 {cuda,cpu}` (default cuda). The process runs on the CUDA card: without
 one, or when a kernel does not build, it exits non-zero with the reason
 and starts no tick — it never degrades to the CPU, which runs only when
-`--device cpu` names it. Flags whose modules are not ported yet
-(NOT_PORTED_FLAGS) exit 2 with a usage error naming the module.
+`--device cpu` names it. `--profiler-port P` serves torch.profiler
+captures as Chrome traces over HTTP (observability/profiler.py), where
+the reference serves xprof's gRPC.
 
 `--simulate` runs the operator's dry run or a seeded SimLab world
 (simlab/, simulate.py) instead of the control loop, on the same device
@@ -55,16 +56,12 @@ import time
 
 from karpenter_tpu_torch.leaderelection import LeaderElector
 from karpenter_tpu_torch.observability import MetricsServer
+from karpenter_tpu_torch.observability.profiler import (
+    start_profiler_server,
+    stop_profiler_server,
+)
 from karpenter_tpu_torch.runtime import KarpenterRuntime, Options
 from karpenter_tpu_torch.utils.log import setup as log_setup
-
-# flag -> (is it set?, the reference's module it needs, by its path under
-# the package root): each exits 2
-NOT_PORTED_FLAGS = (
-    ("--profiler-port", lambda a: bool(a.profiler_port),
-     "the jax.profiler server of observability/profiler.py, "
-     "which has no torch counterpart"),
-)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -199,8 +196,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--profiler-port",
         type=int,
         default=0,
-        help="start the JAX profiler server on this port (0 = off; not "
-        "ported)",
+        help="serve torch.profiler captures on this port (0 = off): GET "
+        "/profile?ms=N answers a Chrome trace",
     )
     parser.add_argument(
         "--trace-export",
@@ -697,12 +694,6 @@ def parse_args(argv=None) -> argparse.Namespace:
             f"--event-debounce must be >= 0 seconds (0 = dispatch the "
             f"pass immediately), got {args.event_debounce}"
         )
-    for flag, is_set, module in NOT_PORTED_FLAGS:
-        if is_set(args):
-            parser.error(
-                f"{flag} needs the reference's {module}, which is not "
-                "ported to karpenter_tpu_torch yet"
-            )
     return args
 
 
@@ -952,6 +943,11 @@ def main(argv=None) -> int:
     webhook_server = None
     try:
         webhook_server = _start_webhook_server(args)
+        if args.profiler_port and start_profiler_server(args.profiler_port):
+            print(
+                f"torch profiler listening on :{args.profiler_port}",
+                file=sys.stderr,
+            )
         # with --partitions the per-partition lease plane IS the
         # election: every replica must tick (each serves its owned
         # partitions), so the global whole-process gate is superseded
@@ -964,6 +960,7 @@ def main(argv=None) -> int:
     finally:
         _export_trace(args)
         metrics_server.stop()
+        stop_profiler_server()
         if webhook_server is not None:
             webhook_server.stop()
         runtime.close()

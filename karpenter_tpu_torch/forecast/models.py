@@ -44,6 +44,7 @@ from karpenter_tpu_torch.utils.operands import (
     I32,
     Operands,
     host_seam,
+    on_device,
 )
 
 MODEL_LINEAR = 0
@@ -183,7 +184,9 @@ def _residual_stats(values, valid, times, weights, slope, intercept):
 
 
 def forecast(inputs: ForecastInputs) -> ForecastOutputs:
-    """The batched forecast program (module docstring)."""
+    """The batched forecast program (module docstring); host operands are
+    placed as utils/operands.on_device says."""
+    inputs = on_device(inputs)
     values = inputs.values.T.contiguous()
     valid = inputs.valid.T.contiguous()
     times = inputs.times.T.contiguous()

@@ -22,12 +22,15 @@ HTTP surface (the port's copy of karpenter_tpu/observability).
   server.py          /metrics, /healthz, /readyz and the /debug/*
                      endpoints
   profiler.py        solver_trace (a torch.profiler range around a
-                     device section) and /debug/profile's bounded
-                     single-flight torch.profiler capture
+                     device section, probed once), the profiler server
+                     (--profiler-port: GET /profile answers a Chrome
+                     trace) and /debug/profile's bounded single-flight
+                     torch.profiler capture
 
 Copies of the reference's modules of the same names, except
-profiler.py, whose jax.profiler calls become torch.profiler ones (the
-remote xprof server has no counterpart), and devicetelemetry.py, whose
+profiler.py, whose jax.profiler calls become torch.profiler ones (its
+xprof server becomes an HTTP server of Chrome traces), and
+devicetelemetry.py, whose
 sources are torch.cuda's memory stats and the service's first-time
 events (its module docstring).
 """
@@ -42,7 +45,10 @@ from karpenter_tpu_torch.observability.flightrecorder import (
     reset_default_flight_recorder,
     set_default_flight_recorder,
 )
-from karpenter_tpu_torch.observability.profiler import solver_trace
+from karpenter_tpu_torch.observability.profiler import (
+    solver_trace,
+    start_profiler_server,
+)
 from karpenter_tpu_torch.observability.provenance import (
     DecisionLedger,
     default_ledger,
@@ -76,4 +82,5 @@ __all__ = [
     "set_default_ledger",
     "set_default_tracer",
     "solver_trace",
+    "start_profiler_server",
 ]

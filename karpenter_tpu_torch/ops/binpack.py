@@ -105,7 +105,7 @@ _CONSTRAINT_FIELDS = (
 def _as_field(name: str, value, device: torch.device) -> Optional[torch.Tensor]:
     if value is None:
         return None
-    if isinstance(value, np.ndarray):
+    if not isinstance(value, torch.Tensor):
         # a copy: the tensor never aliases (or writes to) the caller's array
         value = torch.from_numpy(np.array(value, order="C"))
     return value.to(device=device, dtype=_FIELD_DTYPES[name]).contiguous()
@@ -466,11 +466,25 @@ def nodes_of(hists: torch.Tensor, buckets: int) -> torch.Tensor:
     return nodes
 
 
+def on_device(inputs: BinPackInputs) -> BinPackInputs:
+    """The inputs as tensors. Inputs whose fields are all tensors come
+    back as they are. With a host field (a numpy array, or any array
+    np.asarray takes), every field is placed on the device of the
+    inputs' tensors, or on the default device when none is a tensor: the
+    reference's jitted program takes host operands the same way."""
+    fields = {name: getattr(inputs, name) for name in _FIELD_DTYPES}
+    if all(v is None or isinstance(v, torch.Tensor) for v in fields.values()):
+        return inputs
+    devices = [v.device for v in fields.values() if isinstance(v, torch.Tensor)]
+    return inputs_from_numpy(fields, devices[0] if devices else None)
+
+
 def binpack(
     inputs: BinPackInputs, buckets: int = DEFAULT_BUCKETS
 ) -> BinPackOutputs:
     """The plain PyTorch program: all five outputs, on whatever device the
-    inputs live on."""
+    inputs live on (numpy inputs: see on_device)."""
+    inputs = on_device(inputs)
     assigned, bucket, w_row = assign_rows(inputs, buckets)
     n_groups = inputs.group_allocatable.shape[0]
     hists = class_histograms(

@@ -39,6 +39,7 @@ from karpenter_tpu_torch.utils.operands import (
     I32,
     Operands,
     host_seam,
+    on_device,
 )
 
 # candidate ladder width: each row scores base .. base + CANDIDATES - 1
@@ -121,7 +122,9 @@ def headroom_need(demand_hi, slo_target, demand_valid):
 
 
 def cost_decide(inputs: CostInputs) -> CostOutputs:
-    """The batched refinement program (module docstring)."""
+    """The batched refinement program (module docstring); host operands
+    are placed as utils/operands.on_device says."""
+    inputs = on_device(inputs)
     base = inputs.base_desired.to(F32)
     cand, cap_on, hi = ladder(
         base, inputs.min_replicas.to(F32), inputs.max_replicas.to(F32),

@@ -38,6 +38,7 @@ from karpenter_tpu_torch.utils.operands import (
     I32,
     Operands,
     host_seam,
+    on_device,
 )
 
 # target types (order matters: encoded into int arrays)
@@ -206,7 +207,9 @@ def _allowed(inputs, spec, elapsed, ptype, pvalue, pperiod, pvalid, select):
 
 
 def decide(inputs: DecisionInputs) -> DecisionOutputs:
-    """The full decision pipeline, on whatever device the inputs live on."""
+    """The full decision pipeline, on whatever device the inputs live on
+    (host operands: see utils/operands.on_device)."""
+    inputs = on_device(inputs)
     rec = _recommendations(inputs)  # f32[N, M]
     if inputs.forecast_value is not None:
         # the proactive blend can only raise a recommendation

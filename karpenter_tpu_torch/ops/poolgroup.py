@@ -50,6 +50,7 @@ from karpenter_tpu_torch.utils.operands import (
     I32,
     Operands,
     host_seam,
+    on_device,
 )
 
 # pool-count ceiling per group and the static pool-axis buckets (K^P
@@ -187,7 +188,9 @@ def poolgroup_decide(
     """The batched joint program. `enforce=False` is the degraded
     independent rung: the per-pool ladders still refine every pool, but
     the selection stays at the independent point (ratio_ok still reports
-    the constraints)."""
+    the constraints). Host operands are placed as
+    utils/operands.on_device says."""
+    inputs = on_device(inputs)
     base = inputs.base_desired.to(F32)  # [G, P]
     g, p = base.shape
     c = CANDIDATES**p

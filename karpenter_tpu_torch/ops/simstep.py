@@ -61,7 +61,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.utils.operands import F32, Operands
+from karpenter_tpu_torch.utils.operands import F32, Operands, on_device
 
 _ONE = np.float32(1.0)
 _ZERO = np.float32(0.0)
@@ -328,7 +328,9 @@ def _policy_torch(knobs, demand_prev, forecast_prev, price_prev, replicas,
 
 def sim_step(inputs: SimStepInputs) -> SimStepOutputs:
     """One tick on the inputs' device (elementwise: any leading batch
-    shape rides the same program)."""
+    shape rides the same program; host operands: see
+    utils/operands.on_device)."""
+    inputs = on_device(inputs)
     new, violation, cost, backlog = _step_torch(
         inputs.replicas, inputs.target, inputs.demand, inputs.price,
         inputs.fault, inputs,
@@ -342,7 +344,9 @@ def sim_rollout(inputs: SimRolloutInputs) -> SimRolloutOutputs:
     """A whole episode on the inputs' device: trails [..., T, R] with any
     leading batch shape ([T, R] is one cluster, [B, T, R] a fleet). Each
     tick is one set of batched ops over [..., R]; the per-tick component
-    rows are stacked on the time axis at the end."""
+    rows are stacked on the time axis at the end. Host operands are
+    placed as utils/operands.on_device says."""
+    inputs = on_device(inputs)
     replicas = inputs.replicas0
     streak = inputs.streak0
     d_prev = torch.zeros_like(replicas)
@@ -381,6 +385,7 @@ def sim_rollout_vmapped(inputs: SimRolloutInputs) -> SimRolloutOutputs:
     """The batched program: B clusters' trails and knobs stacked on a
     leading axis ([B, T, R]), the five scalars shared. It is sim_rollout
     itself — every op already broadcasts over the batch axis."""
+    inputs = on_device(inputs)
     if inputs.replicas0.dim() != 2:
         raise ValueError(
             "sim_rollout_vmapped takes batched trails (replicas0 f32[B, R]), "

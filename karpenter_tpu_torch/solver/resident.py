@@ -103,11 +103,13 @@ class _Entry:
 
 
 def _stack_bytes(stacked: BinPackInputs) -> int:
+    """The stack's bytes: tensor leaves, or host arrays where the caller's
+    put keeps them on the host (both have nbytes)."""
     total = 0
     for f in dataclasses.fields(BinPackInputs):
         leaf = getattr(stacked, f.name)
         if leaf is not None:
-            total += leaf.numel() * leaf.element_size()
+            total += leaf.nbytes
     return total
 
 

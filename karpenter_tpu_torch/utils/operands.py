@@ -15,6 +15,9 @@ group) gets:
   groups, None kept (tensor leaves copied to the host, numpy leaves as
   they are).
 - `obj.to(device)`: the same operands on another device.
+- `on_device(obj)`: the operands as tensors, host leaves placed on the
+  default device (the programs' first step, so they take host operands
+  as the reference's jitted programs do).
 - `Cls.from_arrays(src)`: the same operands as host numpy arrays with
   the dtypes pinned (the host view the numpy mirrors and the solve
   service's families take).
@@ -127,14 +130,29 @@ class Operands:
         )
 
 
-def _tensor_leaves(obj, out):
+def _leaves(obj, out):
     for f in dataclasses.fields(obj):
         value = getattr(obj, f.name)
         if isinstance(value, Operands):
-            _tensor_leaves(value, out)
-        elif isinstance(value, torch.Tensor):
+            _leaves(value, out)
+        elif value is not None:
             out.append(value)
     return out
+
+
+def on_device(inputs: Operands) -> Operands:
+    """`inputs` as tensors. Operands without a host array come back as
+    they are. With one (a numpy array, or any array np.asarray takes;
+    scalars do not count), every field is placed on the device of the
+    operands' tensors, or on the default device when none is a tensor:
+    the reference's jitted programs take host operands the same way."""
+    leaves = _leaves(inputs, [])
+    if not any(
+        not isinstance(v, torch.Tensor) and np.ndim(v) > 0 for v in leaves
+    ):
+        return inputs
+    devices = [v.device for v in leaves if isinstance(v, torch.Tensor)]
+    return type(inputs).from_numpy(inputs, devices[0] if devices else None)
 
 
 def _rebuild(obj, arrays):
@@ -156,7 +174,7 @@ def fetch(tree):
     and split back on the host (4-byte leaves first, so every slice
     stays aligned). None stays None; a tree without tensors passes
     through."""
-    leaves = _tensor_leaves(tree, [])
+    leaves = [v for v in _leaves(tree, []) if isinstance(v, torch.Tensor)]
     if not leaves:
         return tree
     FETCHES["count"] += 1

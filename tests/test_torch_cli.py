@@ -14,8 +14,7 @@ HTTP surface and leader election, against the reference's, on the CPU.
     reference's and run (the controller beside a CPU sidecar, the
     providers' factories with no SDK bound); Options.solver_uri fronts
     the sidecar;
-  * `--profiler-port` (no torch counterpart) exits 2 naming its module;
-    `--shard-mesh` parses with the reference's errors, and the three
+  * `--shard-mesh` parses with the reference's errors, and the three
     shard options reach the runtime's service; `--tenant-config`,
     `--introspect` and `--partitions` (and their Options fields) run;
     `--simulate`,
@@ -88,18 +87,6 @@ class TestParseArgs:
             port_main.parse_args(argv)
         assert exit_info.value.code == 2
         assert message in capsys.readouterr().err
-
-    @pytest.mark.parametrize("argv,module", [
-        pytest.param(["--profiler-port", "9999"], "jax.profiler server",
-                     id="argv3-jax.profiler server"),
-    ])
-    def test_unported_flag_exits_2_naming_its_module(self, argv, module,
-                                                     capsys):
-        with pytest.raises(SystemExit) as exit_info:
-            port_main.main(argv + ["--device", "cpu"])
-        assert exit_info.value.code == 2
-        err = capsys.readouterr().err
-        assert module in err and "not ported" in err
 
     @pytest.mark.parametrize("spec,want", [
         ("8x1", (8, 1)), ("2X4", (2, 4)), ("", None),
