@@ -256,14 +256,21 @@ no result line) if any of them fails:
    resizes equal the twin's; tick p50/p95, the split into RPC round
    trips, the sidecar's service.solve and the kernels' device ms per
    launch, Solve and Decide RPCs and request bytes per tick; (b) at
-   10,000 pods, `python -m karpenter_tpu_torch.sidecar` on the card and
-   `python -m karpenter_tpu_torch --solver-uri --cloud-provider tpu
-   --data-dir D` with CUDA_VISIBLE_DEVICES="": the controller ticks
-   through the sidecar, its producers' statuses equal an in-process card
-   runtime's, its pools answer the no-SDK guidance, both exit 0 on
-   SIGTERM; the sidecar with the card hidden exits 1 before it binds, and
-   a --device cuda controller beside a --device cpu sidecar exits 1
-   before its first tick.
+   10,000 pods, the port's shipped Deployment (config/torch, rendered by
+   hack/render_overlay.py) as processes: the kernels prebuilt as the
+   image's build step builds them (`python -m
+   karpenter_tpu_torch.prebuild`; each library's NEEDED entries printed
+   and held to the runtime stage's), then the solver container's own
+   command and args on the card (endpoints substituted) and the
+   controller container's flags with CUDA_VISIBLE_DEVICES="": the
+   sidecar starts without running nvcc (every library's path and mtime
+   unchanged, no .tmp), the controller ticks through the sidecar, its
+   producers' statuses equal an in-process card runtime's, its pools
+   answer the no-SDK guidance, both exit 0 on SIGTERM, and the sidecar's
+   closing line counts each kernel launched once per Solve it answered;
+   the sidecar with the card hidden exits 1 before it binds, and a
+   --device cuda controller beside a --device cpu sidecar exits 1 before
+   its first tick.
 17. the multi-tenant control plane (tenancy/, --tenant-config) and the
    solver introspection plane (--introspect) on SolverService() on the
    card: (a) simulate_multitenant at BASELINE.json's 1000 tenants x 4
@@ -2507,7 +2514,9 @@ RUNTIME_TICKS = 1  # timed ticks after the first (4 until phase 14, 2 until 15)
 RUNTIME_PARITY_TICKS = 2  # ticks the CPU runtime repeats (the first included)
 RUNTIME_TICK_S = 5.0  # the MetricsProducer interval
 RUNTIME_PROFILED_TICKS = 1
-RUNTIME_LATE_S = 260.0  # smoke seconds past which (a) skips its profiled tick
+# smoke seconds past which (a) skips its profiled tick: a slow host reached
+# phase 13 at 246 s and, with the tick profiled (~90 s), ran 1,163 s
+RUNTIME_LATE_S = 200.0
 # the binary's world, written into a data dir
 BINARY_SHAPE = dict(pods=10_000, types=300, n_has=400, metrics=3, seed=0,
                     groups=16, pools=4)
@@ -3118,6 +3127,24 @@ def _trace_kernels(text: str, what: str) -> dict:
             "solver_range_cats": sorted({str(e.get("cat")) for e in ranges})}
 
 
+def _check_solver_ranges(profile, lines, what):
+    """A capture taken on the profiler server's thread over a tick holds
+    the solver.* ranges that the binary's other threads open where this
+    torch takes profile_all_threads, and none where it does not; the
+    binary's profiler line names which."""
+    from karpenter_tpu_torch.observability import profiler as P
+
+    threads = P.capture_threads()
+    listening = [line for line in lines
+                 if "torch profiler listening on :" in line]
+    need(listening and threads in listening[0],
+         f"the profiler line does not name {threads!r}: {listening}")
+    need((profile["solver_ranges"] > 0) == P._all_threads(),
+         f"{what}: {profile['solver_ranges']} solver.* ranges with "
+         f"captures holding the ranges of {threads}")
+    profile["threads"] = threads
+
+
 def _server_start_s(binary) -> float:
     """Seconds from the metrics server's line to the profiler server's:
     the webhook start (none here) and the profiler's warm-up window."""
@@ -3233,6 +3260,7 @@ def _runtime_binary_in(workloads, root):
            f"karpenter_pending_capacity_* for all {BINARY_SHAPE['types']} "
            f"producers; SIGTERM -> exit {rc} in {stop_s} s; fence "
            f"generation {generation}")
+    _check_solver_ranges(profile, lines, "GET /profile")
     report(f"binary GET :P/profile?ms={PROFILE_MS} over the first tick: "
            f"{profile}; manager tick "
            f"{_metric(metrics, 'karpenter_runtime_tick_seconds', 'manager')} s")
@@ -3246,8 +3274,9 @@ def _runtime_binary_in(workloads, root):
              f"no status in the data dir, e.g. {bare[:3]}")
     finally:
         store.close()
-    answers, metrics, ready_s, rc, stop_s, _, profile = _binary_run(
+    answers, metrics, ready_s, rc, stop_s, lines, profile = _binary_run(
         args, True, _debug_profile(journal))
+    _check_solver_ranges(profile, lines, "/debug/profile")
     regenerated = read_generation(journal)
     need(regenerated > generation,
          f"fence generation {generation} -> {regenerated}")
@@ -4519,9 +4548,24 @@ DEPLOY_TWIN_TICKS = 3  # the CPU twin's churned ticks
 DEPLOY_LATE_S = 800.0  # smoke seconds past which the twin is cut to 1
 DEPLOY_SIDECAR = None  # the sidecar's device: the card
 DEPLOY_CONTROLLER = "cuda"  # the controller's --device
-# (b) the processes' world, and the sidecar process's extra flags
+# (b) the processes' world, and the sidecar process's extra flags (after
+# the overlay's own)
 DEPLOY_BINARY_SHAPE = dict(pods=10_000, types=300, seed=0)
 DEPLOY_SIDECAR_ARGS = ()
+# the port's kustomize overlay, whose Deployment (b) runs
+DEPLOY_OVERLAY = os.path.join("config", "torch")
+# the controller container's flags that name an endpoint: (b) gives the
+# process its own (--solver-uri to its sidecar, --data-dir for
+# --apiserver, --metrics-port 0, no webhook) and keeps the rest
+DEPLOY_ENDPOINT_FLAGS = ("--apiserver", "--solver-uri", "--webhook-port",
+                         "--webhook-cert-dir", "--metrics-port",
+                         "--data-dir", "--profiler-port")
+# the shared libraries the image's runtime stage (Dockerfile.torch: Ubuntu
+# 24.04 with Python 3.12, no toolkit) holds for the prebuilt kernels'
+# NEEDED entries: glibc's and the GCC runtime's
+RUNTIME_STAGE_LIBS = ("libc.so.6", "ld-linux-x86-64.so.2", "libm.so.6",
+                      "libpthread.so.0", "libdl.so.2", "librt.so.1",
+                      "libgcc_s.so.1", "libstdc++.so.6")
 DEPLOY_BINARY_S = 30  # the controller process's --duration
 DEPLOY_KINDS = ("MetricsProducer", "ScalableNodeGroup", "HorizontalAutoscaler")
 # the controller process's environment: no card, and no GCE metadata lookup
@@ -4756,19 +4800,24 @@ def _deploy_kernel_ms(torch, TB, TF, inputs):
     }, "CUDA events around 50 wrapper calls (the profiler showed no rows)"
 
 
-class _Sidecar:
-    """`python -m karpenter_tpu_torch.sidecar` as a subprocess: `port`
-    once it prints its serving line."""
+# a sidecar of the phase's own: an ephemeral port on the loopback
+_LOCAL_SIDECAR = ("--port", "0", "--host", "127.0.0.1")
 
-    def __init__(self, args, env=None):
+
+class _Sidecar:
+    """`python -m <module> <args>` (the solver sidecar) as a subprocess:
+    `port` once it prints its serving line, `summary` its closing line
+    (RPCs answered, kernel launches) once stopped."""
+
+    def __init__(self, args, env=None, module="karpenter_tpu_torch.sidecar"):
         import subprocess
         import threading
 
         self.lines = []
         self.port = None
+        self.summary = None
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "karpenter_tpu_torch.sidecar",
-             "--port", "0", "--host", "127.0.0.1", *args],
+            [sys.executable, "-m", module, *args],
             cwd=os.path.dirname(os.path.abspath(__file__)),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env,
@@ -4802,7 +4851,116 @@ class _Sidecar:
                 self.proc.kill()
                 self.proc.wait()
         self.reader.join(timeout=10)
+        closing = [line for line in self.proc.stdout.read().splitlines()
+                   if line.startswith('{"stopped"')]
+        if closing:
+            self.summary = json.loads(closing[-1])
         return rc
+
+
+def _overlay_containers() -> dict:
+    """{name: container} of the karpenter-tpu Deployment that the port's
+    overlay (DEPLOY_OVERLAY) renders to, through hack/render_overlay.py
+    (the repo's kustomize reader: no kubectl needed)."""
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "render_overlay", os.path.join(here, "hack", "render_overlay.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    docs = module.render(os.path.join(here, DEPLOY_OVERLAY))
+    (deployment,) = [d for d in docs if d.get("kind") == "Deployment"
+                     and d["metadata"]["name"] == "karpenter-tpu"]
+    return {c["name"]: c
+            for c in deployment["spec"]["template"]["spec"]["containers"]}
+
+
+def _flags(args) -> list:
+    """A container's args as [flag, value or None] pairs (`--f=v`, `--f v`
+    or a bare `--f`)."""
+    pairs, rest = [], list(args)
+    while rest:
+        arg = rest.pop(0)
+        need(arg.startswith("--"), f"a container arg that is no flag: {arg}")
+        flag, eq, value = arg.partition("=")
+        if not eq and rest and not rest[0].startswith("--"):
+            value, eq = rest.pop(0), "="
+        pairs.append([flag, value if eq else None])
+    return pairs
+
+
+def _unflag(pairs) -> list:
+    return [flag if value is None else f"{flag}={value}"
+            for flag, value in pairs]
+
+
+def _overlay_sidecar(solver, cache_dir):
+    """(module, args): the solver container's command module and every one
+    of its args, with the endpoints substituted: --port -> 0, --host ->
+    127.0.0.1 (added: the container binds every interface), and
+    --compile-cache-dir -> `cache_dir` where the overlay names one."""
+    command = solver.get("command") or []
+    need(len(command) == 3 and command[:2] == ["python", "-m"],
+         f"the solver container's command: {command}")
+    local = {"--port": "0", "--host": "127.0.0.1",
+             "--compile-cache-dir": cache_dir}
+    pairs = _flags(solver.get("args") or [])
+    for pair in pairs:
+        if pair[0] in local:
+            pair[1] = local[pair[0]]
+    named = {flag for flag, _ in pairs}
+    pairs += [[f, local[f]] for f in ("--port", "--host") if f not in named]
+    return command[2], _unflag(pairs), "--compile-cache-dir" in named
+
+
+def _overlay_controller_flags(controller) -> list:
+    """The controller container's flags that name no endpoint."""
+    need(not controller.get("command"), "the controller container "
+         f"overrides the image's entry point: {controller.get('command')}")
+    return _unflag([pair for pair in _flags(controller.get("args") or [])
+                    if pair[0] not in DEPLOY_ENDPOINT_FLAGS])
+
+
+def _deploy_prebuild(build_dir):
+    """The image's build step, `python -m karpenter_tpu_torch.prebuild`,
+    in a process of its own (into `build_dir` when one is named): its
+    {"build", "libraries"} line, and each library's NEEDED entries
+    (readelf -d), which must all be the runtime stage's
+    (RUNTIME_STAGE_LIBS)."""
+    import re
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "karpenter_tpu_torch.prebuild",
+         *([build_dir] if build_dir else [])],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    need(proc.returncode == 0, f"the prebuild exited {proc.returncode}: "
+         f"{proc.stderr[-2000:]}")
+    built = json.loads(proc.stdout.splitlines()[-1])
+    needed = {}
+    for name, path in built["libraries"].items():
+        elf = subprocess.run(["readelf", "-d", path], capture_output=True,
+                             text=True, timeout=60)
+        need(elf.returncode == 0, f"readelf -d {path}: {elf.stderr}")
+        needed[name] = re.findall(r"\(NEEDED\)\s+Shared library: \[([^]]+)\]",
+                                  elf.stdout)
+    foreign = {name: [x for x in libs if x not in RUNTIME_STAGE_LIBS]
+               for name, libs in needed.items()}
+    need(not any(foreign.values()), "NEEDED entries the image's runtime "
+         f"stage does not hold: {foreign}")
+    report(f"prebuild (the image's build step) in "
+           f"{time.perf_counter() - t0} s into {built['build']}: "
+           f"{sorted(built['libraries'])}; NEEDED {needed}")
+    return built
+
+
+def _build_snapshot(directory) -> dict:
+    """{file: mtime_ns} of a build directory."""
+    return {name: os.stat(os.path.join(directory, name)).st_mtime_ns
+            for name in sorted(os.listdir(directory))}
 
 
 def _deploy_statuses(store) -> dict:
@@ -4813,10 +4971,31 @@ def _deploy_statuses(store) -> dict:
 
 
 def _deploy_processes(workloads, root):
-    """(b) the sidecar and the controller as processes, in the
-    Deployment's shape, and the two device-rule refusals. The three
-    sidecars start together, before the worlds are written, so their
-    start-up overlaps."""
+    """(b) the port's shipped Deployment as processes, and the two
+    device-rule refusals. The Deployment is the one config/torch renders
+    to (DEPLOY_OVERLAY, through hack/render_overlay.py). What the phase
+    substitutes, and nothing else:
+
+      * the solver: the container's command module and every one of its
+        args, with --port -> 0 and --host -> 127.0.0.1 (the phase's own
+        endpoint) and --compile-cache-dir -> a scratch directory where
+        the overlay names one (config/torch names none), then
+        DEPLOY_SIDECAR_ARGS (none on the card);
+      * the controller: the container's flags less those that name an
+        endpoint (DEPLOY_ENDPOINT_FLAGS: --apiserver, --solver-uri,
+        --webhook-port and --webhook-cert-dir there), which keeps
+        --cloud-provider; then the phase's own endpoints, --solver-uri
+        127.0.0.1:<the sidecar's port>, --data-dir D in place of
+        --apiserver, --metrics-port 0 and no webhook, and its run
+        controls --no-leader-elect, --tick 0.1 and --duration
+        DEPLOY_BINARY_S; CUDA_VISIBLE_DEVICES="", as the container has
+        no card.
+
+    Before the sidecar starts, the kernels are built as the image's build
+    step builds them, into the directory the sidecar loads from, and
+    starting the sidecar must run no nvcc there: every file's mtime
+    unchanged and no .tmp. The three sidecars start together, before the
+    worlds are written, so their start-up overlaps."""
     from karpenter_tpu_torch.cloudprovider import Options as CloudOptions
     from karpenter_tpu_torch.cloudprovider.tpu import TPUFactory
     from karpenter_tpu_torch.runtime import KarpenterRuntime, Options
@@ -4825,9 +5004,26 @@ def _deploy_processes(workloads, root):
 
     controller_env = dict(os.environ, **DEPLOY_CONTROLLER_ENV)
     t0 = time.perf_counter()
-    sidecar = _Sidecar(list(DEPLOY_SIDECAR_ARGS))
-    hidden = _Sidecar([], env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-    cpu_sidecar = _Sidecar(["--device", "cpu"])
+    containers = _overlay_containers()
+    solver, controller = containers["solver"], containers["controller"]
+    need(solver["image"] == controller["image"]
+         and solver["image"].startswith("karpenter-tpu-torch:"),
+         f"the overlay's images: {solver['image']}, {controller['image']}")
+    module, sidecar_args, names_cache = _overlay_sidecar(
+        solver, os.path.join(root, "kernels"))
+    flags = _overlay_controller_flags(controller)
+    render_s = time.perf_counter() - t0
+    built = _deploy_prebuild(os.path.join(root, "kernels")
+                             if names_cache else None)
+    before = _build_snapshot(built["build"])
+    sidecar_args += list(DEPLOY_SIDECAR_ARGS)
+    print(f"the overlay's solver: python -m {module} {sidecar_args}; its "
+          f"controller flags: {flags} (rendered in {render_s} s)",
+          flush=True)
+    sidecar = _Sidecar(sidecar_args, module=module)
+    hidden = _Sidecar(list(_LOCAL_SIDECAR),
+                      env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    cpu_sidecar = _Sidecar([*_LOCAL_SIDECAR, "--device", "cpu"])
     binaries = []
     try:
         data = os.path.join(root, "data")
@@ -4863,10 +5059,18 @@ def _deploy_processes(workloads, root):
              f"a pool with no SDK answered {guidance!r}")
         port = sidecar.wait_serving()
         serve_s = time.perf_counter() - t0
+        loaded = _sidecar_device_line(sidecar)
+        need(DEPLOY_SIDECAR == "cpu"
+             or f"loaded from {built['build']}" in loaded,
+             f"the sidecar's kernels: {loaded!r}")
+        changed = sorted(set(before.items()) ^ set(
+            _build_snapshot(built["build"]).items()))
+        need(not changed, "starting the sidecar changed its build "
+             f"directory (nvcc ran?): {changed}")
         binary = _Binary(
-            ["--solver-uri", f"127.0.0.1:{port}", "--cloud-provider", "tpu",
-             "--data-dir", data, "--metrics-port", "0", "--no-leader-elect",
-             "--tick", "0.1", "--duration", str(DEPLOY_BINARY_S)]
+            flags + ["--solver-uri", f"127.0.0.1:{port}", "--data-dir", data,
+                     "--metrics-port", "0", "--no-leader-elect", "--tick",
+                     "0.1", "--duration", str(DEPLOY_BINARY_S)]
             + (["--device", "cpu"] if DEPLOY_CONTROLLER == "cpu" else []),
             env=controller_env)
         binaries.append(binary)
@@ -4918,8 +5122,10 @@ def _deploy_processes(workloads, root):
         need(refusing, "no pool answered the no-SDK guidance")
         logged = any("no container API client bound" in x
                      for x in binary.lines)
-        report(f"processes: the sidecar served {serve_s} s after its start "
-               f"on its card; the controller ({device_line[0]}) ticked "
+        report(f"processes: the overlay's sidecar served {serve_s} s after "
+               f"its start on its card ({loaded}), no nvcc run (the "
+               f"{len(before)} files of its build directory unchanged); the "
+               f"controller ({device_line[0]}) ticked "
                f"with CUDA_VISIBLE_DEVICES=\"\", {requests} solves through "
                f"the sidecar, no fallback, exit 0 on SIGTERM; all "
                f"{len(got)} producers' statuses == the in-process card "
@@ -4949,6 +5155,28 @@ def _deploy_processes(workloads, root):
         hidden.stop()
         rc = sidecar.stop()
     need(rc == 0, f"the sidecar exited {rc} on SIGTERM")
+    summary = sidecar.summary
+    need(summary, "the sidecar printed no closing line")
+    solves, launches = summary["rpcs"]["Solve"][0], summary["launches"]
+    need(DEPLOY_SIDECAR == "cpu" or solves >= 1 and launches == {
+        "fused_assign": solves, "shelf_bfd": solves, "demand_reduce": 0},
+        f"the sidecar answered {solves} Solves with launches {launches}")
+    report(f"the overlay's sidecar on SIGTERM: {summary} (the overlay "
+           f"requests {solver['resources']['requests']['memory']}); each "
+           f"kernel launched once per Solve, in the sidecar; phase 16 (b) "
+           f"{time.perf_counter() - t0} s, of it the render {render_s} s")
+
+
+def _sidecar_device_line(sidecar, timeout=30) -> str:
+    """The sidecar's `sidecar device:` line on stderr (it comes before the
+    serving line on stdout; the reader thread may lag)."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        lines = [x for x in sidecar.lines if x.startswith("sidecar device:")]
+        if lines or time.perf_counter() > deadline:
+            need(lines, f"no sidecar device line: {sidecar.lines[-5:]}")
+            return lines[0]
+        time.sleep(0.05)
 
 
 def _sng_conditions(group):
@@ -6154,7 +6382,7 @@ def _multidevice_child(workloads, out_dir: str) -> None:
     ) for rank in (0, 1)]
     args = ("--multihost",) + (() if SHARD_DEVICE == "cuda"
                                else ("--device", "cpu"))
-    sidecars = [_Sidecar(args, env=dict(
+    sidecars = [_Sidecar([*_LOCAL_SIDECAR, *args], env=dict(
         os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(coord),
         WORLD_SIZE="2", RANK=str(rank))) for rank in (0, 1)]
     outs = []

@@ -57,6 +57,7 @@ import time
 from karpenter_tpu_torch.leaderelection import LeaderElector
 from karpenter_tpu_torch.observability import MetricsServer
 from karpenter_tpu_torch.observability.profiler import (
+    capture_threads,
     start_profiler_server,
     stop_profiler_server,
 )
@@ -945,7 +946,8 @@ def main(argv=None) -> int:
         webhook_server = _start_webhook_server(args)
         if args.profiler_port and start_profiler_server(args.profiler_port):
             print(
-                f"torch profiler listening on :{args.profiler_port}",
+                f"torch profiler listening on :{args.profiler_port} "
+                f"(captures hold the ranges of {capture_threads()})",
                 file=sys.stderr,
             )
         # with --partitions the per-partition lease plane IS the

@@ -32,16 +32,16 @@ single-flight lock, so they never overlap:
     (`curl -o trace.json 'http://HOST:PORT/profile?ms=500'`).
 
 Threads. A capture holds the CUDA kernels of the whole process (CUPTI
-records every launch) but the record_function ranges of the capturing
-thread only: kineto's CPU-side callbacks are thread-local. So a capture
-taken on a server's thread holds the kernels that the solve service's
-worker thread launched and none of the worker's `solver.*` ranges.
-Measured on an H100 (torch 2.11, CUDA 12.8): phase 13 (c) of
-chip_smoke.py, both captures over the binary's first tick, held both
-kernels and 0 `solver.*` ranges, as did tests/test_torch_profiler_cuda.py;
-on the CPU (torch 2.13) tests/test_torch_profiler.py pins the same rule.
-A range shows on the timeline when the thread that opens it is the one
-that captures (capture_chrome_trace with a `sleep` that does the work).
+records every launch). kineto's CPU-side callbacks are thread-local, so
+by default it records the record_function ranges of the capturing
+thread only: a capture taken on a server's thread would hold the kernels
+that the solve service's worker thread launched and none of the
+worker's `solver.*` ranges, where the reference's xprof trace holds
+every thread's annotations. A capture therefore asks kineto for every
+thread (`_ExperimentalConfig(profile_all_threads=True)`) where the
+installed torch takes that option, probed once as `_probe` does
+(`capture_threads()` says which). Where it does not, a capture keeps
+the capturing thread's ranges only, and its log line says so.
 """
 
 from __future__ import annotations
@@ -106,9 +106,10 @@ def _probe():
 
 
 def reset_probe() -> None:
-    """Forget the cached probe (test isolation)."""
-    global _ANNOTATION_CLS
+    """Forget the cached probes (test isolation)."""
+    global _ANNOTATION_CLS, _ALL_THREADS
     _ANNOTATION_CLS = None
+    _ALL_THREADS = None
 
 
 def solver_trace(name: str):
@@ -146,6 +147,44 @@ class ProfileUnavailable(RuntimeError):
     no capture possible."""
 
 
+# probe cache: None = unprobed; otherwise whether this torch's kineto
+# takes the all-threads option
+_ALL_THREADS = None
+
+
+def _all_threads() -> bool:
+    """One-time probe: does torch.profiler take
+    `_ExperimentalConfig(profile_all_threads=True)`? (cached)"""
+    global _ALL_THREADS
+    if _ALL_THREADS is None:
+        try:
+            torch.profiler._ExperimentalConfig(profile_all_threads=True)
+            _ALL_THREADS = True
+        except (AttributeError, TypeError):  # an older kineto binding
+            _ALL_THREADS = False
+    return _ALL_THREADS
+
+
+def capture_threads() -> str:
+    """Whose record_function ranges a capture holds, as its log line
+    says it."""
+    if _all_threads():
+        return "all threads"
+    return (f"the capturing thread only (torch {torch.__version__} has no "
+            "profile_all_threads)")
+
+
+def _profile_kwargs() -> dict:
+    if not _all_threads():
+        return {"activities": _activities()}
+    return {
+        "activities": _activities(),
+        "experimental_config": torch.profiler._ExperimentalConfig(
+            profile_all_threads=True
+        ),
+    }
+
+
 def _activities():
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -165,7 +204,7 @@ def _capture(ms: int, sleep, write):
     try:
         t0 = _time.perf_counter()
         try:
-            prof = torch.profiler.profile(activities=_activities())
+            prof = torch.profiler.profile(**_profile_kwargs())
             prof.__enter__()
         except Exception as error:  # noqa: BLE001 — reported as 503
             raise ProfileUnavailable(
@@ -176,6 +215,10 @@ def _capture(ms: int, sleep, write):
             sleep(ms / 1e3)
         finally:
             prof.__exit__(None, None, None)
+        from karpenter_tpu_torch.utils.log import logger
+
+        logger().info("torch profiler capture of %d ms: ranges of %s", ms,
+                      capture_threads())
         return write(prof, ms, (_time.perf_counter() - t0) * 1e3)
     finally:
         _capture_lock.release()

@@ -27,7 +27,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.utils.device import DeviceLike, resolve_device
+from karpenter_tpu_torch.utils.device import DeviceLike, indexed, resolve_device
 
 DEFAULT_BUCKETS = 32
 
@@ -466,13 +466,23 @@ def nodes_of(hists: torch.Tensor, buckets: int) -> torch.Tensor:
     return nodes
 
 
-def on_device(inputs: BinPackInputs) -> BinPackInputs:
+def on_device(
+    inputs: BinPackInputs, device: DeviceLike = None
+) -> BinPackInputs:
     """The inputs as tensors. Inputs whose fields are all tensors come
     back as they are. With a host field (a numpy array, or any array
     np.asarray takes), every field is placed on the device of the
     inputs' tensors, or on the default device when none is a tensor: the
-    reference's jitted program takes host operands the same way."""
+    reference's jitted program takes host operands the same way. With
+    `device`, every field is placed there, and inputs already all there
+    come back as they are."""
     fields = {name: getattr(inputs, name) for name in _FIELD_DTYPES}
+    if device is not None:
+        dev = indexed(resolve_device(device))
+        if all(v is None or (isinstance(v, torch.Tensor) and v.device == dev)
+               for v in fields.values()):
+            return inputs
+        return inputs_from_numpy(fields, dev)
     if all(v is None or isinstance(v, torch.Tensor) for v in fields.values()):
         return inputs
     devices = [v.device for v in fields.values() if isinstance(v, torch.Tensor)]

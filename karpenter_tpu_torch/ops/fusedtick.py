@@ -53,6 +53,7 @@ from karpenter_tpu_torch.utils.operands import (
     Operands,
     fetch,
     host_seam,
+    on_device,
 )
 
 _I32_MAX = int(np.iinfo(np.int32).max)
@@ -302,7 +303,9 @@ def _pg_overlay(pg: PoolGroupOperands, final_desired, dout, dist):
 def fused_tick(inputs: FusedTickInputs) -> FusedTickOutputs:
     """forecast -> decide -> cost -> pool groups with every seam on the
     device, and no host synchronisation: no .item(), no boolean-mask
-    indexing, no branch on a tensor's value."""
+    indexing, no branch on a tensor's value. Host operands are placed
+    as utils/operands.on_device says."""
+    inputs = on_device(inputs)
     dec = inputs.decision
     n, m = dec.metric_value.shape
     fout = None

@@ -78,6 +78,7 @@ from karpenter_tpu_torch.ops.decision import DecisionInputs, DecisionOutputs, de
 from karpenter_tpu_torch.ops.fused_assign import ROWS_PER_BLOCK
 from karpenter_tpu_torch.utils.device import DeviceLike, resolve_device
 from karpenter_tpu_torch.utils.functional import pad_to_multiple as _pad_dim
+from karpenter_tpu_torch.utils.operands import on_device
 
 AXIS_PODS = "pods"
 AXIS_GROUPS = "groups"
@@ -967,16 +968,19 @@ def fleet_step(
     placed by shard_decision_inputs / shard_binpack_inputs run the
     sharded programs (outputs at the padded sizes, on the mesh's home
     device); others run on one device (the card unless device='cpu',
-    where the bin-pack takes the fused CUDA path)."""
+    where the bin-pack takes the fused CUDA path). Host operands (numpy
+    leaves, as the reference's fleet_step takes) are placed on that
+    device first."""
     if isinstance(decision_inputs, Sharded):
         d_out = rows_sharded(decision_inputs, decide, DecisionOutputs)
     else:
-        d_out = decide(decision_inputs.to(resolve_device(device)))
+        d_out = decide(on_device(decision_inputs, resolve_device(device)))
     if isinstance(binpack_inputs, Sharded):
         b_out = binpack_sharded(binpack_inputs, buckets)
     else:
-        b_out = TB.solve(binpack_inputs, buckets=buckets,
-                         device=resolve_device(device))
+        dev = resolve_device(device)
+        b_out = TB.solve(TB.on_device(binpack_inputs, dev), buckets=buckets,
+                         device=dev)
     return d_out, b_out
 
 

@@ -341,15 +341,19 @@ def main(argv=None) -> int:
         )
         return 1
     print(f"sidecar device: {note}", file=sys.stderr)
-    print(json.dumps({"serving": f"{args.host}:{port}", "service": SERVICE}),
-          flush=True)
     _serve_until_signalled(server)
     return 0
 
 
 def _serve_until_signalled(server: SolverServer) -> None:
-    """Serve until SIGTERM or ^C, then stop the server (and the
-    process-shared service) cleanly."""
+    """Print the serving line ({"serving": host:port, "service"}) on
+    stdout once SIGTERM is handled (a SIGTERM sent on that line stops
+    the server cleanly), serve until SIGTERM or ^C, then stop the server
+    (and the process-shared service) and print one closing JSON line on
+    stdout: the RPCs answered ({method: [calls, request bytes]}), the
+    CUDA kernel launches this process made ({wrapper: launches}) and its
+    peak resident memory in MiB."""
+    import resource
     import signal
 
     stopping = threading.Event()
@@ -359,6 +363,8 @@ def _serve_until_signalled(server: SolverServer) -> None:
                                  lambda signum, frame: stopping.set())
     except ValueError:
         pass  # not the main thread: ^C or the caller's stop() ends it
+    print(json.dumps({"serving": f"{server.host}:{server.port}",
+                      "service": SERVICE}), flush=True)
     try:
         while not stopping.wait(0.5):
             pass
@@ -368,9 +374,16 @@ def _serve_until_signalled(server: SolverServer) -> None:
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)
         server.stop()
+        from karpenter_tpu_torch.ops import fused_assign
         from karpenter_tpu_torch.solver import reset_default_service
 
         reset_default_service()
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+        print(json.dumps({"stopped": f"{server.host}:{server.port}",
+                          "rpcs": server.reset_rpcs(),
+                          "launches": dict(fused_assign.LAUNCHES),
+                          "peak_rss_mib": peak}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -37,10 +37,7 @@ def force_virtual_devices(n: int, device: DeviceLike = "cpu") -> None:
     global _VIRTUAL
     if n < 1:
         raise ValueError(f"need at least one virtual device, got {n}")
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    _VIRTUAL = (int(n), dev)
+    _VIRTUAL = (int(n), indexed(resolve_device(device)))
 
 
 def reset_virtual_devices() -> None:
@@ -78,6 +75,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def indexed(dev: torch.device) -> torch.device:
+    """`dev` with its index: a CUDA device named without one is the
+    current card (what a tensor placed there reports as its device)."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -15,9 +15,10 @@ group) gets:
   groups, None kept (tensor leaves copied to the host, numpy leaves as
   they are).
 - `obj.to(device)`: the same operands on another device.
-- `on_device(obj)`: the operands as tensors, host leaves placed on the
-  default device (the programs' first step, so they take host operands
-  as the reference's jitted programs do).
+- `on_device(obj, device=None)`: the operands as tensors, host leaves
+  placed beside the operands' tensors or on the default device (the
+  programs' first step, so they take host operands as the reference's
+  jitted programs do), or everything on `device` when one is named.
 - `Cls.from_arrays(src)`: the same operands as host numpy arrays with
   the dtypes pinned (the host view the numpy mirrors and the solve
   service's families take).
@@ -35,7 +36,7 @@ from typing import ClassVar, Mapping
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.utils.device import DeviceLike, resolve_device
+from karpenter_tpu_torch.utils.device import DeviceLike, indexed, resolve_device
 
 F32, I32, BOOL = torch.float32, torch.int32, torch.bool
 
@@ -140,13 +141,21 @@ def _leaves(obj, out):
     return out
 
 
-def on_device(inputs: Operands) -> Operands:
+def on_device(inputs: Operands, device: DeviceLike = None) -> Operands:
     """`inputs` as tensors. Operands without a host array come back as
     they are. With one (a numpy array, or any array np.asarray takes;
     scalars do not count), every field is placed on the device of the
     operands' tensors, or on the default device when none is a tensor:
-    the reference's jitted programs take host operands the same way."""
+    the reference's jitted programs take host operands the same way.
+    With `device`, every field is placed there (tensors moved, host
+    leaves and scalars uploaded), and operands already all there come
+    back as they are."""
     leaves = _leaves(inputs, [])
+    if device is not None:
+        dev = indexed(resolve_device(device))
+        if all(isinstance(v, torch.Tensor) and v.device == dev for v in leaves):
+            return inputs
+        return type(inputs).from_numpy(inputs, dev)
     if not any(
         not isinstance(v, torch.Tensor) and np.ndim(v) > 0 for v in leaves
     ):

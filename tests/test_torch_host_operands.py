@@ -22,11 +22,13 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 import test_constraints as ref_constraints
+import test_poolgroup as ref_poolgroup
 from karpenter_tpu.forecast import models as RM
 from karpenter_tpu.metrics.producers.pendingcapacity import (
     encoder as ref_encoder,
@@ -34,17 +36,21 @@ from karpenter_tpu.metrics.producers.pendingcapacity import (
 from karpenter_tpu.ops import binpack as RB
 from karpenter_tpu.ops import cost as RC
 from karpenter_tpu.ops import decision as RD
+from karpenter_tpu.ops import fusedtick as RFT
 from karpenter_tpu.ops import poolgroup as RPG
 from karpenter_tpu.ops import simstep as RSK
+from karpenter_tpu.parallel import mesh as RMESH
 from karpenter_tpu_torch import workloads
 from karpenter_tpu_torch.forecast import models as M
 from karpenter_tpu_torch.metrics.producers.pendingcapacity import encoder
 from karpenter_tpu_torch.ops import binpack as B
 from karpenter_tpu_torch.ops import cost as C
 from karpenter_tpu_torch.ops import decision as D
+from karpenter_tpu_torch.ops import fusedtick as FT
 from karpenter_tpu_torch.ops import poolgroup as PG
 from karpenter_tpu_torch.ops import simstep as SK
 from karpenter_tpu_torch.ops.numpy_binpack import binpack_numpy
+from karpenter_tpu_torch.parallel import mesh as MESH
 from karpenter_tpu_torch.utils import operands
 from karpenter_tpu_torch.utils.device import resolve_device
 
@@ -53,6 +59,8 @@ from test_forecast import random_forecast_inputs
 from test_poolgroup import random_group_inputs
 from test_torch_decision import assert_bitwise
 from test_torch_forecast import jit_equals_mirror
+from test_torch_fusedtick import ref_inputs as ref_fused_inputs
+from test_torch_fusedtick import with_stages
 from test_torch_reference_suites import _helper, _port_defaults_to_cpu  # noqa: F401
 from test_torch_simstep import raw_inputs
 
@@ -272,3 +280,109 @@ class TestPriorityOffBinpack:
         )
         for solver in (B.binpack, binpack_numpy):
             assert np.asarray(solver(inputs).assigned).tolist() == [2]
+
+
+class TestFusedTickHostOperands:
+    """fused_tick on the port's dataclass with numpy leaves, as the
+    reference's fused_tick_jit takes them. The draws have distinct series
+    cells (production's series map), where the port and the jitted
+    reference agree; shared cells follow fused_tick_numpy
+    (tests/test_torch_fusedtick.py)."""
+
+    @pytest.mark.parametrize("stages", [
+        (True, True, True), (True, False, False), (False, True, True),
+        (False, False, True),
+    ], ids=["fc-cost-pg", "fc", "cost-pg", "pg"])
+    def test_host_operands_equal_the_jitted_reference(self, stages,
+                                                      monkeypatch):
+        fields = with_stages(
+            workloads.build_fused_tick_inputs(3, 64, 3, 48, 16, groups=6,
+                                              pools=4),
+            *stages,
+        )
+        host = FT.FusedTickInputs.from_arrays(fields)
+        assert not any(isinstance(v, torch.Tensor)
+                       for v in operands._leaves(host, []))
+        with monkeypatch.context() as patch:  # the old failure
+            patch.setattr(FT, "on_device", lambda inputs: inputs,
+                          raising=False)
+            with pytest.raises(
+                (TypeError, AttributeError),
+                match="'>=' not supported|has no attribute 'clamp'"
+                      "|must be Tensor, not numpy.ndarray",
+            ):
+                FT.fused_tick(host)
+        assert_bitwise(FT.fused_tick(host),
+                       RFT.fused_tick_jit(ref_fused_inputs(fields)),
+                       f"stages={stages}")
+
+    def test_batch_autoscaler_fused_tick_fn(self, monkeypatch):
+        """poolgroup's TestWireCompat::test_fused_tick_matches_the_chained_path
+        with the port's fused_tick as the autoscaler's fused_tick_fn: the
+        autoscaler hands it numpy operands. The counts equal the port's
+        chained path and the reference's jitted fused tick, tick for
+        tick, the repair included."""
+        port, ref = _helper("test_poolgroup"), ref_poolgroup
+
+        def world(suite, fused_tick_fn=None):
+            store, _, auto, _ = suite._world(
+                groups=[suite._serving_group(suite.REPAIR_BAND)]
+            )
+            auto.fused_tick_fn = fused_tick_fn
+            return store, auto
+
+        broken = world(port, FT.fused_tick)
+        with monkeypatch.context() as patch:  # the old failure
+            patch.setattr(FT, "on_device", lambda inputs: inputs,
+                          raising=False)
+            with pytest.raises(AttributeError, match="no attribute 'clamp'"):
+                port._tick(*broken)
+        chained = world(port)
+        fused = world(port, FT.fused_tick)
+        reference = world(ref, jax.jit(RFT.fused_tick))
+        for _ in range(3):
+            counts = port._tick(*fused)
+            assert counts == port._tick(*chained)
+            assert counts == ref._tick(*reference)
+        assert counts["decode"] == 44
+
+
+class TestFleetStepHostOperands:
+    """The reference's fleet_step is decide + binpack over host arrays;
+    the port's places both operand trees on its device first."""
+
+    @pytest.mark.parametrize("seed", [3, 11])
+    def test_host_operands_equal_the_reference(self, seed, monkeypatch):
+        ref_dec = RMESH.example_decision_inputs(N=32, M=4, seed=seed)
+        ref_bp = RMESH.example_binpack_inputs(P_=64, T=8, K=8, L=8,
+                                              seed=seed)
+        dec = D.DecisionInputs.from_arrays(ref_dec)
+        bp = B.BinPackInputs(**{
+            f.name: None if getattr(ref_bp, f.name) is None
+            else np.asarray(getattr(ref_bp, f.name))
+            for f in dataclasses.fields(ref_bp)
+        })
+        with monkeypatch.context() as patch:  # the parent's placement
+            patch.setattr(MESH, "on_device",
+                          lambda inputs, device: inputs.to(device),
+                          raising=False)
+            with pytest.raises(
+                AttributeError,
+                match="'numpy.ndarray' object has no attribute 'to'",
+            ):
+                MESH.fleet_step(dec, bp, device="cpu")
+        d_out, b_out = MESH.fleet_step(dec, bp, buckets=32, device="cpu")
+        want_d, want_b = RMESH.fleet_step(ref_dec, ref_bp, buckets=32)
+        assert_bitwise(d_out, want_d, "decide")
+        for name in BINPACK_FIELDS:
+            got = getattr(b_out, name).numpy()
+            want = np.asarray(getattr(want_b, name))
+            assert got.dtype == want.dtype and got.shape == want.shape, name
+            assert got.tobytes() == want.tobytes(), name
+
+    def test_placed_operands_pass_through(self):
+        dec, bp = MESH.dryrun_inputs("cpu")
+        assert operands.on_device(dec, "cpu") is dec
+        assert B.on_device(bp, "cpu") is bp
+        moved = operands.on_device(D.DecisionInputs.from_arrays(dec), "cpu")
+        assert_bitwise(MESH.decide(moved), MESH.decide(dec), "decide")

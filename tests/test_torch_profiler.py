@@ -44,6 +44,38 @@ def names(body: bytes) -> list:
     return [event.get("name") for event in json.loads(body)["traceEvents"]]
 
 
+def _capture_beside_a_worker(capture) -> bytes:
+    """`capture()` -> (status, body), taken while another thread opens
+    solver.other_thread ranges; the body, which must be a Chrome trace."""
+    stop = threading.Event()
+
+    def worker():
+        while not stop.is_set():
+            with P.solver_trace("solver.other_thread"):
+                torch.ones(16) + 1
+            time.sleep(0.001)
+
+    thread = threading.Thread(target=worker)
+    thread.start()
+    try:
+        status, body = capture()
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    assert not thread.is_alive()
+    assert status == 200, body
+    assert "traceEvents" in json.loads(body)
+    return body
+
+
+def _capture_in_a_range() -> bytes:
+    def sleep_in_a_range(seconds):
+        with P.solver_trace("solver.capturing_thread"):
+            time.sleep(seconds)
+
+    return P.capture_chrome_trace(20, sleep=sleep_in_a_range)
+
+
 @pytest.fixture
 def server():
     P.reset_probe()
@@ -57,36 +89,30 @@ def server():
 class TestProfileRoute:
     def test_capture_is_a_chrome_trace_of_the_capturing_thread(self, server):
         """The answer parses as the Chrome trace export_chrome_trace
-        writes. A range another thread opens during the window is NOT in
-        it: torch.profiler (kineto) records the record_function ranges
-        of the thread that started it only, so a capture taken on the
-        server's thread holds no range of the solve worker's thread. A
-        range the capturing thread opens is."""
-        stop = threading.Event()
+        writes. A range another thread opens during the window is in it
+        as well: the capture asks kineto for every thread's ranges
+        (profile_all_threads, which this torch takes), so a capture taken
+        on the server's thread holds the solve worker's `solver.*`
+        ranges, as the reference's xprof trace does. A range the
+        capturing thread opens is in it too."""
+        assert P._all_threads(), torch.__version__
+        body = _capture_beside_a_worker(lambda: get(server, "/profile?ms=100"))
+        assert "solver.other_thread" in names(body)
+        assert "solver.capturing_thread" in names(_capture_in_a_range())
 
-        def worker():
-            while not stop.is_set():
-                with P.solver_trace("solver.other_thread"):
-                    torch.ones(16) + 1
-                time.sleep(0.001)
-
-        thread = threading.Thread(target=worker)
-        thread.start()
-        try:
-            status, body = get(server, "/profile?ms=100")
-        finally:
-            stop.set()
-            thread.join()
-        assert status == 200, body
-        assert "traceEvents" in json.loads(body)
+    def test_without_the_option_a_capture_holds_its_own_thread(
+        self, server, monkeypatch, caplog
+    ):
+        """A torch without profile_all_threads keeps kineto's default:
+        the capturing thread's ranges only, and the capture's log line
+        names the limit."""
+        monkeypatch.setattr(P, "_ALL_THREADS", False)
+        caplog.set_level(logging.INFO, logger="karpenter_tpu_torch")
+        body = _capture_beside_a_worker(lambda: get(server, "/profile?ms=100"))
         assert "solver.other_thread" not in names(body)
-
-        def sleep_in_a_range(seconds):
-            with P.solver_trace("solver.capturing_thread"):
-                time.sleep(seconds)
-
-        own = P.capture_chrome_trace(20, sleep=sleep_in_a_range)
-        assert "solver.capturing_thread" in names(own)
+        assert "solver.capturing_thread" in names(_capture_in_a_range())
+        assert "the capturing thread only" in caplog.text
+        assert "has no profile_all_threads" in P.capture_threads()
 
     def test_ms_is_clamped_to_the_bounds(self, server):
         slept = []

@@ -2,10 +2,12 @@
 marker and skips without a card (the capture's device rows come from
 CUPTI); on the CPU, tests/test_torch_profiler.py holds the server.
 
-  * GET /profile, taken on the server's thread while the solve service's
-    worker thread launches both CUDA kernels, holds both kernels and
-    none of the worker's solver.* ranges (kineto records the ranges of
-    the capturing thread only; the counts are printed with -s).
+  * GET /profile (2 s), taken on the server's thread while the solve service's
+    worker thread launches both CUDA kernels, holds both kernels and,
+    where the card's torch takes profile_all_threads, the worker's
+    solver.* ranges (without it kineto records the capturing thread's
+    ranges only, and the capture holds none of them; the counts are
+    printed with -s).
 
 This file imports neither jax nor the reference package, so it also runs
 where jax is not installed:
@@ -48,6 +50,10 @@ def test_capture_holds_the_worker_threads_kernels():
         port = sock.getsockname()[1]
     inputs = inputs_from_numpy(workloads.build_inputs(20_000, 300, 64, 64, 0))
     service = SolverService()
+    # the first solve's one-time costs stay out of the window: a range
+    # opened before the window starts is not recorded, though the kernels
+    # it launches inside the window are
+    service.solve(inputs)
     stop = threading.Event()
     solves = []
 
@@ -61,7 +67,7 @@ def test_capture_holds_the_worker_threads_kernels():
     thread.start()
     try:
         with urllib.request.urlopen(
-            f"http://127.0.0.1:{port}/profile?ms=500", timeout=120
+            f"http://127.0.0.1:{port}/profile?ms=2000", timeout=120
         ) as resp:
             events = json.loads(resp.read())["traceEvents"]
     finally:
@@ -75,8 +81,10 @@ def test_capture_holds_the_worker_threads_kernels():
     ranges = [e for e in events if str(e.get("name", "")).startswith("solver.")]
     print(f"\nprofile: {len(solves)} solves, kernels {found} of "
           f"{len(kernels)}, solver.* ranges {len(ranges)} "
-          f"{sorted({str(e.get('cat')) for e in ranges})}")
+          f"{sorted({str(e.get('cat')) for e in ranges})}; torch "
+          f"{torch.__version__}, ranges of {P.capture_threads()}")
     assert solves
     assert all(found.values()), found
-    # the worker's ranges are not the capturing thread's (profiler.py)
-    assert not ranges
+    # the worker's ranges are recorded where kineto takes every thread
+    # (profiler.py)
+    assert bool(ranges) == P._all_threads(), P.capture_threads()

@@ -1,0 +1,5 @@
+"""The reference's tests/test_webhook.py, run against the port."""
+
+from test_torch_reference_suites import load_suite
+
+load_suite("webhook", globals())

@@ -49,14 +49,56 @@ TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 
 _PACKAGE = re.compile(r"\bkarpenter_tpu\b")
 
-# the port's module names for what the reference's tests name: the
-# backend "xla" is the port's "torch" rung (solver/service.py), and the
-# profiler the reference probes, jax.profiler, is torch.profiler here
-# (observability/profiler.py). Each pair must occur in its suite.
+# the port's names for what the reference's tests name: the backend
+# "xla" is the port's "torch" rung (solver/service.py), and the profiler
+# the reference probes, jax.profiler, is torch.profiler here
+# (observability/profiler.py). Each jax.jit program `*_jit` is the
+# port's eager program of the same operands (`decide_jit` -> `decide`,
+# `cost_jit` -> `cost_decide`, `poolgroup_jit` -> `poolgroup_decide`,
+# `poolgroup_independent_jit` -> the same with enforce=False,
+# `forecast_jit` -> `forecast`, `fused_tick_jit` and
+# `jax.jit(FT.fused_tick)` -> `fused_tick`). fusedtick's `_leaves`
+# flattens an output tree with jax.tree_util, which takes the port's
+# dataclasses (no registered pytrees) for single leaves and would
+# compare object pointers; the port's walk flattens their fields in
+# order, None dropped, as jax flattens the reference's. Each pair must
+# occur in its suite.
 _XLA_IS_TORCH = ('"xla"', '"torch"')
+_TREE_LEAVES = (
+    "    import jax\n\n"
+    "    return jax.tree_util.tree_leaves(\n"
+    "        jax.tree_util.tree_map(np.asarray, tree)\n"
+    "    )\n"
+)
+_DATACLASS_LEAVES = (
+    "    import dataclasses\n\n"
+    "    if dataclasses.is_dataclass(tree):\n"
+    "        return [leaf for f in dataclasses.fields(tree)\n"
+    "                for leaf in _leaves(getattr(tree, f.name))]\n"
+    "    return [] if tree is None else [np.asarray(tree)]\n"
+)
 SUBSTITUTIONS = {
     "chaos": (_XLA_IS_TORCH,),
     "consolidation": (_XLA_IS_TORCH,),
+    "cost": (_XLA_IS_TORCH, ("CK.cost_jit", "CK.cost_decide")),
+    "decision_kernel": (("D.decide_jit", "D.decide"),),
+    "forecast": (
+        _XLA_IS_TORCH,
+        ("D.decide_jit", "D.decide"),
+        ("M.forecast_jit", "M.forecast"),
+    ),
+    "fusedtick": (
+        _XLA_IS_TORCH,
+        ("FT.fused_tick_jit", "FT.fused_tick"),
+        (_TREE_LEAVES, _DATACLASS_LEAVES),
+    ),
+    "poolgroup": (
+        ("CK.cost_jit", "CK.cost_decide"),
+        ("PGK.poolgroup_independent_jit",
+         "(lambda inputs: PGK.poolgroup_decide(inputs, enforce=False))"),
+        ("PGK.poolgroup_jit", "PGK.poolgroup_decide"),
+        ("jax.jit(FT.fused_tick)", "FT.fused_tick"),
+    ),
     "encoder_delta": (_XLA_IS_TORCH,),
     "faults": (_XLA_IS_TORCH,),
     "introspect": (_XLA_IS_TORCH,),
@@ -95,6 +137,15 @@ DESELECTED = {
         "TestRegressionGuard::test_batched_constrained_beats_per_group_loop":
             _WALL_CLOCK,
     },
+    "fusedtick": {
+        "TestCompileCacheRestart::test_restart_prewarns_from_cache_zero_fresh_rows":
+            "jax.config's persistent XLA compilation cache (the port "
+            "compiles no program; its --compile-cache-dir names the "
+            "kernels' build directory); counterpart: test_torch_cli.py "
+            "test_compile_cache_dir_names_the_kernel_build_dir",
+        "TestFusedRegressionGuard::test_live_fused_not_slower_than_chained":
+            _WALL_CLOCK,
+    },
     "introspect": {
         "TestServiceCompileLedger::test_miss_recorded_with_cost_attribution":
             "XLA's cost analysis at lowering (flops and bytes of a compiled "
@@ -120,6 +171,10 @@ DESELECTED = {
             _NO_DEVICE_CPU.format(
                 "test_torch_port_counterparts.py TestCliOnCpu"
             ),
+    },
+    "poolgroup": {
+        "TestPoolGroupRegressionGuard::test_live_joint_not_slower_than_per_pool":
+            _WALL_CLOCK,
     },
     "preemption": {
         "TestKernelParity::test_xla_equals_numpy_bit_identically":
