@@ -38,7 +38,7 @@ from karpenter_tpu_torch.api.horizontalautoscaler import (
     UTILIZATION,
     VALUE,
 )
-from karpenter_tpu_torch.observability import solver_trace
+from karpenter_tpu_torch.observability import default_tracer
 from karpenter_tpu_torch.ops import decision as D
 from karpenter_tpu_torch.store import NotFoundError, Store
 
@@ -383,7 +383,7 @@ class BatchAutoscaler:
             )
             if pg_ops is not None:
                 kw["poolgroup"] = pg_ops
-        with solver_trace("autoscaler.fused_tick"):
+        with default_tracer().span("autoscaler.fused_tick"):
             out = self.fused_tick_fn(
                 FT.FusedTickInputs(decision=inputs, **kw)
             )
@@ -456,7 +456,7 @@ class BatchAutoscaler:
         self, rows: List[_Row], forecasts: Optional[Dict[tuple, float]] = None
     ) -> D.DecisionOutputs:
         inputs = self._decision_inputs(rows, forecasts)
-        with solver_trace("autoscaler.decide"):
+        with default_tracer().span("autoscaler.decide"):
             return self.decider(inputs)
 
     def _decision_inputs(

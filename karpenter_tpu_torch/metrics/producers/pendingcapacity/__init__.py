@@ -33,8 +33,9 @@ ops/binpack.solve (the CUDA card, both hand-written kernels; it raises
 without a card, and the CPU runs only through
 `solver=functools.partial(solve, device="cpu")`); the four per-group
 outputs are packed by one torch.cat on the device and fetched by one
-`.cpu()`, the tick's only device->host copy; the solve is annotated with
-torch.profiler.record_function("pendingcapacity.solve").
+`.cpu()`, the tick's only device->host copy; the solve is the span
+pendingcapacity.solve (observability/tracing.py: a torch.profiler range
+of that name while a profiler records).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import torch
 from karpenter_tpu_torch import constraints as _constraints
 from karpenter_tpu_torch.api.metricsproducer import PendingCapacityStatus
 from karpenter_tpu_torch.metrics.registry import GaugeRegistry, default_registry
+from karpenter_tpu_torch.observability import default_tracer
 from karpenter_tpu_torch.ops import binpack as B
 from karpenter_tpu_torch.store.columnar import (
     occupancy_from_pods,
@@ -602,7 +604,7 @@ def _dispatch_and_record(  # lint: allow-complexity — the dispatch seam: one g
             solver = B.solve
         # numpy arrays go straight through: solve makes them resident on
         # its device by object identity (ops/binpack._device_resident)
-        with torch.profiler.record_function("pendingcapacity.solve"):
+        with default_tracer().span("pendingcapacity.solve"):
             out = solver(inputs)
 
         # ONE device->host copy for all four outputs: they are first

@@ -3,7 +3,9 @@ ledger, the self-SLO monitor, the solver introspection plane and the
 HTTP surface (the port's copy of karpenter_tpu/observability).
 
   tracing.py         per-reconcile trace IDs + spans, coalesced-dispatch
-                     links, Chrome-trace/Perfetto JSONL export
+                     links, Chrome-trace/Perfetto JSONL export; a span
+                     is also a torch.profiler range while a profiler
+                     records, on the profiler's clock
   flightrecorder.py  bounded structured event ring (fault injections,
                      FSM trips, watchdog restarts) with trace-ID
                      backlinks and crash-safe dumps
@@ -21,8 +23,8 @@ HTTP surface (the port's copy of karpenter_tpu/observability).
                      --introspect)
   server.py          /metrics, /healthz, /readyz and the /debug/*
                      endpoints
-  profiler.py        solver_trace (a torch.profiler range around a
-                     device section, probed once), the profiler server
+  profiler.py        solver_trace (the guarded torch.profiler range a
+                     span opens, probed once), the profiler server
                      (--profiler-port: GET /profile answers a Chrome
                      trace) and /debug/profile's bounded single-flight
                      torch.profiler capture

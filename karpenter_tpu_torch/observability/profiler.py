@@ -5,7 +5,9 @@ The reference wraps solver dispatches in jax.profiler.TraceAnnotation so
 they show as named ranges on an xprof timeline. Here the range is
 torch.profiler.record_function: inside a torch.profiler window it shows
 as a named range over the kernels it launched, and outside one it costs
-a few microseconds of host time.
+a few microseconds of host time. The port's call sites do not open it
+themselves: they open a span (observability/tracing.py), which opens
+this range, `solver_trace`, only while a profiler records.
 
 Hot-path discipline, as in the reference: the profiler is probed ONCE
 per process and cached. When the probe fails, `solver_trace` returns the

@@ -59,6 +59,7 @@ from typing import Callable, Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
 from karpenter_tpu_torch.metrics.registry import GaugeRegistry
+from karpenter_tpu_torch.observability.tracing import CHROME_BASE_NS
 
 # readiness callable contract: () -> (ready, reason)
 ReadinessCheck = Callable[[], Tuple[bool, str]]
@@ -178,7 +179,7 @@ class MetricsServer:
         else:
             spans = tracer.snapshot(limit=limit)
         body = json.dumps({
-            "epoch_unix": tracer.epoch_unix,
+            "base_time_ns": CHROME_BASE_NS,
             "spans_total": tracer.spans_total,
             "spans_dropped": tracer.spans_dropped,
             "spans": spans,

@@ -21,10 +21,28 @@ module is the correlation layer:
     sharded dispatches carry the same links.
   * EXPORT is Chrome-trace/Perfetto JSONL (`export_jsonl`): one event
     object per line — complete ("X") events for spans, flow ("s"/"f")
-    events for dispatch links — loadable in Perfetto/chrome://tracing
-    next to an xprof device timeline captured over the same wall
-    clock. `/debug/traces` (observability.server) serves the same
-    spans as JSON for a live process.
+    events for dispatch links. `/debug/traces` (observability.server)
+    serves the same spans as JSON for a live process.
+  * ONE SPAN SYSTEM WITH THE PROFILER: a span opened with `with` (span,
+    trace) also opens a torch.profiler `record_function` range of the
+    same name on the same thread while a torch profiler is recording
+    (observability.profiler's probe-once, guarded range), so a capture
+    (`/debug/profile`, `--profiler-port`) names its kernels and idle
+    gaps by the spans. With no profiler recording, a span makes one
+    flag read and no range. `Tracer.range` opens the range alone, for a
+    step a capture must name and no trace reads. Spans are stamped on the profiler's clock:
+    a span starts at `time.time_ns()` (the unix clock that torch's
+    record_function events carry) and lasts what the monotonic
+    `perf_counter_ns` measures. The export writes the real pid, the
+    OS thread id (`threading.get_native_id()`, the tid kineto writes)
+    and `ts` in microseconds after kineto's Chrome-trace base
+    (`CHROME_BASE_NS`: the unix time floored to 7,889,238-second
+    periods, the `baseTimeNanoseconds` a capture's JSON declares). So
+    a `--trace-export` file and a capture of the same process overlay
+    in Perfetto: load both, and each span lies over its range.
+    `/debug/traces` gives the base as `base_time_ns`. A cross-thread
+    span (`begin`/`close`) stays in the ring only: a range cannot open
+    on one thread and close on another.
   * END-TO-END LEAD TIME: the BLITZSCALE observable is
     event-observed -> actuation-acked, not solve latency. The tracer
     keeps per-object observation marks (`mark_observed` at watch/tick
@@ -33,8 +51,9 @@ module is the correlation layer:
     histogram (metrics/registry.py native histograms).
 
 Overhead posture: the span ring is a bounded deque; a disabled tracer
-(`enabled = False`) returns a shared no-op context manager and None
-handles — the hot path pays one attribute read. `make bench-trace`
+(`enabled = False`) returns a shared no-op context manager (the bare
+profiler range while a profiler records, so captures keep their names)
+and None handles — the hot path pays two attribute reads. `make bench-trace`
 publishes the enabled-vs-disabled tick overhead (<5% target,
 docs/BENCHMARKS.md); tests/test_observability.py pins a regression
 ceiling.
@@ -48,9 +67,12 @@ from __future__ import annotations
 import collections
 import itertools
 import json
+import os
 import threading
 import time as _time
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch.autograd.profiler as _autograd_profiler
 
 SUBSYSTEM = "trace"
 
@@ -61,6 +83,32 @@ E2E_BUCKETS = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
 )
+
+
+# kineto writes a Chrome trace's `ts` in microseconds after this base (its
+# ChromeTraceBaseTime: the unix time floored to 7,889,238-second periods,
+# fixed once per process), and declares it as `baseTimeNanoseconds`
+_CHROME_PERIOD_S = 7_889_238
+CHROME_BASE_NS = (
+    int(_time.time()) // _CHROME_PERIOD_S * _CHROME_PERIOD_S * 1_000_000_000
+)
+
+
+def profiling() -> bool:
+    """Whether a torch profiler is recording in this process: the flag
+    torch.autograd.profiler sets for the length of every profiler window
+    (torch.profiler.profile included), read without a call."""
+    return getattr(_autograd_profiler, "_is_profiler_enabled", False)
+
+
+def _open_range(name: str):
+    """An entered record_function range named `name` (profiler.py's
+    guarded range: it never raises on set-up or teardown)."""
+    from karpenter_tpu_torch.observability.profiler import solver_trace
+
+    annotation = solver_trace(name)
+    annotation.__enter__()
+    return annotation
 
 
 class _NoopSpan:
@@ -87,7 +135,7 @@ class OpenSpan:
 
     __slots__ = (
         "_tracer", "name", "trace_id", "span_id", "parent_id",
-        "t0", "args", "links", "_on_stack", "_closed",
+        "t0", "t0_ns", "args", "links", "_on_stack", "_closed", "_range",
     )
 
     def __init__(self, tracer, name, trace_id, span_id, parent_id,
@@ -101,7 +149,14 @@ class OpenSpan:
         self.links = links
         self._on_stack = on_stack
         self._closed = False
-        self.t0 = tracer._clock()
+        self._range = None
+        self._stamp()
+
+    def _stamp(self) -> None:
+        # the start on the profiler's (unix) clock; the duration on the
+        # monotonic one
+        self.t0 = _time.perf_counter_ns()
+        self.t0_ns = _time.time_ns()
 
     def ref(self) -> Tuple[str, str]:
         return (self.trace_id, self.span_id)
@@ -119,6 +174,11 @@ class OpenSpan:
     def __enter__(self) -> "OpenSpan":
         if self._on_stack:
             self._tracer._stack().append(self)
+            if profiling():
+                # the range opens first and the span starts inside it,
+                # so a capture shows the span within its range
+                self._range = _open_range(self.name)
+                self._stamp()
         return self
 
     def __exit__(self, *exc) -> bool:
@@ -130,6 +190,8 @@ class OpenSpan:
             self.close(error=exc[0].__name__)
         else:
             self.close()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         return False
 
 
@@ -139,11 +201,9 @@ class Tracer:
     def __init__(self, capacity: int = 8192, clock=_time.perf_counter):
         self.enabled = True
         self.capacity = capacity
+        # the e2e lead-time marks' clock; spans run on the profiler's
+        # (module docstring)
         self._clock = clock
-        self._epoch = clock()
-        # wall-clock anchor of the epoch, so exported ts_us correlate
-        # with xprof's wall-clock device timelines
-        self.epoch_unix = _time.time()
         self._lock = threading.Lock()
         # itertools.count is atomic under the GIL: span-id minting needs
         # no lock on the hot path
@@ -182,6 +242,13 @@ class Tracer:
         if stack is None:
             stack = self._tls.stack = []
         return stack
+
+    def _native_id(self) -> int:
+        # the OS thread id, read once a thread (a system call each time)
+        tid = getattr(self._tls, "tid", None)
+        if tid is None:
+            tid = self._tls.tid = threading.get_native_id()
+        return tid
 
     def current(self) -> Optional[OpenSpan]:
         """The innermost span open on THIS thread (None outside any)."""
@@ -228,7 +295,7 @@ class Tracer:
         """Mint a NEW trace id and open its root span (the watch/tick
         entry points call this)."""
         if not self.enabled:
-            return _NOOP_SPAN
+            return _profiler_range(name)
         return self._open(name, None, True, (), args, on_stack=True)
 
     def span(self, name: str, parent=None, links: Sequence = (), **args):
@@ -238,12 +305,18 @@ class Tracer:
         `links` joins other spans' refs — the coalesced-dispatch
         one-to-many edge."""
         if not self.enabled:
-            return _NOOP_SPAN
+            return _profiler_range(name)
         if parent is None:
             parent = self.current()
         return self._open(
             name, parent, False, links, args, on_stack=True
         )
+
+    def range(self, name: str):
+        """A profiler range alone, never in the ring: for a step that a
+        capture must name and no trace reads (the solve worker's turn of
+        its loop, around its spans). Open with `with`."""
+        return _profiler_range(name)
 
     def begin(self, name: str, parent=None, **args) -> Optional[OpenSpan]:
         """Open a span WITHOUT touching the TLS stack — for spans closed
@@ -257,7 +330,7 @@ class Tracer:
         )
 
     def _finish(self, span: OpenSpan) -> None:
-        now = self._clock()
+        now = _time.perf_counter_ns()
         args = span.args
         if args:
             args = {k: v for k, v in args.items() if v is not None}
@@ -266,9 +339,9 @@ class Tracer:
             "trace": span.trace_id,
             "id": span.span_id,
             "parent": span.parent_id,
-            "ts_us": (span.t0 - self._epoch) * 1e6,
-            "dur_us": max(0.0, (now - span.t0) * 1e6),
-            "tid": threading.get_ident() & 0xFFFF,
+            "ts_us": (span.t0_ns - CHROME_BASE_NS) / 1e3,
+            "dur_us": max(0, now - span.t0) / 1e3,
+            "tid": self._native_id(),
             "args": args,
             "links": [sid for (_tid, sid) in span.links],
         }
@@ -349,8 +422,10 @@ class Tracer:
     def chrome_events(self) -> List[dict]:
         """Chrome-trace event objects: one complete ("X") event per
         span, plus flow ("s"/"f") event pairs rendering dispatch links
-        as arrows in Perfetto."""
+        as arrows in Perfetto; pid, tid and ts as a torch profiler
+        capture of this process writes them (module docstring)."""
         events: List[dict] = []
+        pid = os.getpid()
         spans = self.snapshot()
         by_id = {span["id"]: span for span in spans}
         for span in spans:
@@ -364,7 +439,7 @@ class Tracer:
                 "ph": "X",
                 "name": span["name"],
                 "cat": span["trace"],
-                "pid": 1,
+                "pid": pid,
                 "tid": span["tid"],
                 "ts": round(span["ts_us"], 3),
                 "dur": round(span["dur_us"], 3),
@@ -383,12 +458,12 @@ class Tracer:
                 edge = f"{linked_id}>{span['id']}"
                 events.append({
                     "ph": "s", "name": "link", "cat": "link",
-                    "id": edge, "pid": 1, "tid": linked["tid"],
+                    "id": edge, "pid": pid, "tid": linked["tid"],
                     "ts": round(linked["ts_us"], 3),
                 })
                 events.append({
                     "ph": "f", "bp": "e", "name": "link", "cat": "link",
-                    "id": edge, "pid": 1, "tid": span["tid"],
+                    "id": edge, "pid": pid, "tid": span["tid"],
                     "ts": round(span["ts_us"], 3),
                 })
         return events
@@ -408,6 +483,17 @@ class Tracer:
             ),
         )
         return len(events)
+
+
+def _profiler_range(name: str):
+    """The bare profiler range while a torch profiler records, else the
+    shared no-op: `Tracer.range`, and a disabled tracer's span, so
+    captures keep their names."""
+    if profiling():
+        from karpenter_tpu_torch.observability.profiler import solver_trace
+
+        return solver_trace(name)
+    return _NOOP_SPAN
 
 
 # -- process default ----------------------------------------------------------

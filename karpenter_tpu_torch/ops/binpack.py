@@ -27,6 +27,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from karpenter_tpu_torch.observability.tracing import default_tracer
 from karpenter_tpu_torch.utils.device import DeviceLike, indexed, resolve_device
 
 DEFAULT_BUCKETS = 32
@@ -579,7 +580,9 @@ def solve(
     CUDA card and raises when there is none; the CPU runs only when asked
     for (device='cpu'), and there only 'torch' exists. Fields may be
     tensors or numpy arrays; they are made resident on the device by
-    object identity (see _device_resident).
+    object identity (see _device_resident). On the cuda path each step
+    is a span (observability/tracing.py): solver.fold, then
+    ops/fused_assign.binpack_fused's.
 
     This is the kernel-level entry; production callers submit through
     the shared solve service (karpenter_tpu_torch/solver: coalescing,
@@ -597,7 +600,8 @@ def solve(
         raise ValueError("backend 'cuda' needs a CUDA device")
     inputs = _device_resident(inputs, dev)
     if backend == "cuda":
-        inputs, backend = _fold_for_fused(inputs)
+        with default_tracer().span("solver.fold"):
+            inputs, backend = _fold_for_fused(inputs)
     if backend == "torch":
         return binpack(inputs, buckets=buckets)
     from karpenter_tpu_torch.ops.fused_assign import binpack_fused

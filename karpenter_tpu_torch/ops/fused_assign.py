@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch import kernels
+from karpenter_tpu_torch.observability.tracing import default_tracer
 from karpenter_tpu_torch.ops.binpack import (
     BinPackInputs,
     BinPackOutputs,
@@ -350,32 +351,40 @@ def fused_assign(inputs: BinPackInputs, buckets: int) -> FusedOutputs:
     """(assigned i32[P], hist i32[T, B], demand f32[T, R], unschedulable
     i32 scalar). CUDA tensors launch csrc/fused_assign.cu (the scan and
     the reduction through one host entry, one count); CPU tensors run
-    fused_assign_reference."""
+    fused_assign_reference. On the card the operand checks and bit
+    packing are the span solver.pack, the launch solver.assign."""
     dev = inputs.pod_requests.device
     if dev.type == "cpu":
         return fused_assign_reference(inputs, buckets)
     if dev.type != "cuda":
         raise ValueError(f"fused_assign: unsupported device {dev}")
-    plan, args = _launch_operands(inputs, buckets)
-    n_pods, n_res = inputs.pod_requests.shape
-    n_groups = inputs.group_allocatable.shape[0]
-    i32 = torch.int32
-    lib = kernels.library("fused_assign")
-    assigned = torch.empty(n_pods, dtype=i32, device=dev)
-    hist = torch.empty((n_groups, buckets), dtype=i32, device=dev)
-    partial = torch.empty(
-        max(1, plan.partial_bytes // 8), dtype=torch.float64, device=dev
-    )
-    unsched_partial = torch.empty(max(1, plan.n_blocks), dtype=i32, device=dev)
-    demand = torch.empty((n_groups, n_res), dtype=torch.float32, device=dev)
-    unsched = torch.empty((), dtype=i32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.fused_assign_launch(
-            *args, _ptr(assigned), _ptr(hist), _ptr(partial),
-            _ptr(unsched_partial), _ptr(demand), _ptr(unsched), stream,
+    tracer = default_tracer()
+    with tracer.span("solver.pack"):
+        plan, args = _launch_operands(inputs, buckets)
+    with tracer.span("solver.assign"):
+        n_pods, n_res = inputs.pod_requests.shape
+        n_groups = inputs.group_allocatable.shape[0]
+        i32 = torch.int32
+        lib = kernels.library("fused_assign")
+        assigned = torch.empty(n_pods, dtype=i32, device=dev)
+        hist = torch.empty((n_groups, buckets), dtype=i32, device=dev)
+        partial = torch.empty(
+            max(1, plan.partial_bytes // 8), dtype=torch.float64, device=dev
         )
-    kernels.check("fused_assign", err, "fused_assign launch")
+        unsched_partial = torch.empty(
+            max(1, plan.n_blocks), dtype=i32, device=dev
+        )
+        demand = torch.empty(
+            (n_groups, n_res), dtype=torch.float32, device=dev
+        )
+        unsched = torch.empty((), dtype=i32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = lib.fused_assign_launch(
+                *args, _ptr(assigned), _ptr(hist), _ptr(partial),
+                _ptr(unsched_partial), _ptr(demand), _ptr(unsched), stream,
+            )
+        kernels.check("fused_assign", err, "fused_assign launch")
     LAUNCHES["fused_assign"] += 1
     return assigned, hist, demand, unsched
 
@@ -594,14 +603,19 @@ def solve_cost(inputs: BinPackInputs, buckets: int) -> dict:
 def binpack_fused(inputs: BinPackInputs, buckets: int = 32) -> BinPackOutputs:
     """Full bin-pack via the fused stage, the shelf kernel and the
     lp_bound tail; the same contract as ops/binpack.binpack. The kernels
-    give assigned_count and unschedulable themselves."""
+    give assigned_count and unschedulable themselves. Spans: fused_assign's
+    solver.pack and solver.assign, then solver.shelf and solver.tail."""
+    tracer = default_tracer()
     assigned, hist, demand, unsched = fused_assign(inputs, buckets)
-    nodes, count = shelf_bfd(hist, buckets)
+    with tracer.span("solver.shelf"):
+        nodes, count = shelf_bfd(hist, buckets)
+    with tracer.span("solver.tail"):
+        lp_bound = lp_bound_of(demand, inputs.group_allocatable)
     return BinPackOutputs(
         assigned=assigned,
         assigned_count=count,
         nodes_needed=nodes,
-        lp_bound=lp_bound_of(demand, inputs.group_allocatable),
+        lp_bound=lp_bound,
         unschedulable=unsched,
     )
 

@@ -45,7 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.observability import solver_trace
+from karpenter_tpu_torch.observability import default_tracer
 from karpenter_tpu_torch.sidecar import codec
 
 SERVICE = "karpenter.solver.v1.Solver"
@@ -71,7 +71,7 @@ def _solve(request: bytes, service=None) -> bytes:
     buckets = int(meta.get("buckets", 32))
     backend = meta.get("backend", "auto")
     service = service if service is not None else default_service()
-    with solver_trace("sidecar.solve"):
+    with default_tracer().span("sidecar.solve"):
         # the shared service owns device access: concurrent RPCs from the
         # gRPC worker pool queue on its worker, and outputs come back as
         # host numpy ready for the wire
@@ -86,7 +86,7 @@ def _decide(request: bytes, device=None) -> bytes:
     from karpenter_tpu_torch.utils.operands import host_seam
 
     inputs, _ = codec.unpack_dataclass(D.DecisionInputs, request)
-    with solver_trace("sidecar.decide"):
+    with default_tracer().span("sidecar.decide"):
         out = host_seam(D.decide, D.DecisionInputs, device)(inputs)
     return codec.pack_dataclass(out)
 

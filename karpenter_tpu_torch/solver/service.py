@@ -73,10 +73,20 @@ without one — the CPU runs only when asked for, device="cpu"):
     no padding; solve keeps host operands resident on the card by
     object identity — which launches both hand-written CUDA kernels;
     synchronised inside the supervised device section; one
-    device->host copy. The kernels are built and loaded when a service
-    whose rung resolves to `cuda` is constructed (or a request first
-    names the rung), on the caller's thread, outside any supervised
-    section: a build or load failure raises.
+    device->host copy. Its stages split the "dispatch" stage into
+    "upload" (the operands' host copy and host->device copy), "launch"
+    (the operands on the card to the last op enqueued) and "sync"; the
+    "device" stage is the card's own span of a Solve, from the operands
+    on the card to the last op, read from two CUDA events after the
+    sync. Each step is a span of the request's trace (solver.dispatch
+    over solver.upload / fold / pack / assign / shelf / tail, then
+    solver.sync, solver.fetch, solver.answer); the worker's
+    solver.wait (blocked for work) and solver.gauges are roots of their
+    own, and a turn of its loop is the profiler range solver.worker
+    (never in the Tracer's ring). The kernels are built and loaded when a service whose rung
+    resolves to `cuda` is constructed (or a request first names the
+    rung), on the caller's thread, outside any supervised section: a
+    build or load failure raises.
   * `torch` (the reference's `xla`): the coalesced, pipelined batch of
     the plain program, with the device-resident fleet state.
   * `numpy` (auto on the CPU): the host program (ops/numpy_binpack.py),
@@ -174,10 +184,11 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import math
 import threading
 import time as _time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -187,7 +198,6 @@ from karpenter_tpu_torch.metrics.registry import GaugeRegistry, default_registry
 from karpenter_tpu_torch.observability import (
     default_flight_recorder,
     default_tracer,
-    solver_trace,
 )
 from karpenter_tpu_torch.ops.binpack import (
     DEFAULT_BUCKETS,
@@ -461,6 +471,24 @@ class SolveFuture:
         return req.result
 
 
+def _p50_p99(samples: Sequence[float]) -> Tuple[float, float]:
+    """np.percentile(samples, (50, 99)) bit for bit (numpy's default
+    "linear" method) from one sort. publish_gauges takes both for every
+    stage after every batch, where np.percentile's own overhead cost
+    ~5x the sort."""
+    ordered = sorted(samples)
+    last = len(ordered) - 1
+    out = []
+    for q in (0.5, 0.99):
+        virtual = last * q
+        lo = math.floor(virtual)
+        a, b = ordered[lo], ordered[min(lo + 1, last)]
+        t = virtual - lo
+        # numpy's _lerp: from the nearer end
+        out.append(b - (b - a) * (1 - t) if t >= 0.5 else a + (b - a) * t)
+    return out[0], out[1]
+
+
 class SolverService:
     """Long-lived in-process solve service (module docstring).
 
@@ -713,19 +741,13 @@ class SolverService:
         )
         with self._stage_lock:
             snapshot = {k: list(v) for k, v in self._stages.items()}
-        uploads = snapshot.get("upload")
-        if uploads:
-            self._g_upload.set(
-                "-", "-", float(np.percentile(uploads, 50))
-            )
         for stage, samples in snapshot.items():
             if samples:
-                self._g_stage_p50.set(
-                    stage, "-", float(np.percentile(samples, 50))
-                )
-                self._g_stage_p99.set(
-                    stage, "-", float(np.percentile(samples, 99))
-                )
+                p50, p99 = _p50_p99(samples)
+                self._g_stage_p50.set(stage, "-", p50)
+                self._g_stage_p99.set(stage, "-", p99)
+                if stage == "upload":
+                    self._g_upload.set("-", "-", p50)
 
     def note_tick(self) -> None:
         """Per-tick dispatch accounting behind the
@@ -1356,8 +1378,7 @@ class SolverService:
         t0 = _time.perf_counter()
         try:
             with default_tracer().span("solver.decide"):
-                with solver_trace("solver.decide"):
-                    out = self._decide_dispatch(inputs)
+                out = self._decide_dispatch(inputs)
             # served by the in-process program, or across the gRPC split
             self._annotate_provenance(
                 "grpc" if self.device_solver is not None else "torch",
@@ -1542,7 +1563,7 @@ class SolverService:
             with self._device_section(
                 live, grace=COMPILE_GRACE_S if fresh else 0.0
             ):
-                with solver_trace("solver.forecast"):
+                with default_tracer().span("solver.forecast"):
                     # the forecast-path fault-injection point: an error
                     # plan exercises the failure answer + FSM, a hang
                     # plan the watchdog drain
@@ -1699,7 +1720,7 @@ class SolverService:
                 [request],
             ):
                 with self._device_section([request], grace=grace):
-                    with solver_trace("solver.preempt"):
+                    with default_tracer().span("solver.preempt"):
                         # the preempt-path fault-injection point: an
                         # error plan exercises the failure answer + FSM,
                         # a hang plan the watchdog drain
@@ -1769,11 +1790,10 @@ class SolverService:
                 )
             try:
                 with default_tracer().span("solver.cost", backend=resolved):
-                    with solver_trace("solver.cost"):
-                        inject("cost.score")
-                        out = host_seam(
-                            C.cost_decide, C.CostInputs, self.device
-                        )(inputs)
+                    inject("cost.score")
+                    out = host_seam(
+                        C.cost_decide, C.CostInputs, self.device
+                    )(inputs)
             except Exception:
                 self._record_device_failure()
                 raise
@@ -1819,12 +1839,11 @@ class SolverService:
                     with default_tracer().span(
                         "solver.poolgroup", backend=resolved
                     ):
-                        with solver_trace("solver.poolgroup"):
-                            inject("poolgroup.solve")
-                            out = host_seam(
-                                PG.poolgroup_decide, PG.PoolGroupInputs,
-                                self.device,
-                            )(inputs)
+                        inject("poolgroup.solve")
+                        out = host_seam(
+                            PG.poolgroup_decide, PG.PoolGroupInputs,
+                            self.device,
+                        )(inputs)
                     self._record_device_success()
                     self.stats.poolgroup_dispatches += 1
                     self._count_dispatch()
@@ -1898,11 +1917,10 @@ class SolverService:
                 if self._device_allowed():
                     try:
                         with default_tracer().span(span, backend=resolved):
-                            with solver_trace(span):
-                                inject("simlab.step")
-                                out = host_seam(
-                                    program, in_cls, self.device
-                                )(inputs)
+                            inject("simlab.step")
+                            out = host_seam(
+                                program, in_cls, self.device
+                            )(inputs)
                         self._record_device_success()
                         self.stats.sim_dispatches += 1
                         self._count_dispatch()
@@ -2021,10 +2039,9 @@ class SolverService:
             captures = program.captures
             t0 = _time.perf_counter()
             with default_tracer().span("solver.fused_tick", backend=resolved):
-                with solver_trace("solver.fused_tick"):
-                    # the fused-path fault-injection point
-                    inject("fused.tick")
-                    out = program(inputs, host=True)
+                # the fused-path fault-injection point
+                inject("fused.tick")
+                out = program(inputs, host=True)
             if fresh or program.captures != captures:
                 # a new key's first dispatch, or a CUDA-graph capture
                 self._note_compile("fused", key, _time.perf_counter() - t0)
@@ -2043,8 +2060,7 @@ class SolverService:
             )
         try:
             with default_tracer().span("solver.fused_tick", backend="chained"):
-                with solver_trace("solver.fused_tick.chained"):
-                    out = FT.fused_tick_chained(inputs, device=self.device)
+                out = FT.fused_tick_chained(inputs, device=self.device)
             # a degraded serve: stage dispatches are counted (the
             # dispatches-per-tick gauge must show the real program
             # count) but the FSM keeps counting fused failures
@@ -2306,44 +2322,49 @@ class SolverService:
             # a fresh thread starts on the process's current device;
             # every launch of this worker belongs on the service's
             torch.cuda.set_device(self.device)
+        tracer = default_tracer()
         while not self._stale():
-            if self._inflight:
-                # a dispatch is computing on device: gather the NEXT
-                # batch without blocking — if nothing is queued, the
-                # useful work left is fetching the in-flight results
-                batch = self._collect(block=False)
-                if batch is None:
+            # a turn of the loop is a profiler range, never in the ring:
+            # a capture names the worker's time between its spans by it
+            with tracer.range("solver.worker"):
+                if self._inflight:
+                    # a dispatch is computing on device: gather the NEXT
+                    # batch without blocking — if nothing is queued, the
+                    # useful work left is fetching the in-flight results
+                    batch = self._collect(block=False)
+                    if batch is None:
+                        self._drain_inflight()
+                        return
+                    if not batch:
+                        self._drain_one()
+                        continue
+                else:
+                    batch = self._collect()
+                    if batch is None:
+                        self._drain_inflight()
+                        return
+                with self._cond:
+                    self._current_batch = list(batch)
+                groups: Dict[tuple, List[_Request]] = {}
+                for request in batch:
+                    groups.setdefault(request.key, []).append(request)
+                # lone = this batch is one compatibility group with nothing
+                # else in flight to overlap — the shape the pipeline
+                # chunk-split exists for
+                for key, requests in groups.items():
+                    self._dispatch_group(
+                        key, requests, lone=len(groups) == 1
+                    )
+                with self._cond:
+                    if not self._stale():  # a restart already drained it
+                        self._current_batch = []
+                if not self._queue:
+                    # nothing else waiting: complete in-flight work now
+                    # rather than holding a lone batch's results hostage to
+                    # traffic that may never come
                     self._drain_inflight()
-                    return
-                if not batch:
-                    self._drain_one()
-                    continue
-            else:
-                batch = self._collect()
-                if batch is None:
-                    self._drain_inflight()
-                    return
-            with self._cond:
-                self._current_batch = list(batch)
-            groups: Dict[tuple, List[_Request]] = {}
-            for request in batch:
-                groups.setdefault(request.key, []).append(request)
-            # lone = this batch is one compatibility group with nothing
-            # else in flight to overlap — the shape the pipeline
-            # chunk-split exists for
-            for key, requests in groups.items():
-                self._dispatch_group(
-                    key, requests, lone=len(groups) == 1
-                )
-            with self._cond:
-                if not self._stale():  # a restart already drained it
-                    self._current_batch = []
-            if not self._queue:
-                # nothing else waiting: complete in-flight work now
-                # rather than holding a lone batch's results hostage to
-                # traffic that may never come
-                self._drain_inflight()
-            self.publish_gauges()
+                with tracer.trace("solver.gauges"):
+                    self.publish_gauges()
 
     def _collect(self, block: bool = True) -> Optional[List[_Request]]:
         """Gather one batch: block for the first request (block=True),
@@ -2351,20 +2372,25 @@ class SolverService:
         max_batch requests. The window is 0 — dispatch immediately —
         when the queue was empty behind the first request and recent
         batches were singletons; it widens to window_s while traffic is
-        concurrent. None = closed+drained; [] = block=False and idle."""
+        concurrent. The time blocked, and in the window, is the root
+        span solver.wait (a wait begun before a profiler starts has no
+        range in its capture). None = closed+drained; [] = block=False
+        and idle."""
+        tracer = default_tracer()
         with self._cond:
-            while not self._queue:
-                if self._closed:
-                    return None
-                if not block:
-                    return []
-                self._cond.wait()
+            if block and not self._queue and not self._closed:
+                with tracer.trace("solver.wait"):
+                    while not self._queue and not self._closed:
+                        self._cond.wait()
+            if not self._queue:
+                return None if self._closed else []
             batch = [self._queue.popleft()]
             backlog = len(self._queue)
         window = self._effective_window(backlog)
         self._window_now_s = window
         if window > 0:
-            self._gather_window(batch, window)
+            with tracer.trace("solver.wait", window_s=window):
+                self._gather_window(batch, window)
         else:
             self.stats.immediate_dispatches += 1
             with self._cond:
@@ -2717,29 +2743,42 @@ class SolverService:
         padding: the kernels take any shape, and solve keeps host
         operands resident on the card by object identity, so a repeated
         inputs object uploads nothing. The "dispatch" stage covers any
-        upload, both kernels and the sync."""
+        upload, both kernels and the sync, and is split into "upload",
+        "launch" and "sync"; "device" is the events' span on the card
+        (module docstring)."""
         from karpenter_tpu_torch.ops import binpack as B
         from karpenter_tpu_torch.ops import fused_assign as TF
 
+        tracer = default_tracer()
+        # the worker's own stream, never the whole device: a device-wide
+        # sync would invalidate a fused-tick graph capture running on
+        # another thread
+        stream = torch.cuda.current_stream(self.device)
+        began, ended = self._solve_events()
         cache_key = ("cuda", shape, buckets, live[0].key[3])
         fresh = self._count_key(cache_key)
         grace = COMPILE_GRACE_S if fresh else 0.0
         for request in live:
-            with self._dispatch_span(
-                "solver.dispatch", [request], strategy="cuda",
-                **self._span_cost_args(cache_key),
-            ):
-                with self._device_section([request], grace=grace):
+            with self._device_section([request], grace=grace):
+                with self._dispatch_span(
+                    "solver.dispatch", [request], strategy="cuda",
+                    **self._span_cost_args(cache_key),
+                ):
                     t0 = _time.perf_counter()
-                    with solver_trace("solver.dispatch"):
-                        out = B.solve(
-                            request.inputs, buckets=buckets, backend="cuda",
-                            device=self.device,
-                        )
-                    # the worker's own stream, never the whole device: a
-                    # device-wide sync would invalidate a fused-tick graph
-                    # capture running on another thread
-                    torch.cuda.current_stream(self.device).synchronize()
+                    with tracer.span("solver.upload"):
+                        # solve finds these resident by object identity
+                        B._device_resident(request.inputs, self.device)
+                    t_resident = _time.perf_counter()
+                    began.record(stream)
+                    out = B.solve(
+                        request.inputs, buckets=buckets, backend="cuda",
+                        device=self.device,
+                    )
+                    ended.record(stream)
+                    t_launched = _time.perf_counter()
+                with tracer.span("solver.sync", parent=request.span):
+                    stream.synchronize()
+                t_synced = _time.perf_counter()
             grace = 0.0  # only the first call of the batch is a first launch
             if self._stale():
                 return  # the watchdog already answered these
@@ -2757,11 +2796,29 @@ class SolverService:
                     ),
                 )
             self._record_stage("dispatch", _time.perf_counter() - t0)
+            self._record_stage("upload", t_resident - t0)
+            self._record_stage("launch", t_launched - t_resident)
+            self._record_stage("sync", t_synced - t_launched)
+            self._record_stage("device", began.elapsed_time(ended) / 1e3)
             self._count_dispatch()
             t0 = _time.perf_counter()
-            host = _fetch_outputs(out)
+            with tracer.span("solver.fetch", parent=request.span):
+                host = _fetch_outputs(out)
             self._record_stage("fetch", _time.perf_counter() - t0)
-            self._finish_device(request, host)
+            with tracer.span("solver.answer", parent=request.span):
+                self._finish_device(request, host)
+
+    def _solve_events(self):
+        """The worker's two reusable timing events (CUDA events recorded
+        on its stream around a Solve's work on the card), made on first
+        use by each worker thread."""
+        events = getattr(self._tls, "solve_events", None)
+        if events is None:
+            events = self._tls.solve_events = (
+                torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True),
+            )
+        return events
 
     def _sharded_dispatch(
         self, shape, buckets: int, live: List[_Request], key: tuple
@@ -2790,7 +2847,7 @@ class SolverService:
                 ):
                     with self._device_section([request], grace=grace):
                         t0 = _time.perf_counter()
-                        with solver_trace("solver.shard"):
+                        with default_tracer().span("solver.shard"):
                             out = MESH.sharded_binpack(
                                 mesh, request.inputs, buckets, backend="cuda"
                             )
@@ -2834,7 +2891,7 @@ class SolverService:
             with self._device_section(
                 live, grace=COMPILE_GRACE_S if fresh else 0.0
             ):
-                with solver_trace("solver.shard"):
+                with default_tracer().span("solver.shard"):
                     if resident is None:
                         stacked = self._upload(stacked)
                     out = run_batched(stacked, buckets, functools.partial(
@@ -2901,11 +2958,10 @@ class SolverService:
             with self._device_section(
                 live, grace=COMPILE_GRACE_S if fresh else 0.0
             ):
-                with solver_trace("solver.dispatch"):
-                    if resident is None:
-                        stacked = self._upload(stacked)
-                    out = run_batched(stacked, buckets)
-                    done = _record_done(self.device)
+                if resident is None:
+                    stacked = self._upload(stacked)
+                out = run_batched(stacked, buckets)
+                done = _record_done(self.device)
         if self._stale():
             # superseded by a watchdog restart while dispatching: the
             # watchdog already answered these requests —

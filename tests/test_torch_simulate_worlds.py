@@ -51,6 +51,32 @@ WALL_CLOCK = {
 }
 
 
+# spans the port opens where the reference opens none: its solve
+# worker's waits and gauge publishes, the cuda rung's steps, and the
+# sites that were profiler ranges alone before the port's one span
+# system (observability/tracing.py)
+PORT_ONLY_SPANS = {
+    "solver.wait", "solver.gauges",
+    "solver.upload", "solver.fold", "solver.pack", "solver.assign",
+    "solver.shelf", "solver.tail", "solver.sync", "solver.fetch",
+    "solver.answer", "solver.forecast", "solver.preempt", "solver.shard",
+    "pendingcapacity.solve", "autoscaler.decide", "autoscaler.fused_tick",
+    "sidecar.solve", "sidecar.decide",
+}
+
+
+def _without_port_spans(report: dict) -> dict:
+    """The trace world's span, trace and event counts without the spans
+    only the port opens, recounted from its export."""
+    with open(report["trace_export"]) as f:
+        spans = [e for e in map(json.loads, f) if e["ph"] == "X"]
+    kept = [e for e in spans if e["name"] not in PORT_ONLY_SPANS]
+    return dict(
+        report, spans=len(kept), traces=len({e["cat"] for e in kept}),
+        trace_events=report["trace_events"] - (len(spans) - len(kept)),
+    )
+
+
 def _drop(report: dict, paths) -> dict:
     report = json.loads(json.dumps(report))
     for path in paths:
@@ -98,8 +124,10 @@ def reports(tmp_path_factory):
 @pytest.mark.parametrize("world", list(WORLDS))
 def test_report_equals_the_reference(reports, world):
     skip = WALL_CLOCK.get(world, ())
-    assert _drop(reports(world, None, PORT), skip) == \
-        _drop(reports(world, None, REF), skip)
+    port = reports(world, None, PORT)
+    if world == "trace":
+        port = _without_port_spans(port)
+    assert _drop(port, skip) == _drop(reports(world, None, REF), skip)
 
 
 def test_constraints_digests_pinned(reports):
