@@ -360,7 +360,9 @@ Then it profiles 20 main-path solves (torch.profiler: device time by
 kernel) and prints, before the last line, one JSON line of kernel records
 (`ms` is device time per launch from the profiler, and the smoke fails
 without it; `call_ms` is the wrapper's time by CUDA events around 50
-calls), and the script's wall time, and as the last line
+calls; the pack kernel's record is taken at the main path's four masks,
+its words held to the plain pack_bits' bit for bit), and the script's
+wall time, and as the last line
 {"ok": true, "device": {...}}. Every line with a measured number ends
 with the card's name and power limit. Without a CUDA device, or without
 the rest of the repo beside it, it exits non-zero and prints no result.
@@ -525,6 +527,23 @@ def wide_cases(workloads):
         ).astype(np.int32)
         cases.append((f"{pods}x{types} K=L={tl} weighted", f))
     return cases
+
+
+def queued_ms(torch, fn, iters=50):
+    """Device ms of one call, by CUDA events around `iters` calls queued
+    behind a device sleep of ~50 ms, so that the card runs them back to
+    back whatever the host's enqueue rate (launch gaps included)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # cycles: ~50 ms at the card's clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def time_ms(fn, iters):
@@ -1010,7 +1029,8 @@ def phase_reconcile(torch, TB, TF, workloads):
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(TF.LAUNCHES)
     need(all(e is None for e in errors.values()), f"tick errors {errors}")
-    need(launches == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0},
+    need(launches == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0,
+                      "pack_bits": 1},
          f"first reconcile tick launches {launches}")
     totals = _totals(cluster.producers)
     need(totals == RECONCILE_TOTALS,
@@ -1041,7 +1061,7 @@ def phase_reconcile(torch, TB, TF, workloads):
         cluster.tick()
         churned.append((time.perf_counter() - t0) * 1e3)
     need(TF.LAUNCHES == {"fused_assign": ITERS, "shelf_bfd": ITERS,
-                         "demand_reduce": 0},
+                         "demand_reduce": 0, "pack_bits": ITERS},
          f"{ITERS} churned ticks launched {TF.LAUNCHES}")
     last, host = cluster.feed.encode_memo[1], cluster.feed.encode_memo[2]
     card = TB.solve(last)  # same inputs object: no upload
@@ -1078,7 +1098,7 @@ def phase_reconcile(torch, TB, TF, workloads):
     need(all(e is None for e in errors.values()), f"mixed errors {errors}")
     mixed_launches = dict(TF.LAUNCHES)
     need(mixed_launches == {"fused_assign": 1, "shelf_bfd": 1,
-                            "demand_reduce": 0},
+                            "demand_reduce": 0, "pack_bits": 1},
          f"mixed draw launches {mixed_launches}")
     m_inputs = mixed.feed.encode_memo[1]
     need(all(getattr(m_inputs, f) is not None for f in
@@ -1176,7 +1196,8 @@ def _service_main_path(torch, TB, TF, svc, inputs, host_inputs):
     TF.reset_launch_counts()
     out = svc.solve(host_inputs, buckets=BUCKETS)
     launches = dict(TF.LAUNCHES)
-    need(launches == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0},
+    need(launches == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0,
+                      "pack_bits": 1},
          f"service main path launches {launches}")
     n_lp = _service_outputs_equal(out, direct, inputs,
                                   "service main path vs direct cuda")
@@ -1192,8 +1213,10 @@ def _service_main_path(torch, TB, TF, svc, inputs, host_inputs):
 
     TF.reset_launch_counts()
     s50, s95 = host_ms(torch, service_call, ITERS)
+    # the same host operands stay resident, so their words are packed
+    # already (by the request above)
     need(TF.LAUNCHES == {"fused_assign": ITERS + 1, "shelf_bfd": ITERS + 1,
-                         "demand_reduce": 0},
+                         "demand_reduce": 0, "pack_bits": 0},
          f"{ITERS + 1} service solves launched {TF.LAUNCHES}")
     d50, d95 = host_ms(torch, direct_call, ITERS)
     report(f"service main path: SolverService().solve == direct "
@@ -1260,7 +1283,8 @@ def _service_reconcile(torch, TB, TF, PC, workloads, svc, reconcile):
     errors = cluster.tick(service_solver)
     launches = dict(TF.LAUNCHES)
     need(all(e is None for e in errors.values()), f"errors {errors}")
-    need(launches == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0},
+    need(launches == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0,
+                      "pack_bits": 1},
          f"first service tick launches {launches}")
     totals = _totals(cluster.producers)
     need(totals == RECONCILE_TOTALS,
@@ -1272,7 +1296,7 @@ def _service_reconcile(torch, TB, TF, PC, workloads, svc, reconcile):
         errors = cluster.tick(service_solver)
         need(all(e is None for e in errors.values()), f"errors {errors}")
         need(TF.LAUNCHES == {"fused_assign": 1, "shelf_bfd": 1,
-                             "demand_reduce": 0},
+                             "demand_reduce": 0, "pack_bits": 1},
              f"churned service tick launched {TF.LAUNCHES}")
         same_as_direct("churned service tick")
     report(f"reconcile via service: first tick totals {totals} (the "
@@ -1486,7 +1510,7 @@ def _service_numpy_and_ladder(torch, TB, TF, S, GaugeRegistry, inputs,
         got = fsvc.solve(host_inputs, buckets=BUCKETS)
         need(fsvc.backend_health() == "healthy", "the probe did not heal")
         need(TF.LAUNCHES == {"fused_assign": 1, "shelf_bfd": 1,
-                             "demand_reduce": 0},
+                             "demand_reduce": 0, "pack_bits": 1},
              f"the probe launched {TF.LAUNCHES}")
         _service_outputs_equal(got, direct, inputs, "probe answer")
         need(fsvc.stats.fallbacks == 0, "a numpy answer on the card")
@@ -2171,7 +2195,7 @@ def _plan_profile(torch, TF, CP, world, svc, verdicts):
                              warmup=1)
     launches = {k: v / (n + 1) for k, v in TF.LAUNCHES.items()}
     need(launches == {"fused_assign": len(inputs), "shelf_bfd": len(inputs),
-                      "demand_reduce": 0},
+                      "demand_reduce": 0, "pack_bits": len(inputs)},
          f"a plan of {len(inputs)} candidates launched {launches}")
     rows = device_rows(torch, prof)
     need(rows, "profiler: no device rows for the consolidation plans")
@@ -2711,7 +2735,7 @@ def _runtime_production(torch, TF, workloads):
             first_ms = (time.perf_counter() - t0) * 1e3
             first_launches = dict(TF.LAUNCHES)
             need(first_launches == {"fused_assign": 1, "shelf_bfd": 1,
-                                    "demand_reduce": 0},
+                                    "demand_reduce": 0, "pack_bits": 1},
                  f"the first tick launched {first_launches}")
             pending = [runtime.store.get("MetricsProducer", "default",
                                          f"mp{g}")
@@ -3559,7 +3583,7 @@ def _simulate_cli(torch, TF, workloads, root):
         need(reports[(kind, "card")] == reports[(kind, "cpu")],
              f"--simulate {kind}: the card's report differs from the CPU's")
     need(launches == {"fused_assign": with_pods, "shelf_bfd": with_pods,
-                      "demand_reduce": 0},
+                      "demand_reduce": 0, "pack_bits": with_pods},
          f"consolidation launched {launches} for {with_pods} candidates "
          f"with pods")
     report(f"--simulate --consolidate on the card (main() in process, "
@@ -3650,7 +3674,7 @@ def _simulate_in_process(torch, TF, workloads, root, plain, delta):
         finally:
             SIM.encode_snapshot = real_encode
         need(launches == {"fused_assign": 1, "shelf_bfd": 1,
-                          "demand_reduce": 0},
+                          "demand_reduce": 0, "pack_bits": 1},
              f"the dry run launched {launches}")
         need(got == plain, "the in-process dry run != the binary's report")
         split = {
@@ -3667,7 +3691,7 @@ def _simulate_in_process(torch, TF, workloads, root, plain, delta):
             template_resolver=resolver, cost_model=runtime.cost_model)
         what_if_launches = dict(TF.LAUNCHES)
         need(what_if_launches == {"fused_assign": 2, "shelf_bfd": 2,
-                                  "demand_reduce": 0},
+                                  "demand_reduce": 0, "pack_bits": 2},
              f"the what-if delta launched {what_if_launches}")
         need(got_delta == delta, "the in-process delta != the binary's")
         inputs = captured[0]
@@ -4118,7 +4142,8 @@ def _kube_dry_run(torch, TF, url, pins):
     launches = dict(TF.LAUNCHES)
     need(rc == 0, f"--simulate --apiserver exited {rc}")
     got = json.loads(out.getvalue())
-    need(launches == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0},
+    need(launches == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0,
+                      "pack_bits": 1},
          f"--simulate --apiserver launched {launches}")
     totals = _dry_run_totals(got)
     want = {k: pins[k] for k in totals}
@@ -4178,7 +4203,7 @@ def _kube_production(torch, TF, workloads, dry_groups):
         first_slices = slices.take()
         first_launches = dict(TF.LAUNCHES)
         need(first_launches == {"fused_assign": 1, "shelf_bfd": 1,
-                                "demand_reduce": 0},
+                                "demand_reduce": 0, "pack_bits": 1},
              f"the first tick launched {first_launches}")
         producers = [stores[0].get("MetricsProducer", "default", f"mp{g}")
                      for g in range(KUBE_SHAPE["types"])]
@@ -4252,7 +4277,7 @@ def _kube_production(torch, TF, workloads, dry_groups):
                 for k, v in part.items():
                     parts[k] = parts.get(k, 0.0) + v
             need(launches == {"fused_assign": 1, "shelf_bfd": 1,
-                              "demand_reduce": 0},
+                              "demand_reduce": 0, "pack_bits": 1},
                  f"churned tick {t} launched {launches}")
             rv = workloads.apply_churn(servers[1], pairs)
             _kube_settle(workloads, servers[1], stores[1], rv)
@@ -4724,7 +4749,7 @@ def _deploy_in_process(torch, TF, TB, workloads):
                 launches = dict(TF.LAUNCHES)
                 rpcs = server.reset_rpcs()
                 need(launches == {"fused_assign": 1, "shelf_bfd": 1,
-                                  "demand_reduce": 0},
+                                  "demand_reduce": 0, "pack_bits": 1},
                      f"tick {tick}: the kernels launched {launches}")
                 need(svc.stats.requests - requests == launches[
                     "fused_assign"], f"tick {tick}: the sidecar's service "
@@ -5159,7 +5184,8 @@ def _deploy_processes(workloads, root):
     need(summary, "the sidecar printed no closing line")
     solves, launches = summary["rpcs"]["Solve"][0], summary["launches"]
     need(DEPLOY_SIDECAR == "cpu" or solves >= 1 and launches == {
-        "fused_assign": solves, "shelf_bfd": solves, "demand_reduce": 0},
+        "fused_assign": solves, "shelf_bfd": solves, "demand_reduce": 0,
+        "pack_bits": solves},
         f"the sidecar answered {solves} Solves with launches {launches}")
     report(f"the overlay's sidecar on SIGTERM: {summary} (the overlay "
            f"requests {solver['resources']['requests']['memory']}); each "
@@ -5371,7 +5397,8 @@ def _mt_solve_all(torch, TB, TF, workloads):
             round_ms.append((time.perf_counter() - t0) * 1e3)
             launches.append(dict(TF.LAUNCHES))
             need(launches[-1] == {"fused_assign": MT_TENANTS,
-                                  "shelf_bfd": MT_TENANTS, "demand_reduce": 0},
+                                  "shelf_bfd": MT_TENANTS, "demand_reduce": 0,
+                                  "pack_bits": MT_TENANTS},
                  f"(b) launches {launches[-1]} in a round of {MT_TENANTS} "
                  f"tenants")
         need(sched.stats.mirror_served == 0 and not sched.errors,
@@ -6153,7 +6180,9 @@ for name in ("assigned", "assigned_count", "nodes_needed", "lp_bound",
     assert a.tobytes() == b.tobytes(), name
 if card:
     want = PM.launch_plan(PM.shard_binpack_inputs(mesh, inputs))
-    assert launches == want and want["fused_assign"] == 4, (launches, want)
+    # and one pack of the fresh operands' masks
+    assert launches == {**want, "pack_bits": 1} and want["fused_assign"] == 4, (
+        launches, want)
 print("RANK-OK " + json.dumps({"rank": rank, "join_s": joined,
       "dryrun_s": dry, "launches": launches,
       "nodes": int(out.nodes_needed.sum())}), flush=True)
@@ -6230,7 +6259,9 @@ def _shard_direct(torch, TF, TB, MESH, inputs):
         out = MESH.sharded_binpack(mesh, inputs, BUCKETS, backend="cuda")
         torch.cuda.synchronize()
         launches[label] = dict(TF.LAUNCHES)
-        need(launches[label] == plan,
+        # no mesh pads the main path, so the masks are the single
+        # solve's, packed already
+        need(launches[label] == {**plan, "pack_bits": 0},
              f"(a) {label}: launched {launches[label]}, stated {plan}")
         need(plan == {"fused_assign": SHARD_DEVICES, "demand_reduce": 1,
                       "shelf_bfd": SHARD_DEVICES},
@@ -6314,7 +6345,9 @@ def _shard_service(torch, TF, TB, MESH, workloads, host_inputs, batch):
         need((st.shard_requests, st.shard_dispatches, st.shard_fallbacks,
               st.fallbacks) == (1, 1, 0, 0),
              f"(b) the main path through SolverService(): {st}")
-        need(launches == plan, f"(b) launched {launches}, stated {plan}")
+        # the shard route uploads the host operands anew: one pack
+        need(launches == {**plan, "pack_bits": 1},
+             f"(b) launched {launches}, stated {plan}")
         svc.publish_gauges()
         devices = svc._g_shard.get("-", "-")
         need(devices == SHARD_DEVICES, f"(b) the shard gauge reads {devices}")
@@ -6751,7 +6784,92 @@ def kernel_records(torch, TB, TF, inputs, launches, profile, reconcile,
             "bound_by": by,
             "library_ms": None,
         })
+    records.append(pack_record(torch, TB, TF, inputs, launches, service))
     return records
+
+
+def pack_record(torch, TB, TF, inputs, launches, service):
+    """The pack kernel's record (csrc/fused_assign.cu's pack_bits_kernel)
+    at the main path's four masks (100k x 64 twice, 300 x 64 twice, the
+    labels inverted): `ms` its device time per launch (`ms_by`: the
+    profiler over ITERS launches, or queued_ms where it lost the rows),
+    `call_ms` pack_masks by CUDA events around 50 calls, `plain_ms` the
+    plain pack_bits chain on the card for the same four masks,
+    `bound_ms` the bytes read and written at PEAK_BYTES_PER_S, and
+    `max_abs_err` the largest difference of any mask bit between the
+    kernel's words and the plain version's (0 required). `launches` is
+    the main path's first solve's count (0 where an earlier phase packed
+    the same tensors: the memo), `fresh_solve_launches` a cuda solve's on
+    a fresh copy of the operands (1 required), `service_launches` phase
+    10's main-path request's."""
+    import dataclasses
+
+    masks = (inputs.pod_intolerant, inputs.pod_required,
+             inputs.group_taints, inputs.group_labels)
+    invert = (False, False, False, True)
+    pack = lambda: TF.pack_masks(masks, invert)  # noqa: E731
+    plain = lambda: tuple(TF.pack_bits(~m if inv else m)  # noqa: E731
+                          for m, inv in zip(masks, invert))
+    got, want = pack(), plain()
+    torch.cuda.synchronize()
+    err = 0.0 if all(torch.equal(a, b) for a, b in zip(got, want)) else 1.0
+    need(err == 0.0, "pack_masks' words != the plain pack_bits'")
+    fresh = dataclasses.replace(inputs, **{
+        name: getattr(inputs, name).clone()
+        for name in ("pod_intolerant", "pod_required", "group_taints",
+                     "group_labels")})
+    TF.reset_launch_counts()
+    TB.solve(fresh, buckets=BUCKETS, backend="cuda")
+    fresh_launches = TF.LAUNCHES["pack_bits"]
+    need(fresh_launches == 1,
+         f"a fresh snapshot's solve packed {fresh_launches} times")
+    def ranged():
+        # key_averages() keeps a kernel only under a host range or op
+        with torch.profiler.record_function("pack_masks"):
+            return pack()
+
+    TF.reset_launch_counts()
+    prof, _ = profile_window(torch, ranged, ITERS)
+    need(TF.LAUNCHES["pack_bits"] == ITERS + 2,
+         f"{ITERS + 2} pack_masks calls launched {TF.LAUNCHES}")
+    rows = device_rows(torch, prof)
+    hits = [(us, c) for us, c, key in rows if "pack_bits_kernel" in key]
+    if hits:
+        need(sum(c for _, c in hits) == ITERS,
+             f"the profiler shows {hits} pack_bits_kernel rows for {ITERS} "
+             f"launches")
+        ms, ms_by = sum(us for us, _ in hits) / ITERS / 1e3, "profiler"
+    else:
+        ms, ms_by = queued_ms(torch, pack), (
+            f"CUDA events around 50 launches queued behind a device sleep "
+            f"(the profiler's {len(rows)} device rows hold none)")
+    nbytes = (sum(m.numel() for m in masks)
+              + sum(8 * w.numel() for w in got))
+    record = {
+        "name": "pack_bits",
+        "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/fused_assign.cu",
+        "replaces": ("karpenter_tpu_torch/ops/fused_assign.py::pack_bits "
+                     "(a PyTorch chain; the reference pads its bool masks "
+                     "in XLA, karpenter_tpu/ops/pallas_binpack.py:215)"),
+        "launches": launches["pack_bits"],
+        "fresh_solve_launches": fresh_launches,
+        "service_launches": service["launches"]["pack_bits"],
+        "bytes": nbytes,
+        "max_abs_err": err,
+        "ms": ms,
+        "ms_by": ms_by,
+        "call_ms": time_ms(pack, 50),
+        "plain_ms": time_ms(plain, 5),
+        "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+    report(f"pack_bits_kernel at the main path's four masks: {ms} ms a "
+           f"launch ({ms_by}; bound {record['bound_ms']} ms, {nbytes} bytes), "
+           f"call {record['call_ms']} ms, plain chain {record['plain_ms']} "
+           f"ms, words == plain")
+    return record
 
 
 def _failed_at(exc) -> str:

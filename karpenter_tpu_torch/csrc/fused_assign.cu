@@ -50,10 +50,13 @@
 //     runs both. A sharded solve (parallel/mesh.py) scans each row slab,
 //     a whole number of blocks, into its views of one partial buffer and
 //     reduces once: the same partials in the same order as one launch.
+// The mask words the scan reads come from a third entry, pack_bits_launch
+// (pack_bits_kernel, its own note below), one launch for all four masks.
 // Built without --use_fast_math (approximate division would move bucket
 // boundaries) and with --fmad=false.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <cub/block/block_radix_sort.cuh>
@@ -349,6 +352,98 @@ __global__ void demand_reduce_kernel(
   }
 }
 
+// Bit packing of the fused launch's mask operands (pack_bits_launch).
+//
+// Replaces the plain version's chain (ops/fused_assign.pack_bits: a zeros
+// fill, a slice copy, a cast of every bool to int64, a broadcast shift
+// and an int64 sum, and a separate `~` for the label mask): about 230 MB
+// of traffic for each [100000, 64] pod-side mask, to write 0.8 MB.
+//
+// What bounds it on this card: bytes. At the main-path shape (P = 100000,
+// T = 300, K = L = 64) one launch reads the four masks' 12.8 MB of 0/1
+// bytes once and writes 1.6 MB of words (~4.3 us at 3.35 TB/s); the
+// arithmetic is a dozen integer operations per 16 bytes. The design:
+//   * one launch packs up to kPackMaxMasks masks: the blocks are dealt
+//     out to the masks in order, so every block belongs to one mask and
+//     its path is uniform;
+//   * four lanes build one 64-bit word, each from 16 columns; on the row-
+//     contiguous path (K a multiple of 16 and a 16-byte aligned base) a
+//     lane's columns are one 16-byte load and a warp reads 512
+//     consecutive bytes; the general path (any other K, or an unaligned
+//     base) loads bytes one by one up to K; K = 0 loads nothing and
+//     writes one zero word a row;
+//   * 8 bytes become 8 bits with no loop: three shift-ORs fold each byte
+//     onto its low bit (so any nonzero byte is a 1), and one multiply by
+//     0x0102040810204080 gathers the eight low bits into the top byte;
+//   * an invert flag per mask flips the bits of the columns below K as
+//     they are loaded (the `~` of the label mask); the padding above K
+//     stays 0;
+//   * two __shfl_xor_sync ORs combine the four lanes' 16-bit parts, and
+//     one lane stores the word: the words are written once.
+constexpr int kPackThreads = 256;
+constexpr int kPackMaxMasks = 4;
+
+struct PackMask {
+  const uint8_t* in;  // [rows, k] 0/1 bytes, row-major
+  uint64_t* out;      // [rows, words]
+  long long n_words;  // rows * words
+  int k, words, invert, vector;
+  int first_block;    // the mask's first block in the launch
+};
+
+struct PackMasks {
+  PackMask m[kPackMaxMasks];
+  int count;
+};
+
+// bit j of the result is byte j of x nonzero
+__device__ __forceinline__ uint32_t byte_flags(uint64_t x) {
+  x |= x >> 4;
+  x |= x >> 2;
+  x |= x >> 1;
+  x &= 0x0101010101010101ull;
+  return static_cast<uint32_t>((x * 0x0102040810204080ull) >> 56);
+}
+
+__global__ void __launch_bounds__(kPackThreads) pack_bits_kernel(
+    const PackMasks masks)
+{
+  // this block's mask (constant indices keep the descriptors in the
+  // parameter space)
+  PackMask m = masks.m[0];
+#pragma unroll
+  for (int i = 1; i < kPackMaxMasks; ++i)
+    if (i < masks.count && (int)blockIdx.x >= masks.m[i].first_block)
+      m = masks.m[i];
+  const long long slot =
+      (long long)((int)blockIdx.x - m.first_block) * kPackThreads +
+      threadIdx.x;
+  const long long word = slot >> 2;
+  const int part = static_cast<int>(slot & 3);
+  uint64_t bits = 0;
+  if (word < m.n_words) {
+    const long long row = m.words == 1 ? word : word / m.words;
+    const int col = static_cast<int>(word - row * m.words) * 64 + part * 16;
+    const uint8_t* src = m.in + row * m.k + col;
+    const int n = min(16, m.k - col);  // this lane's columns below K
+    uint32_t flags = 0;
+    if (m.vector) {
+      if (n > 0) {  // n is 16: K is a multiple of 16
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+        flags = byte_flags(v.x | (uint64_t)v.y << 32) |
+                byte_flags(v.z | (uint64_t)v.w << 32) << 8;
+      }
+    } else {
+      for (int j = 0; j < n; ++j) flags |= (uint32_t)(__ldg(src + j) != 0) << j;
+    }
+    if (m.invert && n > 0) flags ^= n >= 16 ? 0xffffu : (1u << n) - 1u;
+    bits = (uint64_t)flags << (16 * part);
+  }
+  bits |= __shfl_xor_sync(kFull, bits, 1);
+  bits |= __shfl_xor_sync(kFull, bits, 2);
+  if (part == 0 && word < m.n_words) m.out[word] = bits;
+}
+
 // the largest dynamic shared memory set so far per kernel instance and
 // device: the attribute is set once per size, not on every launch
 int g_smem_narrow[kMaxDevices];
@@ -480,6 +575,48 @@ int fused_assign_launch(
   if (err != 0) return err;
   return fused_assign_reduce(partial, unsched_partial, n_blocks, T * R,
                              demand, unsched, stream);
+}
+
+// Packs `count` (1 to kPackMaxMasks) bool masks in one launch of
+// pack_bits_kernel on `stream`: mask i, in_i [rows_i, k_i] 0/1 bytes
+// (row-major), into out_i int64[rows_i, max(1, ceil(k_i / 64))], bit j
+// of word w being column 64 w + j, zero above k_i; bit i of `invert`
+// packs the mask's complement instead. Launches nothing when every mask
+// is empty. Returns the cudaError_t (0 on success).
+int pack_bits_launch(
+    const void* in0, const void* in1, const void* in2, const void* in3,
+    void* out0, void* out1, void* out2, void* out3,
+    int rows0, int rows1, int rows2, int rows3,
+    int k0, int k1, int k2, int k3,
+    int invert, int count, void* stream)
+{
+  if (count < 1 || count > kPackMaxMasks) return (int)cudaErrorInvalidValue;
+  const void* in[kPackMaxMasks] = {in0, in1, in2, in3};
+  void* out[kPackMaxMasks] = {out0, out1, out2, out3};
+  const int rows[kPackMaxMasks] = {rows0, rows1, rows2, rows3};
+  const int k[kPackMaxMasks] = {k0, k1, k2, k3};
+  PackMasks masks = {};
+  masks.count = count;
+  long long blocks = 0;
+  for (int i = 0; i < count; ++i) {
+    if (rows[i] < 0 || k[i] < 0) return (int)cudaErrorInvalidValue;
+    PackMask& m = masks.m[i];
+    m.in = static_cast<const uint8_t*>(in[i]);
+    m.out = static_cast<uint64_t*>(out[i]);
+    m.k = k[i];
+    m.words = k[i] > 0 ? (k[i] + 63) / 64 : 1;
+    m.n_words = (long long)rows[i] * m.words;
+    m.invert = (invert >> i) & 1;
+    m.vector = k[i] % 16 == 0 &&
+               reinterpret_cast<uintptr_t>(in[i]) % 16 == 0;
+    m.first_block = static_cast<int>(blocks);
+    blocks += (m.n_words * 4 + kPackThreads - 1) / kPackThreads;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  }
+  if (blocks == 0) return 0;
+  pack_bits_kernel<<<static_cast<int>(blocks), kPackThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(masks);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -43,6 +43,9 @@ _SIGNATURES = {
         # reduction (partials, n_blocks, T * R, 2 outputs, the stream)
         "fused_assign_scan": ([_P] * 11 + [_I] * 10 + [_P] * 5, _I),
         "fused_assign_reduce": ([_P, _P, _I, _I, _P, _P, _P], _I),
+        # the bit packing of up to 4 masks: 4 inputs, 4 outputs, their rows
+        # and widths, the invert bits, the mask count, the stream
+        "pack_bits_launch": ([_P] * 8 + [_I] * 10 + [_P], _I),
         "fused_assign_error_string": ([_I], ctypes.c_char_p),
     },
     "shelf_bfd": {

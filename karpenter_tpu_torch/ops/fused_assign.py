@@ -19,12 +19,17 @@ partials per block and the unschedulable partials), and `demand_reduce`
 reduces every slab's partials, gathered in global block order, in one
 launch.
 
+The fused stage reads the taint and label masks bit-packed: `pack_masks`
+packs the four (~labels through an invert flag) in one launch
+(csrc/fused_assign.cu's pack_bits_launch), memoized per snapshot by
+`_packed`.
+
 Each wrapper launches its kernel for CUDA tensors, counts the launch in
 LAUNCHES, and raises on any failure; for CPU tensors, and only for them, it
 runs its plain PyTorch version (fused_assign_reference,
 fused_assign_scan_reference, demand_reduce_reference,
-shelf_bfd_reference), which is also what the kernels are held against on
-the card.
+shelf_bfd_reference, pack_bits), which is also what the kernels are held
+against on the card.
 """
 
 from __future__ import annotations
@@ -55,8 +60,11 @@ from karpenter_tpu_torch.ops.binpack import (
 # kernel launches by wrapper; only the wrappers below add to it. A
 # single-device solve's fused launch (the scan and the reduction in one
 # host entry) counts under "fused_assign"; a sharded solve counts each row
-# slab's scan there and its one reduction under "demand_reduce"
-LAUNCHES = {"fused_assign": 0, "shelf_bfd": 0, "demand_reduce": 0}
+# slab's scan there and its one reduction under "demand_reduce";
+# "pack_bits" counts the launches that pack a solve's four masks, one per
+# miss of _packed's memo
+LAUNCHES = {"fused_assign": 0, "shelf_bfd": 0, "demand_reduce": 0,
+            "pack_bits": 0}
 
 # the largest dynamic shared memory one block may take on Hopper
 _MAX_SHARED_BYTES = 232448
@@ -73,13 +81,62 @@ def reset_launch_counts() -> None:
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """bool[N, K] -> int64[N, max(1, ceil(K / 64))]: bit j of word w is
     column 64 w + j (word 0 when K is 0). The sum of distinct powers of
-    two is their OR, and no partial sum leaves int64's range."""
+    two is their OR, and no partial sum leaves int64's range. The plain
+    version of pack_masks' kernel."""
     n, k = bits.shape
     words = max(1, -(-k // 64))
     padded = torch.zeros((n, words * 64), dtype=torch.bool, device=bits.device)
     padded[:, :k] = bits
     shifts = torch.arange(64, dtype=torch.int64, device=bits.device)
     return (padded.view(n, words, 64).to(torch.int64) << shifts).sum(dim=2)
+
+
+# csrc/fused_assign.cu's kPackMaxMasks: the masks one pack launch takes
+PACK_MAX_MASKS = 4
+
+
+def pack_masks(masks, invert) -> Tuple[torch.Tensor, ...]:
+    """Each bool[N_i, K_i] mask (its complement where `invert` says so) as
+    pack_bits' int64[N_i, max(1, ceil(K_i / 64))] words. CUDA tensors pack
+    all of them in one launch of csrc/fused_assign.cu's pack_bits_kernel
+    (at most PACK_MAX_MASKS, on one device); CPU tensors run pack_bits."""
+    masks, invert = tuple(masks), tuple(bool(i) for i in invert)
+    if not masks or len(masks) != len(invert):
+        raise ValueError("pack_masks: one invert flag per mask, at least one")
+    dev = masks[0].device
+    if dev.type == "cpu":
+        return tuple(pack_bits(~m if inv else m)
+                     for m, inv in zip(masks, invert))
+    if dev.type != "cuda":
+        raise ValueError(f"pack_masks: unsupported device {dev}")
+    if len(masks) > PACK_MAX_MASKS:
+        raise ValueError(f"pack_masks: at most {PACK_MAX_MASKS} masks a launch")
+    masks = tuple(m.contiguous() for m in masks)
+    for i, m in enumerate(masks):
+        if m.dim() != 2:
+            raise ValueError(f"pack_masks: mask {i} is not 2-d")
+        _require(m, f"mask {i}", torch.bool, m.shape, dev)
+    words = tuple(
+        torch.empty((m.shape[0], max(1, -(-m.shape[1] // 64))),
+                    dtype=torch.int64, device=dev)
+        for m in masks
+    )
+    pad = PACK_MAX_MASKS - len(masks)
+    lib = kernels.library("fused_assign")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.pack_bits_launch(
+            *(_ptr(m) for m in masks), *[None] * pad,
+            *(_ptr(w) for w in words), *[None] * pad,
+            *(m.shape[0] for m in masks), *[0] * pad,
+            *(m.shape[1] for m in masks), *[0] * pad,
+            sum(1 << i for i, inv in enumerate(invert) if inv), len(masks),
+            stream,
+        )
+    kernels.check("fused_assign", err, "pack_bits launch")
+    if any(m.shape[0] for m in masks):  # all empty: nothing launched
+        LAUNCHES["pack_bits"] += 1
+    return words
 
 
 # One-slot memo of the packed words, keyed by the identity of the four
@@ -89,7 +146,8 @@ _pack_memo = None
 
 
 def _packed(inputs: BinPackInputs):
-    """(intolerant, required, taints, ~labels) as packed int64 words."""
+    """(intolerant, required, taints, ~labels) as packed int64 words, by
+    one pack_masks call."""
     global _pack_memo
     key = (
         inputs.pod_intolerant, inputs.pod_required,
@@ -98,12 +156,7 @@ def _packed(inputs: BinPackInputs):
     memo = _pack_memo
     if memo is not None and all(a is b for a, b in zip(memo[0], key)):
         return memo[1]
-    packed = (
-        pack_bits(inputs.pod_intolerant),
-        pack_bits(inputs.pod_required),
-        pack_bits(inputs.group_taints),
-        pack_bits(~inputs.group_labels),
-    )
+    packed = pack_masks(key, invert=(False, False, False, True))
     _pack_memo = (key, packed)
     return packed
 
@@ -632,6 +685,7 @@ __all__ = [
     "fused_assign_scan",
     "fused_assign_scan_reference",
     "pack_bits",
+    "pack_masks",
     "reset_launch_counts",
     "shelf_bfd",
     "shelf_bfd_reference",

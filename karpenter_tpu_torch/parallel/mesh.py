@@ -684,7 +684,9 @@ def _group_tail(sh: Sharded, hists, demand, shelf) -> tuple:
 def launch_plan(sh: Sharded) -> Dict[str, int]:
     """The launches this process makes for a card-route solve of `sh`, by
     LAUNCHES key: one scan per owned non-empty row slab, one reduction,
-    one shelf per owned non-empty group slab."""
+    one shelf per owned non-empty group slab. Not in it: the one pack of
+    the whole operands' masks ("pack_bits"), which a miss of
+    ops/fused_assign._packed's memo makes."""
     rows = sh.bounds("pod_requests")
     groups = position_bounds(sh.mesh, Split(_row_axes(sh.mesh)),
                              sh.whole.group_allocatable.shape[0])

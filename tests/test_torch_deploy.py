@@ -387,5 +387,6 @@ class TestSmokeCommandLines:
         assert sidecar.summary["stopped"] == f"127.0.0.1:{sidecar.port}"
         assert sidecar.summary["rpcs"]["Solve"] == [0, 0]
         assert sidecar.summary["launches"] == {
-            "fused_assign": 0, "shelf_bfd": 0, "demand_reduce": 0}
+            "fused_assign": 0, "shelf_bfd": 0, "demand_reduce": 0,
+            "pack_bits": 0}
         assert sidecar.summary["peak_rss_mib"] > 0

@@ -78,7 +78,8 @@ def test_consolidate_batch_launches_each_kernel_once_per_candidate():
         TF.reset_launch_counts()
         got = svc.consolidate(inputs)
         assert TF.LAUNCHES == {"fused_assign": len(inputs),
-                               "shelf_bfd": len(inputs), "demand_reduce": 0}
+                               "shelf_bfd": len(inputs), "demand_reduce": 0,
+                               "pack_bits": len(inputs)}
         cpu = SolverService(registry=GaugeRegistry(), device="cpu",
                             backend="torch")
         try:

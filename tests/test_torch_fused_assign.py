@@ -255,9 +255,10 @@ class TestWrappers:
     def test_reset_launch_counts(self):
         TF.LAUNCHES["fused_assign"] += 3
         TF.LAUNCHES["demand_reduce"] += 1
+        TF.LAUNCHES["pack_bits"] += 2
         TF.reset_launch_counts()
         assert TF.LAUNCHES == {"fused_assign": 0, "shelf_bfd": 0,
-                               "demand_reduce": 0}
+                               "demand_reduce": 0, "pack_bits": 0}
 
     def test_rejects_operands_it_cannot_take(self):
         rng = np.random.default_rng(2)
@@ -270,7 +271,7 @@ class TestWrappers:
             with pytest.raises(ValueError):
                 TF.fused_assign(to_port(with_fields(base, **extra)), 8)
 
-    @pytest.mark.parametrize("k", [0, 1, 63, 64, 65, 130])
+    @pytest.mark.parametrize("k", [0, 1, 15, 16, 63, 64, 65, 130, 512])
     def test_pack_bits(self, k):
         rng = np.random.default_rng(k)
         bits = rng.random((7, k)) < 0.5
@@ -283,6 +284,37 @@ class TestWrappers:
         ).reshape(7, -1)
         np.testing.assert_array_equal(unpacked[:, :k].astype(bool), bits)
         assert not unpacked[:, k:].any()
+        # the kernel's wrapper runs this plain version on CPU tensors
+        (plain,) = TF.pack_masks([torch.from_numpy(bits)], [False])
+        assert torch.equal(plain, words)
+        (inverted,) = TF.pack_masks([torch.from_numpy(bits)], [True])
+        assert torch.equal(inverted, TF.pack_bits(torch.from_numpy(~bits)))
+
+    def test_pack_masks_on_cpu_packs_each_mask_and_counts_no_launch(self):
+        rng = np.random.default_rng(11)
+        shapes = ((9, 64), (9, 130), (3, 0), (0, 16))
+        masks = [torch.from_numpy(rng.random(shape) < 0.3)
+                 for shape in shapes]
+        invert = (False, True, True, False)
+        before = dict(TF.LAUNCHES)
+        got = TF.pack_masks(masks, invert)
+        assert TF.LAUNCHES == before
+        assert len(got) == len(masks)
+        for words, mask, inv in zip(got, masks, invert):
+            assert torch.equal(words, TF.pack_bits(~mask if inv else mask))
+        with pytest.raises(ValueError):
+            TF.pack_masks(masks, invert[:3])
+        with pytest.raises(ValueError):
+            TF.pack_masks([], [])
+
+    def test_packed_words_are_the_plain_words_of_the_four_masks(self):
+        port = to_port(random_inputs(np.random.default_rng(4), 20, 5))
+        words = TF._packed(port)
+        want = (TF.pack_bits(port.pod_intolerant),
+                TF.pack_bits(port.pod_required),
+                TF.pack_bits(port.group_taints),
+                TF.pack_bits(~port.group_labels))
+        assert all(torch.equal(a, b) for a, b in zip(words, want))
 
     def test_packed_words_memoized_by_tensor_identity(self):
         port = to_port(random_inputs(np.random.default_rng(3), 12, 4))
@@ -347,6 +379,7 @@ class TestWrappers:
         assert (f"kItems = {TF.ROWS_PER_BLOCK // TF.THREADS};") in fused
         assert f"kMaxResources = {TF.MAX_RESOURCES};" in fused
         assert f"kMaxWords = {TF.MAX_WORDS};" in fused
+        assert f"kPackMaxMasks = {TF.PACK_MAX_MASKS};" in fused
         assert "launch_assign<%d, %d, true>" % TF._NARROW in fused
         assert f"sizeof(GroupRecord) == {TF._RECORD_BYTES}" in fused
         shelf = (kernels.CSRC / "shelf_bfd.cu").read_text()

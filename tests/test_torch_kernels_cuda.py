@@ -156,3 +156,51 @@ def test_wrapper_rejects_bad_operands_on_card():
         TF.fused_assign(inputs, 8)
     with pytest.raises(ValueError, match="histogram"):
         TF.shelf_bfd(torch.zeros((4, 8), dtype=torch.int64, device="cuda"), 8)
+
+
+@pytest.mark.parametrize("invert", [False, True], ids=["plain", "invert"])
+@pytest.mark.parametrize("rows", [1, 7, 513, 100_000])
+@pytest.mark.parametrize("k", [0, 1, 15, 16, 63, 64, 65, 130, 512])
+def test_pack_kernel_matches_plain(k, rows, invert):
+    """pack_masks on the card == the plain pack_bits, bit for bit: the
+    row-contiguous path (K a multiple of 16) and the general one."""
+    mask = torch.rand((rows, k), device="cuda") < 0.5
+    before = TF.LAUNCHES["pack_bits"]
+    (got,) = TF.pack_masks([mask], [invert])
+    assert TF.LAUNCHES["pack_bits"] == before + 1
+    want = TF.pack_bits(~mask if invert else mask)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_pack_kernel_packs_four_masks_in_one_launch():
+    """Four masks of different shapes, the third empty and the last on an
+    unaligned base (K a multiple of 16 there, so the general path): one
+    launch, each mask's words the plain version's."""
+    base = torch.rand(3000 * 48 + 1, device="cuda") < 0.3
+    masks = [torch.rand((2049, 64), device="cuda") < 0.5,
+             torch.rand((300, 130), device="cuda") < 0.5,
+             torch.zeros((0, 64), dtype=torch.bool, device="cuda"),
+             base[1:].view(3000, 48)]
+    assert masks[3].data_ptr() % 16 != 0
+    invert = (False, True, False, True)
+    before = TF.LAUNCHES["pack_bits"]
+    got = TF.pack_masks(masks, invert)
+    assert TF.LAUNCHES["pack_bits"] == before + 1
+    torch.cuda.synchronize()
+    for words, mask, inv in zip(got, masks, invert):
+        assert torch.equal(words, TF.pack_bits(~mask if inv else mask))
+
+
+def test_a_fresh_snapshot_packs_once_and_a_repeat_packs_nothing():
+    fields = workloads.build_inputs(5000, 300, 64, 64, seed=2)
+    inputs = TB.inputs_from_numpy(fields, "cuda")
+    before = TF.LAUNCHES["pack_bits"]
+    first = TB.solve(inputs, backend="cuda")
+    assert TF.LAUNCHES["pack_bits"] == before + 1
+    again = TB.solve(inputs, backend="cuda")
+    assert TF.LAUNCHES["pack_bits"] == before + 1
+    assert TF._packed(inputs) is TF._packed(inputs)
+    for name in OUTPUT_FIELDS:
+        assert torch.equal(getattr(first, name), getattr(again, name)), name

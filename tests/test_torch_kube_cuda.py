@@ -90,7 +90,7 @@ def test_card_runtime_over_the_apiserver_equals_the_cpu():
             card.manager.reconcile_all()
             torch.cuda.synchronize()
             assert TF.LAUNCHES == {"fused_assign": 1, "shelf_bfd": 1,
-                                   "demand_reduce": 0}, t
+                                   "demand_reduce": 0, "pack_bits": 1}, t
             cpu.manager.reconcile_all()
             for plural in PLURALS:
                 want = workloads.server_documents(servers[1], plural)

@@ -51,6 +51,17 @@ def _needs_card():
     UD.reset_virtual_devices()
 
 
+def mesh_packs(mesh, inputs):
+    """The pack launches of a sharded solve of `inputs` right after a
+    single-device solve of them: 1, unless the mesh pads nothing, so that
+    the whole operands' masks are the ones just packed (the memo's hit)."""
+    whole = PM.shard_binpack_inputs(mesh, inputs).whole
+    return int(any(
+        getattr(whole, name) is not getattr(inputs, name)
+        for name in ("pod_intolerant", "pod_required", "group_taints",
+                     "group_labels")))
+
+
 def wide_inputs(seed=1):
     fields = workloads.build_inputs(pods=4096, types=2000, taints=64,
                                     labels=64, seed=seed)
@@ -81,8 +92,9 @@ def test_split_entry_equals_the_fused_launch():
         hists.append(TF.fused_assign_scan(rows, 32, slab_words, out)[1])
     got_demand, got_unsched = TF.demand_reduce(bufs[2], bufs[3])
     torch.cuda.synchronize()
+    # the slabs' words were packed above, before the counts were reset
     assert TF.LAUNCHES == {"fused_assign": 3, "shelf_bfd": 0,
-                           "demand_reduce": 1}
+                           "demand_reduce": 1, "pack_bits": 0}
     assert torch.equal(bufs[0], assigned)
     assert torch.equal(torch.stack(hists).sum(0, dtype=torch.int32), hist)
     assert got_demand.cpu().numpy().tobytes() == demand.cpu().numpy().tobytes()
@@ -94,7 +106,8 @@ def test_sharded_solve_equals_single_device(n_devices):
     inputs = wide_inputs(seed=n_devices)
     single = TB.solve(inputs, buckets=32, backend="cuda")
     mesh = PM.build_mesh(n_devices=n_devices)
-    want = PM.launch_plan(PM.shard_binpack_inputs(mesh, inputs))
+    want = {**PM.launch_plan(PM.shard_binpack_inputs(mesh, inputs)),
+            "pack_bits": mesh_packs(mesh, inputs)}
     TF.reset_launch_counts()
     out = PM.sharded_binpack(mesh, inputs, 32, backend="cuda")
     torch.cuda.synchronize()
@@ -115,11 +128,12 @@ def test_empty_slabs_launch_nothing():
     inputs = TB.inputs_from_numpy(fields, "cuda")
     single = TB.solve(inputs, buckets=32, backend="cuda")
     mesh = PM.build_mesh(n_devices=8)
+    packs = mesh_packs(mesh, inputs)
     TF.reset_launch_counts()
     out = PM.sharded_binpack(mesh, inputs, 32, backend="cuda")
     torch.cuda.synchronize()
     assert TF.LAUNCHES == {"fused_assign": 1, "shelf_bfd": 8,
-                           "demand_reduce": 1}
+                           "demand_reduce": 1, "pack_bits": packs}
     for name in OUTPUTS:
         assert torch.equal(getattr(out, name), getattr(single, name)), name
 

@@ -90,7 +90,8 @@ def test_replicas_on_the_card_equal_the_cpu(tmp_path):
     cpu_victim, cpu = run("cpu", tmp_path / "cpu")
     assert victim == cpu_victim
     assert len(launches) == 3 * 4 + 2 * 3
-    assert all(n == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0}
+    assert all(n == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0,
+                     "pack_bits": 1}
                for _, n in launches), launches
     for tick, (got, want) in enumerate(zip(card, cpu)):
         assert got == want, f"tick {tick}"

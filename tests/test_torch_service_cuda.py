@@ -87,7 +87,7 @@ def test_cuda_rung_equals_torch_and_numpy_rungs(resources, optional):
             TF.reset_launch_counts()
             cuda = svc.solve(inputs)  # auto on the card: the cuda rung
             assert TF.LAUNCHES == {"fused_assign": 1, "shelf_bfd": 1,
-                                   "demand_reduce": 0}
+                                   "demand_reduce": 0, "pack_bits": 1}
             assert_equal(cuda, svc.solve(inputs, backend="torch"), "torch ")
             assert_equal(cuda, svc.solve(inputs, backend="numpy"), "numpy ")
         assert svc.stats.fallbacks == 0

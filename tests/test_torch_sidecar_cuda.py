@@ -76,7 +76,7 @@ def test_one_launch_of_each_kernel_per_solve_rpc(card_sidecar):
         TF.reset_launch_counts()
         got = client.solve(inputs)
         assert dict(TF.LAUNCHES) == {"fused_assign": 1, "shelf_bfd": 1,
-                                     "demand_reduce": 0}
+                                     "demand_reduce": 0, "pack_bits": 1}
         want = TB.solve(inputs, backend="torch", device="cpu")
         for name, value in _leaves(got).items():
             np.testing.assert_array_equal(
@@ -137,7 +137,7 @@ def test_deployment_world_through_the_card_sidecar(card_sidecar):
                 snap["resizes"] = manager.take_resizes()
                 snaps.append(snap)
             assert dict(TF.LAUNCHES) == {"fused_assign": 1, "shelf_bfd": 1,
-                                         "demand_reduce": 0}
+                                         "demand_reduce": 0, "pack_bits": 1}
             assert snaps[0] == snaps[1], tick
         assert runs[0][4].solver_service.stats.fallbacks == 0
     finally:

@@ -131,10 +131,12 @@ def test_dry_run_launches_each_kernel_once_and_equals_the_cpu(tmp_path):
             runtime.close()
     card, cpu = reports[None], reports["cpu"]
     assert card[:2] == cpu[:2]
-    assert card[2] == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0}
-    assert card[3] == {"fused_assign": 2, "shelf_bfd": 2, "demand_reduce": 0}
+    assert card[2] == {"fused_assign": 1, "shelf_bfd": 1, "demand_reduce": 0,
+                       "pack_bits": 1}
+    assert card[3] == {"fused_assign": 2, "shelf_bfd": 2, "demand_reduce": 0,
+                       "pack_bits": 2}
     assert cpu[2] == cpu[3] == {"fused_assign": 0, "shelf_bfd": 0,
-                                "demand_reduce": 0}
+                                "demand_reduce": 0, "pack_bits": 0}
 
 
 def test_consolidation_launches_once_per_candidate_with_pods(tmp_path):
@@ -157,7 +159,7 @@ def test_consolidation_launches_once_per_candidate_with_pods(tmp_path):
     with_pods = sum(1 for e in card["nodes"].values()
                     if "ineligible" not in e and e["pods"] > 0)
     assert launches == {"fused_assign": with_pods, "shelf_bfd": with_pods,
-                        "demand_reduce": 0}
+                        "demand_reduce": 0, "pack_bits": with_pods}
 
 
 def test_the_binary_on_the_card_prints_the_cpus_report(tmp_path):

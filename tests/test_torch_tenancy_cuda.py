@@ -81,7 +81,7 @@ def test_solve_all_launches_each_kernel_once_per_tenant():
         TF.reset_launch_counts()
         out = sched.solve_all(batch)
         assert TF.LAUNCHES == {"fused_assign": TENANTS, "shelf_bfd": TENANTS,
-                               "demand_reduce": 0}
+                               "demand_reduce": 0, "pack_bits": TENANTS}
         for tenant, inputs in batch.items():
             direct = host(B.solve(inputs, backend="cuda"))
             plain = host(B.solve(inputs, backend="torch", device="cpu"))

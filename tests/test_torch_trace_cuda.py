@@ -108,7 +108,7 @@ def test_device_span_holds_the_kernels_between_the_events(service, fields):
         torch.cuda.synchronize()
     launched = {k: TF.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"fused_assign": N_SOLVES, "shelf_bfd": N_SOLVES,
-                        "demand_reduce": 0}
+                        "demand_reduce": 0, "pack_bits": N_SOLVES}
     device_ms = _rings(service)["device"][-N_SOLVES:]
     events = list(prof.profiler.kineto_results.events())
     host = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
