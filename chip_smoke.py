@@ -1746,7 +1746,7 @@ def _ha_production(torch, workloads, S, M, GaugeRegistry):
             (fleet.autoscaler, "_apply", "scale writes + conditions"),
             (fleet.controller, "reconcile_batch", "reconcile_batch"),
         ]
-        ticks, splits, programs = [], [], []
+        ticks, splits = [], []
         last_inputs = {}
         inner_fn = fleet.autoscaler.fused_tick_fn
 
@@ -1782,7 +1782,6 @@ def _ha_production(torch, workloads, S, M, GaugeRegistry):
                 spent["status writes"] = ticks[-1] / 1e3 - spent.pop(
                     "reconcile_batch")
                 splits.append(spent)
-                programs.append(dict(program.last_split))
                 gc_ticks.append((ticks[-1], gc_spent["s"] * 1e3,
                                  gc_spent["full"]))
                 gc_spent["s"], gc_spent["full"] = 0.0, 0
@@ -1804,15 +1803,16 @@ def _ha_production(torch, workloads, S, M, GaugeRegistry):
                    f"({100.0 * np.median(v) / p50}% of the tick p50)")
         report(f"  host split: the named spans sum to {inside} ms of the "
                f"{p50} ms p50 (the rest is the batch loop's own work)")
-        for k in ("upload_ms", "replay_ms", "fetch_ms"):
-            report(f"  inside service.fused_tick, median: program {k} "
-                   f"{np.median([d[k] for d in programs])}")
+        stages = svc.stage_percentiles()
+        for k in ("fused_upload", "fused_replay", "fused_fetch",
+                  "fused_device"):
+            report(f"  inside service.fused_tick, stage {k}: "
+                   f"{stages.get(k)}")
         slow = sorted(gc_ticks, reverse=True)[:3]
         report(f"  garbage collector: median {np.median([g for _, g, _ in gc_ticks])}"
                f" ms per tick, {sum(f for _, _, f in gc_ticks)} full "
                f"collections in {HA_TIMED_TICKS} ticks; the 3 slowest ticks "
                f"(tick ms, gc ms, full collections): {slow}")
-        stages = svc.stage_percentiles()
         report(f"  service stages: fused {stages.get('fused')}, door "
                f"(arrays + padding) {stages.get('fused_pad')}")
 

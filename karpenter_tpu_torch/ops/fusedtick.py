@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.forecast import models as M
+from karpenter_tpu_torch.observability.tracing import default_tracer
 from karpenter_tpu_torch.ops import cost as C
 from karpenter_tpu_torch.ops import decision as D
 from karpenter_tpu_torch.ops import poolgroup as PG
@@ -394,51 +395,86 @@ class FusedTickProgram:
     "thread_local", so another thread's CUDA calls (the solve service's
     worker launching bin-pack kernels) neither fail nor invalidate the
     capture. A failed capture raises; it never falls back to eager.
-    One call at a time runs on the card: a lock is held from the copy
-    into the static buffers through the fetch, since concurrent calls
-    of one shape class share those buffers. On the CPU a call is
-    `fused_tick` itself."""
+    One call at a time runs: a lock is held from the copy into the
+    static buffers through the fetch, since concurrent calls of one
+    shape class share those buffers. On the CPU a call runs `fused_tick`
+    itself, eagerly.
+
+    Each call opens three spans (observability/tracing.py), in order:
+    `solver.fused.upload` (the operands into the static buffers, and a
+    shape class's capture; on the CPU their placement),
+    `solver.fused.replay` (the graph's replay; on the CPU the eager
+    program) and `solver.fused.fetch` (the one device->host copy, or the
+    outputs' clones). `record(stage, seconds)`, when given, receives the
+    three as stages "fused_upload", "fused_replay" and "fused_fetch",
+    and on the card with `host=True` also "fused_device": two CUDA
+    events on the stream, before and after the replay, read once the
+    fetch has synchronised, so they add no sync."""
 
     def __init__(self, device: DeviceLike = None):
         self.device = resolve_device(device)
         self._lock = threading.Lock()
         self._graphs = {}  # shape class -> (static inputs, outputs, graph)
+        self._events = None  # the replay's (start, end) on the card
         self.captures = 0
         self.replays = 0
-        self.last_split: dict = {}
 
-    def __call__(self, inputs: FusedTickInputs, host: bool = False):
-        t0 = time.perf_counter()
-        if not _all_tensors(inputs):
-            inputs = FusedTickInputs.from_numpy(inputs, "cpu")
-        if self.device.type != "cuda":
-            out = fused_tick(inputs.to(self.device))
-            return fetch(out) if host else out
+    def __call__(self, inputs: FusedTickInputs, host: bool = False,
+                 record: Optional[Callable[[str, float], None]] = None):
+        tracer = default_tracer()
+        card = self.device.type == "cuda"
         with self._lock:
-            key = shape_class(inputs)
-            entry = self._graphs.get(key)
-            if entry is None:
-                entry = self._capture(inputs)
-                self._graphs[key] = entry
-            static_in, static_out, graph = entry
-            for (_, dst), (_, src) in zip(
-                _leaves(static_in), _leaves(inputs)
-            ):
-                dst.copy_(src)
+            t0 = time.perf_counter()
+            with tracer.span("solver.fused.upload"):
+                if not _all_tensors(inputs):
+                    inputs = FusedTickInputs.from_numpy(inputs, "cpu")
+                if card:
+                    static_out, graph = self._staged(inputs)
+                else:
+                    inputs = inputs.to(self.device)
             t1 = time.perf_counter()
-            graph.replay()
-            self.replays += 1
+            with tracer.span("solver.fused.replay"):
+                if card:
+                    stream = torch.cuda.current_stream(self.device)
+                    self._events[0].record(stream)
+                    graph.replay()
+                    self._events[1].record(stream)
+                    self.replays += 1
+                    out = static_out
+                else:
+                    out = fused_tick(inputs)
             t2 = time.perf_counter()
-            out = fetch(static_out) if host else _clone_tree(static_out)
-        # host-clock split of the call: staging + host->device copies
-        # (and a capture on a shape class's first call), the replay's
-        # launch, and the fetch, which waits for the device
-        self.last_split = {
-            "upload_ms": (t1 - t0) * 1e3,
-            "replay_ms": (t2 - t1) * 1e3,
-            "fetch_ms": (time.perf_counter() - t2) * 1e3,
-        }
+            with tracer.span("solver.fused.fetch"):
+                if host:
+                    out = fetch(out)
+                elif card:
+                    out = _clone_tree(out)
+            t3 = time.perf_counter()
+            # the fetch's device->host copy waited for the stream
+            device_ms = (self._events[0].elapsed_time(self._events[1])
+                         if card and host else None)
+        if record is not None:
+            record("fused_upload", t1 - t0)
+            record("fused_replay", t2 - t1)
+            record("fused_fetch", t3 - t2)
+            if device_ms is not None:
+                record("fused_device", device_ms / 1e3)
         return out
+
+    def _staged(self, inputs: FusedTickInputs):
+        """The shape class's (static outputs, graph), captured on its
+        first call, with `inputs` copied into its static buffers."""
+        key = shape_class(inputs)
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._graphs[key] = self._capture(inputs)
+        if self._events is None:
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+        static_in, static_out, graph = entry
+        for (_, dst), (_, src) in zip(_leaves(static_in), _leaves(inputs)):
+            dst.copy_(src)
+        return static_out, graph
 
     def _capture(self, inputs: FusedTickInputs):
         static_in = _clone_tree(inputs.to(self.device))

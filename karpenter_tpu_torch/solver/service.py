@@ -967,6 +967,12 @@ class SolverService:
             if samples
         }
 
+    def stage_samples(self, stage: str) -> List[float]:
+        """The retained samples of one stage's latency ring, in ms,
+        oldest first (empty for a stage never recorded)."""
+        with self._stage_lock:
+            return list(self._stages.get(stage, ()))
+
     # -- submission -------------------------------------------------------
 
     def _resolve_backend(self, backend: Optional[str]) -> str:
@@ -1962,51 +1968,61 @@ class SolverService:
         and a degraded FSM to the floor. On the card a failure of the
         program raises (counted by the FSM) and a degraded FSM raises
         SolverDeviceError: no chained or numpy serve hides a broken
-        graph. `fused.tick` is the fault-injection point."""
+        graph. `fused.tick` is the fault-injection point.
+
+        One `solver.fused_tick` span covers a call: its child
+        `solver.fused.pad` is the door, then the rung that answers opens
+        its own (the program's `solver.fused.upload`, `.replay` and
+        `.fetch`; `solver.fused.chained`; `solver.fused.numpy`). Stages:
+        "fused_pad" (the door), "fused" (the rungs), and the program's
+        "fused_upload", "fused_replay", "fused_fetch" and, on the card,
+        "fused_device" (ops/fusedtick.FusedTickProgram)."""
         from karpenter_tpu_torch.forecast import models as M
         from karpenter_tpu_torch.ops import fusedtick as FT
 
         self.stats.fused_calls += 1
         resolved = self._family_backend(backend)
-        t_door = _time.perf_counter()
-        inputs = FT.FusedTickInputs.from_arrays(inputs)
-        t_bucket = s_bucket = n_series = 0
-        if inputs.forecast is not None:
-            n_series, t = inputs.forecast.values.shape
-            t_bucket = bucket_up(int(t), FORECAST_T_FLOOR)
-            s_bucket = bucket_up(int(n_series), FORECAST_S_FLOOR)
-            inputs = dataclasses.replace(
-                inputs,
-                forecast=M.pad_forecast_inputs(inputs.forecast, t_bucket),
-            )
-            inputs = FT.pad_series(inputs, s_bucket)
-        n = int(inputs.decision.spec_replicas.shape[0])
-        m = int(inputs.decision.metric_value.shape[1])
-        t0 = _time.perf_counter()
-        self._record_stage("fused_pad", t0 - t_door)
-        try:
-            if resolved != "numpy":
-                if self._device_allowed():
-                    out = self._fused_device(
-                        inputs, resolved, n, m, t_bucket, s_bucket
+        tracer = default_tracer()
+        with tracer.span("solver.fused_tick", backend=resolved):
+            t_door = _time.perf_counter()
+            with tracer.span("solver.fused.pad"):
+                inputs = FT.FusedTickInputs.from_arrays(inputs)
+                t_bucket = s_bucket = n_series = 0
+                if inputs.forecast is not None:
+                    n_series, t = inputs.forecast.values.shape
+                    t_bucket = bucket_up(int(t), FORECAST_T_FLOOR)
+                    s_bucket = bucket_up(int(n_series), FORECAST_S_FLOOR)
+                    inputs = dataclasses.replace(
+                        inputs,
+                        forecast=M.pad_forecast_inputs(
+                            inputs.forecast, t_bucket),
                     )
-                    if out is not None:
-                        return self._fused_slice(out, n_series)
-                elif not self._numpy_ladder:
-                    raise SolverDeviceError(
-                        "solver backend degraded: no device attempt until "
-                        "the next probe"
-                    )
-            with default_tracer().span(
-                "solver.fused_tick", backend="numpy"
-            ):
-                out = FT.fused_tick_numpy(inputs)
-            if resolved != "numpy":
-                self.stats.fused_mirror_serves += 1
-            self._annotate_provenance("numpy", "numpy")
-            return self._fused_slice(out, n_series)
-        finally:
-            self._record_stage("fused", _time.perf_counter() - t0)
+                    inputs = FT.pad_series(inputs, s_bucket)
+            n = int(inputs.decision.spec_replicas.shape[0])
+            m = int(inputs.decision.metric_value.shape[1])
+            t0 = _time.perf_counter()
+            self._record_stage("fused_pad", t0 - t_door)
+            try:
+                if resolved != "numpy":
+                    if self._device_allowed():
+                        out = self._fused_device(
+                            inputs, resolved, n, m, t_bucket, s_bucket
+                        )
+                        if out is not None:
+                            return self._fused_slice(out, n_series)
+                    elif not self._numpy_ladder:
+                        raise SolverDeviceError(
+                            "solver backend degraded: no device attempt "
+                            "until the next probe"
+                        )
+                with tracer.span("solver.fused.numpy"):
+                    out = FT.fused_tick_numpy(inputs)
+                if resolved != "numpy":
+                    self.stats.fused_mirror_serves += 1
+                self._annotate_provenance("numpy", "numpy")
+                return self._fused_slice(out, n_series)
+            finally:
+                self._record_stage("fused", _time.perf_counter() - t0)
 
     def fused_program(self):
         """The service's FusedTickProgram (built on first use); its
@@ -2038,10 +2054,9 @@ class SolverService:
             program = self.fused_program()
             captures = program.captures
             t0 = _time.perf_counter()
-            with default_tracer().span("solver.fused_tick", backend=resolved):
-                # the fused-path fault-injection point
-                inject("fused.tick")
-                out = program(inputs, host=True)
+            # the fused-path fault-injection point
+            inject("fused.tick")
+            out = program(inputs, host=True, record=self._record_stage)
             if fresh or program.captures != captures:
                 # a new key's first dispatch, or a CUDA-graph capture
                 self._note_compile("fused", key, _time.perf_counter() - t0)
@@ -2059,7 +2074,7 @@ class SolverService:
                 "chained per-stage path", type(error).__name__, error,
             )
         try:
-            with default_tracer().span("solver.fused_tick", backend="chained"):
+            with default_tracer().span("solver.fused.chained"):
                 out = FT.fused_tick_chained(inputs, device=self.device)
             # a degraded serve: stage dispatches are counted (the
             # dispatches-per-tick gauge must show the real program

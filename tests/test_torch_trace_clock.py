@@ -323,3 +323,74 @@ class TestGaugePercentiles:
         assert service._g_stage_p99.get("upload", "-") == float(want[1])
         assert service._g_upload.get("-", "-") == float(want[0])
         assert "upload" in text
+
+
+FUSED_CHILDREN = ("solver.fused.pad", "solver.fused.upload",
+                  "solver.fused.replay", "solver.fused.fetch")
+FUSED_STAGES = ("fused_pad", "fused_upload", "fused_replay", "fused_fetch",
+                "fused")
+
+
+class TestFusedTickSpans:
+    """The service's fused tick: one solver.fused_tick span whose children
+    are the door's pad and the program's upload, replay and fetch, in
+    order, each a stage in the service's rings."""
+
+    @staticmethod
+    def _tick(service, seed=0):
+        # 40 series pad up the S ladder (48) at the door
+        return service.fused_tick(workloads.build_fused_tick_inputs(
+            seed, 64, 3, 40, 16, groups=6, pools=4), backend="torch")
+
+    def test_children_in_order_under_one_tick_span(self, tracer):
+        service = SolverService(device="cpu", registry=GaugeRegistry())
+        try:
+            with tracer.trace("tick") as root:
+                out = self._tick(service)
+        finally:
+            service.close()
+        assert out.forecast.point.shape == (40,)
+        spans = tracer.snapshot()
+        (tick,) = [s for s in spans if s["name"] == "solver.fused_tick"]
+        assert tick["parent"] == root.span_id
+        assert tick["args"] == {"backend": "torch"}
+        children = [s for s in spans if s["parent"] == tick["id"]]
+        assert tuple(s["name"] for s in children) == FUSED_CHILDREN
+        starts = [s["ts_us"] for s in children]
+        assert starts == sorted(starts)
+        ends = [s["ts_us"] + s["dur_us"] for s in children]
+        assert all(end <= start + 1.0 for end, start
+                   in zip(ends, starts[1:]))
+        assert ends[-1] <= tick["ts_us"] + tick["dur_us"] + 1.0
+
+    def test_stages_fill_their_rings(self, tracer):
+        service = SolverService(device="cpu", registry=GaugeRegistry())
+        try:
+            for seed in range(3):
+                self._tick(service, seed)
+            samples = {s: service.stage_samples(s) for s in FUSED_STAGES}
+            stages = service.stage_percentiles()
+        finally:
+            service.close()
+        for stage in FUSED_STAGES:
+            assert len(samples[stage]) == 3, stage
+            assert all(ms >= 0 for ms in samples[stage]), stage
+            assert stages[stage]["n"] == 3, stage
+        # the CPU has no device events
+        assert service.stage_samples("fused_device") == []
+        # the program's three stages lie inside the rungs' stage
+        for i in range(3):
+            inside = sum(samples[s][i] for s in FUSED_STAGES[1:4])
+            assert inside <= samples["fused"][i] + 1e-6
+
+    def test_the_numpy_rung_opens_no_program_span(self, tracer):
+        service = SolverService(device="cpu", registry=GaugeRegistry())
+        try:
+            service.fused_tick(workloads.build_fused_tick_inputs(
+                1, 64, 3, 40, 16), backend="numpy")
+        finally:
+            service.close()
+        names = [s["name"] for s in tracer.snapshot()]
+        assert names == ["solver.fused.pad", "solver.fused.numpy",
+                         "solver.fused_tick"]
+        assert service.stage_samples("fused_upload") == []

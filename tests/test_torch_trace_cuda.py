@@ -1,4 +1,4 @@
-"""The cuda rung's split Solve on a CUDA card (solver/service.py
+"""The cuda rung's split Solve and the fused HA tick on a CUDA card (solver/service.py
 `_solve_cuda`). Every test carries the `cuda` marker and skips without a
 card (the rung launches CUDA C++ kernels, which have no interpret mode);
 on the CPU, tests/test_torch_trace_clock.py holds the spans.
@@ -10,7 +10,11 @@ on the CPU, tests/test_torch_trace_clock.py holds the spans.
     device time of the kernels the Solve launched between them, read in
     a profiler window;
   * the events add no device operation, and the launches per Solve stay
-    one fused and one shelf launch.
+    one fused and one shelf launch;
+  * the service's fused HA tick: per tick, `fused_device` (two CUDA events
+    around the graph's replay) is positive and at most `fused_replay` +
+    `fused_fetch`, and one shape class is captured once over repeated
+    ticks (on the CPU, tests/test_torch_trace_clock.py holds its spans).
 
 This file imports neither jax nor the reference package:
 
@@ -163,3 +167,39 @@ def test_events_add_no_device_operation(service, fields):
     print(f"\n{len(served)} device operations served, {len(direct)} direct")
     assert served == direct
     assert not T.profiling()
+
+
+# -- the fused HA tick (ops/fusedtick.FusedTickProgram through the service)
+
+FLEET_TICKS = 8
+
+
+def _fleet(seed):
+    return workloads.build_fused_tick_inputs(seed, 2048, 3, 1000, 64,
+                                             groups=16, pools=4)
+
+
+def test_fused_device_lies_within_replay_and_fetch(service):
+    """Per tick, `fused_device` (two CUDA events around the replay) is
+    positive and at most `fused_replay` + `fused_fetch`: the replay's work
+    starts after its launch began and ends before the fetch returns."""
+    for seed in range(FLEET_TICKS):
+        service.fused_tick(_fleet(seed))
+    rings = _rings(service)
+    for stage in ("fused_pad", "fused_upload", "fused_replay", "fused_fetch",
+                  "fused_device", "fused"):
+        assert len(rings.get(stage, ())) == FLEET_TICKS, (stage, rings)
+    print(f"\nfused_device ms {[round(d, 4) for d in rings['fused_device']]}")
+    for device, replay, fetch in zip(rings["fused_device"],
+                                     rings["fused_replay"],
+                                     rings["fused_fetch"]):
+        assert 0 < device <= replay + fetch, (device, replay, fetch)
+
+
+def test_one_capture_over_repeated_ticks_of_one_shape(service):
+    program = service.fused_program()
+    for seed in range(FLEET_TICKS):
+        service.fused_tick(_fleet(seed))
+        assert program.captures == 1
+    assert program.replays == FLEET_TICKS
+    assert service.stats.fused_dispatches == FLEET_TICKS
