@@ -42,7 +42,11 @@ no result line) if any of them fails:
    replayed after the first; the eager ticks and the replays run under
    torch.cuda.set_sync_debug_mode("error"); eager and replay p50/p95,
    device kernels and busy us per tick (torch.profiler), the forecast
-   stage's share of them, and the peak of allocated device memory;
+   stage's share of them, and the peak of allocated device memory; the
+   forecast kernel launches once an eager tick and not at all a replay,
+   and at the fleet cell's 6,144 x 64 series its outputs equal the plain
+   version's bit for bit, with its ms a launch beside its bound and the
+   plain version's ms (the kernel's record);
 9. reconcile tick: bench.py::run_e2e's cluster at 100k pods x 300 groups
    (workloads.build_reconcile_cluster, seed 0) in the port's Store, solved
    by the port's solve_pending through its PendingFeed with the default
@@ -361,7 +365,8 @@ kernel) and prints, before the last line, one JSON line of kernel records
 (`ms` is device time per launch from the profiler, and the smoke fails
 without it; `call_ms` is the wrapper's time by CUDA events around 50
 calls; the pack kernel's record is taken at the main path's four masks,
-its words held to the plain pack_bits' bit for bit), and the script's
+its words held to the plain pack_bits' bit for bit, and the forecast
+kernel's in phase 8), and the script's
 wall time, and as the last line
 {"ok": true, "device": {...}}. Every line with a measured number ends
 with the card's name and power limit. Without a CUDA device, or without
@@ -843,8 +848,90 @@ def phase_fused_tick(torch, FT, M, workloads):
         report(f"forecast stage's share of the eager tick: "
                f"{100.0 * fc[1] / tick[1]}% of the kernels, "
                f"{100.0 * fc[2] / tick[2]}% of the device busy time")
+    # the stage is one launch of csrc/forecast.cu: one an eager tick, none
+    # a graph replay
+    M.reset_launch_counts()
+    FT.fused_tick(a)
+    eager_launches = M.LAUNCHES["forecast"]
+    program(a)
+    torch.cuda.synchronize()
+    need(eager_launches == 1 and M.LAUNCHES["forecast"] == 1,
+         f"forecast launches: {eager_launches} an eager tick, "
+         f"{M.LAUNCHES['forecast'] - eager_launches} a replay (want 1, 0)")
     report(f"fused tick phase: peak allocated device memory "
            f"{torch.cuda.max_memory_allocated()} bytes")
+    return forecast_record(torch, M, workloads)
+
+
+def forecast_record(torch, M, workloads):
+    """The forecast kernel's record (csrc/forecast.cu's forecast_kernel) at
+    the HA fleet cell's forecast group (5,000 series of 64 samples, padded
+    to 6,144 as the service's door pads them): `ms` its device time per
+    launch (`ms_by`: the profiler over ITERS launches, or queued_ms where
+    it lost the rows), `call_ms` forecast() by CUDA events around 50
+    calls, `plain_ms` the plain version forecast_reference on the card,
+    `bound_ms` the operand and output bytes at PEAK_BYTES_PER_S, and
+    `max_abs_err` 0 when the kernel's outputs equal the plain version's
+    bit for bit (1 otherwise; required 0)."""
+    fields = workloads.build_fused_tick_inputs(0, 10000, 3, 5000, 64,
+                                               groups=64, pools=4)
+    host = M.concat_forecast_inputs(
+        [M.ForecastInputs.from_arrays(fields["forecast"])], 6144)
+    inputs = M.ForecastInputs.from_numpy(host, "cuda")
+    kernel = lambda: M.forecast(inputs)  # noqa: E731
+    plain = lambda: M.forecast_reference(inputs)  # noqa: E731
+    got, want = kernel().to_numpy(), plain().to_numpy()
+    err = 0.0 if all(got[k].tobytes() == want[k].tobytes()
+                     for k in got) else 1.0
+    need(err == 0.0, "the forecast kernel's outputs != the plain version's")
+
+    def ranged():
+        # key_averages() keeps a kernel only under a host range or op
+        with torch.profiler.record_function("forecast"):
+            return kernel()
+
+    M.reset_launch_counts()
+    prof, _ = profile_window(torch, ranged, ITERS)
+    need(M.LAUNCHES["forecast"] == ITERS + 2,
+         f"{ITERS + 2} forecast calls launched {M.LAUNCHES}")
+    hits = [(us, c) for us, c, key in device_rows(torch, prof)
+            if "forecast_kernel" in key]
+    kept = sum(c for _, c in hits)
+    if kept == ITERS:
+        ms, ms_by = sum(us for us, _ in hits) / ITERS / 1e3, "profiler"
+    else:
+        # the profiler does not keep every row of a ctypes launch
+        ms, ms_by = queued_ms(torch, kernel), (
+            f"CUDA events around 50 launches queued behind a device sleep "
+            f"(the profiler kept {kept} of {ITERS} forecast_kernel rows)")
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        *(getattr(inputs, f) for f in M.ForecastInputs.KINDS),
+        *(torch.as_tensor(v) for v in got.values())))
+    record = {
+        "name": "forecast",
+        "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/forecast.cu",
+        "replaces": ("karpenter_tpu_torch/forecast/models.py::"
+                     "forecast_reference (a PyTorch program; the reference "
+                     "leaves its forecast to XLA, karpenter_tpu/forecast/"
+                     "models.py::forecast)"),
+        "shape": [6144, 64],
+        "plan": list(M.forecast_plan(64)),
+        "bytes": nbytes,
+        "max_abs_err": err,
+        "ms": ms,
+        "ms_by": ms_by,
+        "call_ms": time_ms(kernel, 50),
+        "plain_ms": time_ms(plain, 3),
+        "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+    report(f"forecast_kernel at the fleet cell's 6,144 x 64 series: {ms} ms "
+           f"a launch ({ms_by}; bound {record['bound_ms']} ms, {nbytes} "
+           f"bytes), call {record['call_ms']} ms, plain version "
+           f"{record['plain_ms']} ms, outputs == plain bit for bit")
+    return record
 
 
 def _totals(producers) -> dict:
@@ -1827,24 +1914,30 @@ def _ha_production(torch, workloads, S, M, GaugeRegistry):
         for dev_us, count, key in rows[:8]:
             report(f"  HA tick device row: {dev_us / 3} us/tick "
                    f"x{count / 3}/tick {key[:80]}")
-        fc = None
         staged = last_inputs.get("tick")
-        if staged is not None and staged.forecast is not None:
-            from karpenter_tpu_torch.solver.bucketing import bucket_up
+        need(staged is not None and staged.forecast is not None,
+             "no forecast operands in the last tick")
+        from karpenter_tpu_torch.solver.bucketing import bucket_up
 
-            t = staged.forecast.values.shape[1]
-            s = staged.forecast.values.shape[0]
-            fin = M.pad_forecast_inputs(
-                M.ForecastInputs.from_numpy(staged.forecast, "cuda"),
-                bucket_up(t, 16))
-            fin = M.concat_forecast_inputs([fin], bucket_up(s, 8))
-            report(f"  forecast operands of the last tick: S = {s} series "
-                   f"(bucket {fin.values.shape[0]}) x T = {t}")
-            fc = profile_per_call(torch, lambda: M.forecast(fin), n=3)
+        t = staged.forecast.values.shape[1]
+        s = staged.forecast.values.shape[0]
+        fin = M.pad_forecast_inputs(
+            M.ForecastInputs.from_numpy(staged.forecast, "cuda"),
+            bucket_up(t, 16))
+        fin = M.concat_forecast_inputs([fin], bucket_up(s, 8))
+        report(f"  forecast operands of the last tick: S = {s} series "
+               f"(bucket {fin.values.shape[0]}) x T = {t}")
+        fc = profile_per_call(torch, lambda: M.forecast(fin), n=3)
         report(f"profiler, HA tick: {kernels} kernels, {ops} device ops "
                f"(kernels + memcpy/memset), {busy} us device busy per "
                f"tick ({100.0 * busy / 1e3 / p50}% of the tick p50)")
-        need(fc is not None, "no forecast operands in the last tick")
+        if fc is None or fc[1] < 1:
+            # the profiler does not keep every row of a ctypes launch
+            # (csrc/forecast.cu): the stage's one kernel by CUDA events
+            us = 1e3 * queued_ms(torch, lambda: M.forecast(fin))
+            fc = (1.0, 1.0, us)
+            report("  the profiler lost rows of the forecast stage "
+                   "alone; its busy us by CUDA events")
         report(f"  forecast stage alone on the tick's operands: "
                f"{fc[1]} kernels, {fc[2]} us busy = "
                f"{100.0 * fc[1] / kernels}% of the tick's kernels, "
@@ -7001,6 +7094,7 @@ def main() -> int:
                              results["multi-tenant control plane"],
                              results["replicated control plane"],
                              results["multi-device"])
+    records.append(results["fused tick"])
     report(f"chip_smoke wall time: {time.perf_counter() - started} s "
            f"(kernel build and all nineteen phases)")
     print(f"card: {CARD['line']}")

@@ -25,6 +25,12 @@ Loop-invariant work (the masked weights, the exact f64 products) is taken
 out of the T loops as whole [T, S] ops; elementwise, that changes no bit.
 The loops run time-major ([T, S], one contiguous row per step).
 
+`forecast` launches one hand-written CUDA kernel for CUDA tensors
+(csrc/forecast.cu, the same arithmetic in the same order, one thread per
+series), counts it in LAUNCHES and raises on any failure; for CPU tensors,
+and only for them, it runs the PyTorch program above, `forecast_reference`,
+which is also what the kernel is held against on the card.
+
 Histories are right-aligned: the newest sample sits at column T-1 and
 shorter series are left-padded with valid=False.
 """
@@ -38,6 +44,7 @@ from typing import List
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import kernels
 from karpenter_tpu_torch.utils.operands import (
     BOOL,
     F32,
@@ -63,6 +70,20 @@ _HUBER_K = np.float32(1.5)
 _HUBER_K2 = 1.5 * 1.5
 # floor of the per-step horizon conversion (degenerate spacing)
 _MIN_STEP_S = float(np.float32(1e-3))
+
+# kernel launches of `forecast` (one a call with series, none for CPU
+# tensors). Inside a CUDA graph it counts the eager warm-ups and the
+# capture, not the replays.
+LAUNCHES = {"forecast": 0}
+
+# csrc/forecast.cu's constants: the series (threads) a block at most and
+# the dynamic shared memory a block takes at most (48 KB: no launch needs
+# a function attribute)
+MAX_SERIES = 32
+SHARED_BUDGET = 49152
+# the plan halves a block's series until its seasonal buffer leaves room
+# for a chunk of this many steps
+_MIN_CHUNK = 32
 
 
 @dataclass
@@ -183,10 +204,9 @@ def _residual_stats(values, valid, times, weights, slope, intercept):
     return sse, sw
 
 
-def forecast(inputs: ForecastInputs) -> ForecastOutputs:
-    """The batched forecast program (module docstring); host operands are
-    placed as utils/operands.on_device says."""
-    inputs = on_device(inputs)
+def forecast_reference(inputs: ForecastInputs) -> ForecastOutputs:
+    """The batched forecast as a PyTorch program (module docstring): the
+    plain version of csrc/forecast.cu, on any device."""
     values = inputs.values.T.contiguous()
     valid = inputs.valid.T.contiguous()
     times = inputs.times.T.contiguous()
@@ -227,6 +247,89 @@ def forecast(inputs: ForecastInputs) -> ForecastOutputs:
     # with no samples forecasts 0
     point = torch.where(cnt > 0, point, 0.0)
     return ForecastOutputs(point=point, sigma2=sigma2_lin, n_valid=cnt)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def forecast_plan(T: int):
+    """(series a block, steps a chunk, dynamic shared bytes, whether the
+    seasonal buffer is in shared memory) of csrc/forecast.cu's launch at
+    history length T, from T alone. A block takes MAX_SERIES series, or
+    half as many until its seasonal buffer (4 T bytes a series) and a
+    chunk of min(T, 32) steps (13 (series + 1) bytes a step) fit
+    SHARED_BUDGET; past one series the buffer moves to device memory. The
+    chunk is then as long as the rest of the budget allows, the whole
+    history where it fits."""
+    if T < 1:
+        raise ValueError(f"forecast: history length {T} < 1")
+    series = MAX_SERIES
+    while True:
+        season_bytes = 4 * T * series
+        step_bytes = 13 * (series + 1)
+        if season_bytes + step_bytes * min(T, _MIN_CHUNK) <= SHARED_BUDGET:
+            shared_season = True
+            break
+        if series == 1:
+            season_bytes, shared_season = 0, False
+            break
+        series //= 2
+    chunk = min(T, (SHARED_BUDGET - season_bytes) // step_bytes)
+    return series, chunk, season_bytes + step_bytes * chunk, shared_season
+
+
+# the [S, T] operands; the others are [S]
+_HISTORY_FIELDS = ("values", "valid", "times", "weights")
+
+
+def forecast(inputs: ForecastInputs) -> ForecastOutputs:
+    """The batched forecast (module docstring): one launch of
+    csrc/forecast.cu for CUDA tensors, forecast_reference for CPU tensors.
+    Host operands are placed as utils/operands.on_device says."""
+    inputs = on_device(inputs)
+    dev = inputs.values.device
+    if dev.type == "cpu":
+        return forecast_reference(inputs)
+    if dev.type != "cuda":
+        raise ValueError(f"forecast: unsupported device {dev}")
+    if inputs.values.dim() != 2:
+        raise ValueError("forecast: values must be [S, T]")
+    S, T = inputs.values.shape
+    ops = []
+    for f in dataclasses.fields(ForecastInputs):
+        t = getattr(inputs, f.name).contiguous()
+        want = (S, T) if f.name in _HISTORY_FIELDS else (S,)
+        dtype = ForecastInputs.KINDS[f.name]
+        if t.dtype != dtype or tuple(t.shape) != want or t.device != dev:
+            raise ValueError(
+                f"forecast: {f.name} wants {dtype} {want} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        ops.append(t)
+    point = torch.empty(S, dtype=torch.float32, device=dev)
+    sigma2 = torch.empty(S, dtype=torch.float32, device=dev)
+    n_valid = torch.empty(S, dtype=torch.int32, device=dev)
+    out = ForecastOutputs(point=point, sigma2=sigma2, n_valid=n_valid)
+    if S == 0:
+        return out
+    series, chunk, shared_bytes, shared_season = forecast_plan(T)
+    scratch = None if shared_season else torch.empty(
+        -(-S // series) * T * series, dtype=torch.float32, device=dev
+    )
+    lib = kernels.library("forecast")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.forecast_launch(
+            *(t.data_ptr() for t in ops),
+            S, T, series, chunk, shared_bytes,
+            point.data_ptr(), sigma2.data_ptr(), n_valid.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), stream,
+        )
+    kernels.check("forecast", err, "forecast launch")
+    LAUNCHES["forecast"] += 1
+    return out
 
 
 # forecast() on the card for host operands, one fetch at the seam: the

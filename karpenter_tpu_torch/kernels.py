@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("fused_assign", "shelf_bfd")
+SOURCES = ("fused_assign", "shelf_bfd", "forecast")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -51,6 +51,12 @@ _SIGNATURES = {
     "shelf_bfd": {
         "shelf_bfd_launch": ([_P, _I, _I, _P, _P, _P], _I),
         "shelf_bfd_error_string": ([_I], ctypes.c_char_p),
+    },
+    "forecast": {
+        # 11 operands; S, T and the plan (series, chunk, shared_bytes); 3
+        # outputs, the seasonal scratch (or null) and the stream
+        "forecast_launch": ([_P] * 11 + [_I] * 5 + [_P] * 5, _I),
+        "forecast_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

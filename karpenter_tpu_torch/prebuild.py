@@ -2,7 +2,7 @@
 
     python -m karpenter_tpu_torch.prebuild [KERNEL_DIR]
 
-compiles both CUDA kernels (csrc/*.cu, `kernels.build()`: nvcc, sm_90a)
+compiles every CUDA kernel (csrc/*.cu, `kernels.build()`: nvcc, sm_90a)
 and both C host helpers (native/binpack_kernel.c and native/quantity.c,
 `load_kbinpack` / `load_kquantity`: the interpreter's C compiler) into
 the imported package's `_build/` (the CUDA kernels into KERNEL_DIR

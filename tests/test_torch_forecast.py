@@ -9,6 +9,7 @@ tests' adversarial draws (ramps, seasonality, gaps, mixed models,
 seasons 0, 1, 4, 8 and 3T), made once with numpy.
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from karpenter_tpu.forecast import models as RM
+from karpenter_tpu_torch import kernels
 from karpenter_tpu_torch.forecast import models as M
 
 from test_forecast import SEED, random_forecast_inputs
@@ -125,3 +127,73 @@ class TestShapePlumbing:
         assert M.pad_forecast_inputs(inputs, 10) is inputs
         with pytest.raises(ValueError):
             M.pad_forecast_inputs(inputs, 8)
+
+
+class TestKernelRoute:
+    """`forecast` launches csrc/forecast.cu for CUDA tensors and runs the
+    plain version for CPU tensors (the card's side is
+    tests/test_torch_forecast_cuda.py); the launch plan follows T alone."""
+
+    def test_cpu_tensors_take_the_plain_version(self):
+        inputs = M.ForecastInputs.from_numpy(
+            random_forecast_inputs(np.random.RandomState(16), 12, 16), "cpu"
+        )
+        M.reset_launch_counts()
+        got = M.forecast(inputs)
+        assert M.LAUNCHES["forecast"] == 0
+        assert_bitwise(got, M.forecast_reference(inputs), "plain version")
+
+    def test_other_devices_raise(self):
+        cpu = M.ForecastInputs.from_numpy(
+            random_forecast_inputs(np.random.RandomState(17), 4, 16), "cpu"
+        )
+        inputs = M.ForecastInputs(**{
+            f.name: getattr(cpu, f.name).to("meta")
+            for f in dataclasses.fields(cpu)
+        })
+        with pytest.raises(ValueError, match="unsupported device"):
+            M.forecast(inputs)
+
+    def test_loader_names_the_source_and_its_entry(self):
+        assert "forecast" in kernels.SOURCES
+        entries = kernels._SIGNATURES["forecast"]
+        argtypes, restype = entries["forecast_launch"]
+        # 11 operands, S, T and the plan's three ints, 3 outputs, the
+        # seasonal scratch and the stream
+        assert len(argtypes) == 11 + 5 + 5 and restype is ctypes.c_int
+        assert "forecast_error_string" in entries
+
+    def test_plan_constants_match_the_source(self):
+        source = (kernels.CSRC / "forecast.cu").read_text()
+        assert f"kMaxSeries = {M.MAX_SERIES};" in source
+        assert f"kSharedBudget = {M.SHARED_BUDGET};" in source
+        assert f"kModelHoltWinters = {M.MODEL_HOLT_WINTERS};" in source
+        assert "13LL * (series + 1) * chunk" in source
+        assert "kMinStep = 1e-3f;" in source
+        assert M._MIN_STEP_S == float(np.float32(1e-3))
+        assert f"kHuberK2 = {M._HUBER_K2}f;" in source
+
+    @pytest.mark.parametrize(
+        "T", [1, 2, 16, 24, 32, 48, 64, 96, 256, 384, 1536, 12080, 12081,
+              65536])
+    def test_plan_takes_the_shape(self, T):
+        """Every plan fits the budget with the largest tile that holds its
+        seasonal buffer; the fleet's T = 64 loads its whole history once
+        into 32-series tiles; past T = 12,080 the buffer leaves shared
+        memory."""
+        series, chunk, shared, shared_season = M.forecast_plan(T)
+        assert series in (1, 2, 4, 8, 16, 32) and 1 <= chunk <= T
+        assert shared <= M.SHARED_BUDGET
+        season = 4 * T * series if shared_season else 0
+        assert shared == season + 13 * (series + 1) * chunk
+        assert chunk == T or shared + 13 * (series + 1) > M.SHARED_BUDGET
+        if series < M.MAX_SERIES:  # twice the series would not fit
+            assert 8 * T * series + 26 * (series + 1) * min(T, 32) > (
+                M.SHARED_BUDGET)
+        assert shared_season == (T <= 12080)
+        if T <= 64:
+            assert (series, chunk) == (32, T)
+
+    def test_plan_refuses_an_empty_history(self):
+        with pytest.raises(ValueError):
+            M.forecast_plan(0)
