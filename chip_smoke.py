@@ -341,8 +341,8 @@ no result line) if any of them fails:
    2x2x2 (slices=2) and 8x1 meshes at the main path == solve(backend=
    "cuda") bitwise on all five outputs (nodes 20262), each launching
    what launch_plan states (a scan per non-empty row slab, one
-   demand_reduce, a shelf per non-empty group slab: 8 + 1 + 8; counts
-   set to 0 just before, read just after); p50/p95 of 10 sharded beside
+   demand_reduce, a shelf per non-empty group slab: 8 + 1 + 8) and one
+   pack (counts set to 0 just before, read just after); p50/p95 of 10 sharded beside
    10 single-device solves in turns; device ms per launch at the slab
    shape (profiler); dryrun_fleet_step(8) on the card; (b) SolverService()
    over the shards: the main path's host arrays at the default
@@ -1151,7 +1151,7 @@ def phase_reconcile(torch, TB, TF, workloads):
                          "demand_reduce": 0, "pack_bits": ITERS},
          f"{ITERS} churned ticks launched {TF.LAUNCHES}")
     last, host = cluster.feed.encode_memo[1], cluster.feed.encode_memo[2]
-    card = TB.solve(last)  # same inputs object: no upload
+    card = TB.solve(last)
     plain = cpu_solve(last)
     for field in ("assigned", "assigned_count", "nodes_needed", "lp_bound",
                   "unschedulable"):
@@ -1275,9 +1275,9 @@ def _fused_instance_ms(rows, n):
 
 def _service_main_path(torch, TB, TF, svc, inputs, host_inputs):
     """Sub-phase 1: the bench problem through SolverService() on the card
-    (the cuda rung: solve(backend="cuda") on the request's own 100k x 300
-    x 3 operands, kept resident by object identity, both kernels, one
-    fetch), against a direct solve(backend="cuda")."""
+    (the cuda rung: the request's own 100k x 300 x 3 operands uploaded,
+    then solve(backend="cuda") on them, both kernels, one fetch), against
+    a direct solve(backend="cuda")."""
     direct = TB.solve(inputs, buckets=BUCKETS, backend="cuda")
     torch.cuda.synchronize()
     TF.reset_launch_counts()
@@ -1300,10 +1300,9 @@ def _service_main_path(torch, TB, TF, svc, inputs, host_inputs):
 
     TF.reset_launch_counts()
     s50, s95 = host_ms(torch, service_call, ITERS)
-    # the same host operands stay resident, so their words are packed
-    # already (by the request above)
+    # every request uploads and packs its operands
     need(TF.LAUNCHES == {"fused_assign": ITERS + 1, "shelf_bfd": ITERS + 1,
-                         "demand_reduce": 0, "pack_bits": 0},
+                         "demand_reduce": 0, "pack_bits": ITERS + 1},
          f"{ITERS + 1} service solves launched {TF.LAUNCHES}")
     d50, d95 = host_ms(torch, direct_call, ITERS)
     report(f"service main path: SolverService().solve == direct "
@@ -6320,7 +6319,7 @@ def _shard_profile_ms(torch, TF, MESH, mesh, inputs):
         return ms, "profiler, 5 sharded solves"
     sh = MESH.shard_binpack_inputs(mesh, inputs)
     start, stop = sh.bounds("pod_requests")[0]
-    words = TF._packed(sh.whole)
+    words = TF.pack_operands(sh.whole)
     slab = sh.shards[0]
     slab_words = (words[0][start:stop], words[1][start:stop], words[2],
                   words[3])
@@ -6352,9 +6351,8 @@ def _shard_direct(torch, TF, TB, MESH, inputs):
         out = MESH.sharded_binpack(mesh, inputs, BUCKETS, backend="cuda")
         torch.cuda.synchronize()
         launches[label] = dict(TF.LAUNCHES)
-        # no mesh pads the main path, so the masks are the single
-        # solve's, packed already
-        need(launches[label] == {**plan, "pack_bits": 0},
+        # and one pack of the whole operands' masks
+        need(launches[label] == {**plan, "pack_bits": 1},
              f"(a) {label}: launched {launches[label]}, stated {plan}")
         need(plan == {"fused_assign": SHARD_DEVICES, "demand_reduce": 1,
                       "shelf_bfd": SHARD_DEVICES},
@@ -6891,12 +6889,9 @@ def pack_record(torch, TB, TF, inputs, launches, service):
     `bound_ms` the bytes read and written at PEAK_BYTES_PER_S, and
     `max_abs_err` the largest difference of any mask bit between the
     kernel's words and the plain version's (0 required). `launches` is
-    the main path's first solve's count (0 where an earlier phase packed
-    the same tensors: the memo), `fresh_solve_launches` a cuda solve's on
-    a fresh copy of the operands (1 required), `service_launches` phase
-    10's main-path request's."""
-    import dataclasses
-
+    the main path's first solve's count, `fresh_solve_launches` a cuda
+    solve's of the same operands again (1 required: every solve packs),
+    `service_launches` phase 10's main-path request's."""
     masks = (inputs.pod_intolerant, inputs.pod_required,
              inputs.group_taints, inputs.group_labels)
     invert = (False, False, False, True)
@@ -6907,15 +6902,10 @@ def pack_record(torch, TB, TF, inputs, launches, service):
     torch.cuda.synchronize()
     err = 0.0 if all(torch.equal(a, b) for a, b in zip(got, want)) else 1.0
     need(err == 0.0, "pack_masks' words != the plain pack_bits'")
-    fresh = dataclasses.replace(inputs, **{
-        name: getattr(inputs, name).clone()
-        for name in ("pod_intolerant", "pod_required", "group_taints",
-                     "group_labels")})
     TF.reset_launch_counts()
-    TB.solve(fresh, buckets=BUCKETS, backend="cuda")
+    TB.solve(inputs, buckets=BUCKETS, backend="cuda")
     fresh_launches = TF.LAUNCHES["pack_bits"]
-    need(fresh_launches == 1,
-         f"a fresh snapshot's solve packed {fresh_launches} times")
+    need(fresh_launches == 1, f"a solve packed {fresh_launches} times")
     def ranged():
         # key_averages() keeps a kernel only under a host range or op
         with torch.profiler.record_function("pack_masks"):

@@ -602,8 +602,8 @@ def _dispatch_and_record(  # lint: allow-complexity — the dispatch seam: one g
     else:
         if solver is None:
             solver = B.solve
-        # numpy arrays go straight through: solve makes them resident on
-        # its device by object identity (ops/binpack._device_resident)
+        # numpy arrays go straight through: solve places them on its
+        # device (ops/binpack.on_device)
         with default_tracer().span("pendingcapacity.solve"):
             out = solver(inputs)
 

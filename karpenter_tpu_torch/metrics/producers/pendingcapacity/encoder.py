@@ -5,9 +5,10 @@ states is pinned by the oracle suites.
 
 The port's copy of karpenter_tpu/metrics/producers/pendingcapacity/
 encoder.py. Its output is the port's ops/binpack.BinPackInputs holding
-NUMPY arrays, byte for byte the reference's: `solve` makes them
-resident on the device by object identity, so an encoded inputs object
-is never mutated after it is returned. Its fault-injection points
+NUMPY arrays, byte for byte the reference's: `solve` places them on
+the device, and the solve service's resident state (solver/resident.py)
+keys them by object identity, so an encoded inputs object is never
+mutated after it is returned. Its fault-injection points
 (encoder.encode, constraints.mask) fire through the port's faults/."""
 
 from __future__ import annotations

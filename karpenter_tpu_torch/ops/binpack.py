@@ -545,27 +545,6 @@ def _fold_for_fused(inputs: BinPackInputs):
     )
 
 
-# One-slot identity-keyed residency memo: a caller that passes the SAME
-# inputs object again skips the host->device copy. Contract: inputs are
-# immutable once passed to solve().
-_put_memo = None
-
-
-def _device_resident(inputs: BinPackInputs, device: torch.device) -> BinPackInputs:
-    global _put_memo
-    memo = _put_memo
-    if memo is not None and memo[0] is inputs and memo[1] == device:
-        return memo[2]
-    resident = BinPackInputs(
-        **{
-            f.name: _as_field(f.name, getattr(inputs, f.name), device)
-            for f in dataclasses.fields(BinPackInputs)
-        }
-    )
-    _put_memo = (inputs, device, resident)
-    return resident
-
-
 def solve(
     inputs: BinPackInputs,
     buckets: int = DEFAULT_BUCKETS,
@@ -579,9 +558,9 @@ def solve(
     'cuda' on the card, 'torch' on the CPU. The device defaults to the
     CUDA card and raises when there is none; the CPU runs only when asked
     for (device='cpu'), and there only 'torch' exists. Fields may be
-    tensors or numpy arrays; they are made resident on the device by
-    object identity (see _device_resident). On the cuda path each step
-    is a span (observability/tracing.py): solver.fold, then
+    tensors or numpy arrays; on_device places them on the device, and
+    inputs already there pass through. On the cuda path each step is a
+    span (observability/tracing.py): solver.fold, then
     ops/fused_assign.binpack_fused's.
 
     This is the kernel-level entry; production callers submit through
@@ -598,7 +577,7 @@ def solve(
         raise ValueError(f"unknown binpack backend {backend!r}")
     if backend == "cuda" and dev.type != "cuda":
         raise ValueError("backend 'cuda' needs a CUDA device")
-    inputs = _device_resident(inputs, dev)
+    inputs = on_device(inputs, dev)
     if backend == "cuda":
         with default_tracer().span("solver.fold"):
             inputs, backend = _fold_for_fused(inputs)

@@ -21,8 +21,8 @@ launch.
 
 The fused stage reads the taint and label masks bit-packed: `pack_masks`
 packs the four (~labels through an invert flag) in one launch
-(csrc/fused_assign.cu's pack_bits_launch), memoized per snapshot by
-`_packed`.
+(csrc/fused_assign.cu's pack_bits_launch); `pack_operands` does that for
+a solve's operands, once per solve.
 
 Each wrapper launches its kernel for CUDA tensors, counts the launch in
 LAUNCHES, and raises on any failure; for CPU tensors, and only for them, it
@@ -34,7 +34,6 @@ against on the card.
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -46,11 +45,11 @@ from karpenter_tpu_torch.observability.tracing import default_tracer
 from karpenter_tpu_torch.ops.binpack import (
     BinPackInputs,
     BinPackOutputs,
-    _as_field,
     _row_weight,
     _shelf_bfd,
     has_constraint_operands,
     lp_bound_of,
+    on_device,
     quantize_share,
     unschedulable_of,
     weighted_demand,
@@ -62,7 +61,7 @@ from karpenter_tpu_torch.ops.binpack import (
 # host entry) counts under "fused_assign"; a sharded solve counts each row
 # slab's scan there and its one reduction under "demand_reduce";
 # "pack_bits" counts the launches that pack a solve's four masks, one per
-# miss of _packed's memo
+# solve
 LAUNCHES = {"fused_assign": 0, "shelf_bfd": 0, "demand_reduce": 0,
             "pack_bits": 0}
 
@@ -139,26 +138,14 @@ def pack_masks(masks, invert) -> Tuple[torch.Tensor, ...]:
     return words
 
 
-# One-slot memo of the packed words, keyed by the identity of the four
-# bool tensors (solve's residency memo hands the same tensors back for the
-# same snapshot), so a repeated solve packs nothing.
-_pack_memo = None
-
-
-def _packed(inputs: BinPackInputs):
+def pack_operands(inputs: BinPackInputs) -> Tuple[torch.Tensor, ...]:
     """(intolerant, required, taints, ~labels) as packed int64 words, by
     one pack_masks call."""
-    global _pack_memo
-    key = (
-        inputs.pod_intolerant, inputs.pod_required,
-        inputs.group_taints, inputs.group_labels,
+    return pack_masks(
+        (inputs.pod_intolerant, inputs.pod_required,
+         inputs.group_taints, inputs.group_labels),
+        invert=(False, False, False, True),
     )
-    memo = _pack_memo
-    if memo is not None and all(a is b for a, b in zip(memo[0], key)):
-        return memo[1]
-    packed = pack_masks(key, invert=(False, False, False, True))
-    _pack_memo = (key, packed)
-    return packed
 
 
 def _check_operands(inputs: BinPackInputs) -> None:
@@ -250,7 +237,7 @@ def _fused_rows(inputs: BinPackInputs, buckets: int, words=None):
     alloc = inputs.group_allocatable
     n_pods, n_groups = req.shape[0], alloc.shape[0]
     intol_w, required_w, taint_w, nolabel_w = (
-        _packed(inputs) if words is None else words
+        pack_operands(inputs) if words is None else words
     )
 
     fits = torch.ones((n_pods, n_groups), dtype=torch.bool, device=req.device)
@@ -358,18 +345,18 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: want a contiguous tensor on {device}")
 
 
-def _launch_operands(inputs: BinPackInputs, buckets: int, words=None):
+def _launch_operands(inputs: BinPackInputs, buckets: int, words):
     """(plan, the 21 operand and shape arguments of a fused launch) for
-    CUDA inputs, after checking every operand's dtype, shape, device and
-    layout."""
+    CUDA inputs and their packed `words` (pack_operands), after checking
+    every operand's dtype, shape, device and layout. The arguments are
+    raw pointers: the caller holds `words` until the launch is enqueued,
+    or their memory may go to the launch's own outputs."""
     dev = inputs.pod_requests.device
     _check_operands(inputs)
     req, alloc = inputs.pod_requests, inputs.group_allocatable
     n_pods, n_res = req.shape
     n_groups = alloc.shape[0]
-    intol_w, required_w, taint_w, nolabel_w = (
-        _packed(inputs) if words is None else words
-    )
+    intol_w, required_w, taint_w, nolabel_w = words
     kw, lw = intol_w.shape[1], required_w.shape[1]
     f32, i32, b8, i64 = torch.float32, torch.int32, torch.bool, torch.int64
     _require(req, "pod_requests", f32, (n_pods, n_res), dev)
@@ -413,7 +400,8 @@ def fused_assign(inputs: BinPackInputs, buckets: int) -> FusedOutputs:
         raise ValueError(f"fused_assign: unsupported device {dev}")
     tracer = default_tracer()
     with tracer.span("solver.pack"):
-        plan, args = _launch_operands(inputs, buckets)
+        words = pack_operands(inputs)  # held past the launch below
+        plan, args = _launch_operands(inputs, buckets, words)
     with tracer.span("solver.assign"):
         n_pods, n_res = inputs.pod_requests.shape
         n_groups = inputs.group_allocatable.shape[0]
@@ -487,6 +475,8 @@ def fused_assign_scan(
         return out
     if dev.type != "cuda":
         raise ValueError(f"fused_assign_scan: unsupported device {dev}")
+    if words is None:
+        words = pack_operands(inputs)  # held past the launch below
     _, args = _launch_operands(inputs, buckets, words)
     lib = kernels.library("fused_assign")
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -617,8 +607,9 @@ def kernel_cost(inputs: BinPackInputs, buckets: int,
     assigned row adds its bucket, histogram and demand updates."""
     pods, n_res = inputs.pod_requests.shape
     groups = inputs.group_allocatable.shape[0]
-    intol_w, required_w, _, _ = _packed(inputs)
-    kw, lw = intol_w.shape[1], required_w.shape[1]
+    # pack_bits' word widths
+    kw = max(1, -(-inputs.pod_intolerant.shape[1] // 64))
+    lw = max(1, -(-inputs.pod_required.shape[1] // 64))
     valid = inputs.pod_valid.cpu().numpy()
     pairs = int(np.where(assigned >= 0, assigned + 1, groups)[valid].sum())
     fused_ops = pairs * (n_res + kw + lw) + int((assigned >= 0).sum()) * (
@@ -640,11 +631,7 @@ def solve_cost(inputs: BinPackInputs, buckets: int) -> dict:
     kernel_cost summed, as {"flops": operations, "bytes accessed": bytes}
     (the introspection plane's attribution). Computed on the host by the
     plain version, so it launches no kernel."""
-    cpu = torch.device("cpu")
-    host = BinPackInputs(**{
-        f.name: _as_field(f.name, getattr(inputs, f.name), cpu)
-        for f in dataclasses.fields(BinPackInputs)
-    })
+    host = on_device(inputs, "cpu")
     assigned, hist, _, _ = fused_assign_reference(host, buckets)
     costs = kernel_cost(host, buckets, assigned.numpy(), hist.numpy())
     return {
@@ -686,6 +673,7 @@ __all__ = [
     "fused_assign_scan_reference",
     "pack_bits",
     "pack_masks",
+    "pack_operands",
     "reset_launch_counts",
     "shelf_bfd",
     "shelf_bfd_reference",

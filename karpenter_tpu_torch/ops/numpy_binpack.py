@@ -113,12 +113,12 @@ def _pack_bits(matrix: np.ndarray, lib=None) -> np.ndarray:
     ).view(np.uint64)
 
 
-# one-slot identity-keyed pack cache, the numpy-path analog of
-# ops/binpack._put_memo: callers that pass the SAME BinPackInputs object
-# again (the encode memo, the bench's steady-state loop) skip re-packing
-# the [P, K] bool operands into bit words — ~2 ms of pure memory traffic
-# per solve at the 100k x 64-taint scale. Same contract as the device
-# cache: inputs are immutable once passed to solve().
+# one-slot identity-keyed pack cache (the reference's numpy path has the
+# same): callers that pass the SAME BinPackInputs object again (the encode
+# memo, the bench's steady-state loop) skip re-packing the [P, K] bool
+# operands into bit words — ~2 ms of pure memory traffic per solve at the
+# 100k x 64-taint scale. Contract: inputs are immutable once passed to
+# solve().
 _pack_memo = None
 
 

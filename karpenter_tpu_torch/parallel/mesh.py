@@ -685,8 +685,8 @@ def launch_plan(sh: Sharded) -> Dict[str, int]:
     """The launches this process makes for a card-route solve of `sh`, by
     LAUNCHES key: one scan per owned non-empty row slab, one reduction,
     one shelf per owned non-empty group slab. Not in it: the one pack of
-    the whole operands' masks ("pack_bits"), which a miss of
-    ops/fused_assign._packed's memo makes."""
+    the whole operands' masks ("pack_bits", ops/fused_assign.pack_operands),
+    one launch per sharded solve."""
     rows = sh.bounds("pod_requests")
     groups = position_bounds(sh.mesh, Split(_row_axes(sh.mesh)),
                              sh.whole.group_allocatable.shape[0])
@@ -705,7 +705,7 @@ def _card_route(sh: Sharded, buckets: int) -> TB.BinPackOutputs:
     home = mesh.home
     n_pods, n_res = whole.pod_requests.shape
     n_groups = whole.group_allocatable.shape[0]
-    words = TF._packed(whole)
+    words = TF.pack_operands(whole)
     assigned, _, partial, unsched_partial = TF.scan_buffers(
         n_pods, n_groups, n_res, buckets, home
     )

@@ -69,13 +69,13 @@ the service's `device=`, which defaults to the CUDA card (raising
 without one — the CPU runs only when asked for, device="cpu"):
 
   * `cuda` (auto on the card; the reference's `pallas`): per request,
-    ops/binpack.solve(backend="cuda") on the request's own operands —
-    no padding; solve keeps host operands resident on the card by
-    object identity — which launches both hand-written CUDA kernels;
-    synchronised inside the supervised device section; one
-    device->host copy. Its stages split the "dispatch" stage into
-    "upload" (the operands' host copy and host->device copy), "launch"
-    (the operands on the card to the last op enqueued) and "sync"; the
+    ops/binpack.on_device places the request's own operands on the
+    card (no padding), then ops/binpack.solve(backend="cuda") on them
+    launches the hand-written CUDA kernels; synchronised inside the
+    supervised device section; one device->host copy. Its stages split
+    the "dispatch" stage into "upload" (the operands' host copy and
+    host->device copy), "launch" (the operands on the card to the last
+    op enqueued) and "sync"; the
     "device" stage is the card's own span of a Solve, from the operands
     on the card to the last op, read from two CUDA events after the
     sync. Each step is a span of the request's trace (solver.dispatch
@@ -203,8 +203,8 @@ from karpenter_tpu_torch.ops.binpack import (
     DEFAULT_BUCKETS,
     BinPackInputs,
     BinPackOutputs,
-    _as_field,
     has_constraint_operands,
+    on_device,
 )
 from karpenter_tpu_torch.solver import bucketing
 from karpenter_tpu_torch.solver.bucketing import (
@@ -2753,14 +2753,13 @@ class SolverService:
 
     def _solve_cuda(self, shape, buckets: int, live: List[_Request]) -> None:
         """The cuda rung (the reference's _solve_pallas): per request,
-        ops/binpack.solve(backend="cuda") on the request's own operands,
-        synchronised inside the supervised section, fetched once. No
-        padding: the kernels take any shape, and solve keeps host
-        operands resident on the card by object identity, so a repeated
-        inputs object uploads nothing. The "dispatch" stage covers any
-        upload, both kernels and the sync, and is split into "upload",
-        "launch" and "sync"; "device" is the events' span on the card
-        (module docstring)."""
+        upload the request's own operands (ops/binpack.on_device), then
+        ops/binpack.solve(backend="cuda") on them, synchronised inside
+        the supervised section, fetched once. No padding: the kernels
+        take any shape. The "dispatch" stage covers the upload, the
+        kernels and the sync, and is split into "upload", "launch" and
+        "sync"; "device" is the events' span on the card (module
+        docstring)."""
         from karpenter_tpu_torch.ops import binpack as B
         from karpenter_tpu_torch.ops import fused_assign as TF
 
@@ -2781,12 +2780,11 @@ class SolverService:
                 ):
                     t0 = _time.perf_counter()
                     with tracer.span("solver.upload"):
-                        # solve finds these resident by object identity
-                        B._device_resident(request.inputs, self.device)
+                        resident = B.on_device(request.inputs, self.device)
                     t_resident = _time.perf_counter()
                     began.record(stream)
                     out = B.solve(
-                        request.inputs, buckets=buckets, backend="cuda",
+                        resident, buckets=buckets, backend="cuda",
                         device=self.device,
                     )
                     ended.record(stream)
@@ -3061,25 +3059,22 @@ class SolverService:
         return stacked
 
     def _upload(self, stacked: BinPackInputs) -> BinPackInputs:
-        """Place host operands on the service's device (the dtype cast of
-        ops/binpack.solve's own upload) and record the ISOLATED
-        host->device transfer cost: compute waits on the transfer either
-        way, so the sync point only moves the wait to where it can be
-        measured."""
+        """Place host operands on the service's device through
+        ops/binpack.on_device (solve's own placement) and record the
+        ISOLATED host->device transfer cost: compute waits on the
+        transfer either way, so the sync point only moves the wait to
+        where it can be measured."""
         t_up = _time.perf_counter()
-        placed = {}
-        nbytes = 0
-        for f in dataclasses.fields(BinPackInputs):
-            leaf = getattr(stacked, f.name)
-            if leaf is None:
-                continue
-            placed[f.name] = _as_field(f.name, leaf, self.device)
-            nbytes += placed[f.name].numel() * placed[f.name].element_size()
+        placed = on_device(stacked, self.device)
+        leaves = (getattr(placed, f.name) for f in dataclasses.fields(placed))
+        nbytes = sum(
+            t.numel() * t.element_size() for t in leaves if t is not None
+        )
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         self.stats.upload_bytes += nbytes
         self._record_stage("upload", _time.perf_counter() - t_up)
-        return BinPackInputs(**placed)
+        return placed
 
     def _drain_one(self) -> None:
         """Complete the OLDEST in-flight dispatch: wait out its device

@@ -546,14 +546,41 @@ class TestSolveRouting:
         folded, backend = TB._fold_for_fused(port)
         assert folded is port and backend == "cuda"
 
-    def test_device_resident_memo_is_identity_keyed(self):
+    def test_on_device_keeps_resident_tensors_and_copies_arrays(self):
         port = to_port(random_inputs(np.random.default_rng(4), 20, 4))
-        cpu = torch.device("cpu")
-        first = TB._device_resident(port, cpu)
-        assert TB._device_resident(port, cpu) is first
-        assert first.pod_requests is port.pod_requests  # already resident
-        other = dataclasses.replace(port)
-        assert TB._device_resident(other, cpu) is not first
+        resident = TB.on_device(port, "cpu")
+        assert resident.pod_requests is port.pod_requests  # already there
+        host = np.asarray(port.pod_requests).copy()
+        placed = TB.on_device(
+            dataclasses.replace(port, pod_requests=host), "cpu"
+        )
+        host[0, 0] += 1.0
+        assert placed.pod_requests[0, 0] == port.pod_requests[0, 0]
+
+    @pytest.mark.parametrize("entry", ["solve", "binpack_fused"])
+    def test_a_solve_keeps_no_reference_to_its_operands(self, entry):
+        """Nothing outlives a solve's inputs and outputs: no module holds
+        the operands it placed or the words it packed."""
+        import gc
+        import weakref
+
+        from karpenter_tpu_torch.ops import fused_assign as TF
+
+        run = {
+            "solve": lambda x: TB.solve(x, 8, backend="torch", device="cpu"),
+            "binpack_fused": lambda x: TF.binpack_fused(x, 8),
+        }[entry]
+        inputs = to_port(random_inputs(np.random.default_rng(5), 40, 6))
+        refs = [
+            weakref.ref(getattr(inputs, f.name))
+            for f in dataclasses.fields(inputs)
+            if getattr(inputs, f.name) is not None
+        ]
+        out = run(inputs)
+        assert int(out.assigned.shape[0]) == 40
+        del inputs, out
+        gc.collect()
+        assert all(ref() is None for ref in refs)
 
 
 class TestInputsFromNumpy:

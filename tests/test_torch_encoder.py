@@ -59,16 +59,13 @@ def module(side: str, name: str):
 def reset_state() -> None:
     """Module-level state exists once per package: the constraint breaker
     and stats, the delta cache and its resident plans, and in the port the
-    solve's residency and pack memos and its reroute counts."""
+    solve's reroute counts."""
     for side in PKGS:
         enc = module(side, f"{PC}.encoder")
         enc.reset_constraint_state()
         enc.reset_delta_cache()
     from karpenter_tpu_torch.ops import binpack as TB
-    from karpenter_tpu_torch.ops import fused_assign as TF
 
-    TB._put_memo = None
-    TF._pack_memo = None
     for key in TB.REROUTES:
         TB.REROUTES[key] = 0
 

@@ -309,21 +309,35 @@ class TestWrappers:
 
     def test_packed_words_are_the_plain_words_of_the_four_masks(self):
         port = to_port(random_inputs(np.random.default_rng(4), 20, 5))
-        words = TF._packed(port)
+        words = TF.pack_operands(port)
         want = (TF.pack_bits(port.pod_intolerant),
                 TF.pack_bits(port.pod_required),
                 TF.pack_bits(port.group_taints),
                 TF.pack_bits(~port.group_labels))
         assert all(torch.equal(a, b) for a, b in zip(words, want))
 
-    def test_packed_words_memoized_by_tensor_identity(self):
+    def test_each_fused_solve_packs_once_and_the_cost_adds_no_pack(
+        self, monkeypatch
+    ):
+        calls = []
+        pack_masks = TF.pack_masks
+
+        def counted(masks, invert):
+            calls.append(len(tuple(masks)))
+            return pack_masks(masks, invert)
+
+        monkeypatch.setattr(TF, "pack_masks", counted)
         port = to_port(random_inputs(np.random.default_rng(3), 12, 4))
-        first = TF._packed(port)
-        assert TF._packed(dataclasses.replace(port)) is first
-        other = dataclasses.replace(
-            port, pod_intolerant=port.pod_intolerant.clone()
-        )
-        assert TF._packed(other) is not first
+        TF.binpack_fused(port, 8)
+        assert calls == [4]
+        TF.binpack_fused(port, 8)  # the same object again packs again
+        assert calls == [4, 4]
+        assigned, hist, _, _ = TF.fused_assign_reference(port, 8)
+        del calls[:]
+        TF.kernel_cost(port, 8, assigned.numpy(), hist.numpy())
+        assert calls == []
+        TF.solve_cost(port, 8)  # its host fused_assign_reference alone
+        assert calls == [4]
 
     @pytest.mark.parametrize("seed,buckets", [(0, 32), (1, 16), (2, 8)])
     def test_shelf_wrapper_on_cpu(self, seed, buckets):

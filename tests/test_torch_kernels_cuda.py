@@ -193,14 +193,16 @@ def test_pack_kernel_packs_four_masks_in_one_launch():
         assert torch.equal(words, TF.pack_bits(~mask if inv else mask))
 
 
-def test_a_fresh_snapshot_packs_once_and_a_repeat_packs_nothing():
+def test_each_solve_packs_once_a_repeat_included():
     fields = workloads.build_inputs(5000, 300, 64, 64, seed=2)
     inputs = TB.inputs_from_numpy(fields, "cuda")
     before = TF.LAUNCHES["pack_bits"]
     first = TB.solve(inputs, backend="cuda")
     assert TF.LAUNCHES["pack_bits"] == before + 1
     again = TB.solve(inputs, backend="cuda")
-    assert TF.LAUNCHES["pack_bits"] == before + 1
-    assert TF._packed(inputs) is TF._packed(inputs)
+    assert TF.LAUNCHES["pack_bits"] == before + 2
+    words, words_again = TF.pack_operands(inputs), TF.pack_operands(inputs)
+    assert TF.LAUNCHES["pack_bits"] == before + 4
+    assert all(torch.equal(a, b) for a, b in zip(words, words_again))
     for name in OUTPUT_FIELDS:
         assert torch.equal(getattr(first, name), getattr(again, name)), name

@@ -51,17 +51,6 @@ def _needs_card():
     UD.reset_virtual_devices()
 
 
-def mesh_packs(mesh, inputs):
-    """The pack launches of a sharded solve of `inputs` right after a
-    single-device solve of them: 1, unless the mesh pads nothing, so that
-    the whole operands' masks are the ones just packed (the memo's hit)."""
-    whole = PM.shard_binpack_inputs(mesh, inputs).whole
-    return int(any(
-        getattr(whole, name) is not getattr(inputs, name)
-        for name in ("pod_intolerant", "pod_required", "group_taints",
-                     "group_labels")))
-
-
 def wide_inputs(seed=1):
     fields = workloads.build_inputs(pods=4096, types=2000, taints=64,
                                     labels=64, seed=seed)
@@ -76,7 +65,7 @@ def test_split_entry_equals_the_fused_launch():
     n_pods, n_res = inputs.pod_requests.shape
     n_groups = inputs.group_allocatable.shape[0]
     bufs = TF.scan_buffers(n_pods, n_groups, n_res, 32, inputs.pod_requests.device)
-    words = TF._packed(inputs)
+    words = TF.pack_operands(inputs)
     hists = []
     TF.reset_launch_counts()
     for start, stop in PM.slab_bounds(n_pods, 3, TF.ROWS_PER_BLOCK):
@@ -107,7 +96,7 @@ def test_sharded_solve_equals_single_device(n_devices):
     single = TB.solve(inputs, buckets=32, backend="cuda")
     mesh = PM.build_mesh(n_devices=n_devices)
     want = {**PM.launch_plan(PM.shard_binpack_inputs(mesh, inputs)),
-            "pack_bits": mesh_packs(mesh, inputs)}
+            "pack_bits": 1}
     TF.reset_launch_counts()
     out = PM.sharded_binpack(mesh, inputs, 32, backend="cuda")
     torch.cuda.synchronize()
@@ -128,12 +117,11 @@ def test_empty_slabs_launch_nothing():
     inputs = TB.inputs_from_numpy(fields, "cuda")
     single = TB.solve(inputs, buckets=32, backend="cuda")
     mesh = PM.build_mesh(n_devices=8)
-    packs = mesh_packs(mesh, inputs)
     TF.reset_launch_counts()
     out = PM.sharded_binpack(mesh, inputs, 32, backend="cuda")
     torch.cuda.synchronize()
     assert TF.LAUNCHES == {"fused_assign": 1, "shelf_bfd": 8,
-                           "demand_reduce": 1, "pack_bits": packs}
+                           "demand_reduce": 1, "pack_bits": 1}
     for name in OUTPUTS:
         assert torch.equal(getattr(out, name), getattr(single, name)), name
 

@@ -58,8 +58,7 @@ def service():
 
 
 def _solve(service, fields):
-    # a new inputs object each time: solve's residency memo is keyed by
-    # identity, so every Solve pays its upload, as a sidecar's does
+    # a new inputs object each time, as a sidecar decodes one per RPC
     return service.solve(BinPackInputs(**fields))
 
 
