@@ -848,19 +848,23 @@ def phase_fused_tick(torch, FT, M, workloads):
         report(f"forecast stage's share of the eager tick: "
                f"{100.0 * fc[1] / tick[1]}% of the kernels, "
                f"{100.0 * fc[2] / tick[2]}% of the device busy time")
-    # the stage is one launch of csrc/forecast.cu: one an eager tick, none
-    # a graph replay
+    # the forecast stage is one launch of csrc/forecast.cu and the row
+    # stages one of each of csrc/tick_rows.cu's kernels: one an eager
+    # tick, none a graph replay
     M.reset_launch_counts()
+    FT.reset_launch_counts()
     FT.fused_tick(a)
-    eager_launches = M.LAUNCHES["forecast"]
+    eager_launches = {**M.LAUNCHES, **FT.LAUNCHES}
     program(a)
     torch.cuda.synchronize()
-    need(eager_launches == 1 and M.LAUNCHES["forecast"] == 1,
-         f"forecast launches: {eager_launches} an eager tick, "
-         f"{M.LAUNCHES['forecast'] - eager_launches} a replay (want 1, 0)")
+    want = {"forecast": 1, "tick_scatter": 1, "tick_rows": 1}
+    need(eager_launches == want and {**M.LAUNCHES, **FT.LAUNCHES} == want,
+         f"launches: {eager_launches} an eager tick, then "
+         f"{ {**M.LAUNCHES, **FT.LAUNCHES} } after a replay (want {want})")
     report(f"fused tick phase: peak allocated device memory "
            f"{torch.cuda.max_memory_allocated()} bytes")
-    return forecast_record(torch, M, workloads)
+    return [forecast_record(torch, M, workloads),
+            tick_rows_record(torch, FT, M, workloads)]
 
 
 def forecast_record(torch, M, workloads):
@@ -931,6 +935,94 @@ def forecast_record(torch, M, workloads):
            f"a launch ({ms_by}; bound {record['bound_ms']} ms, {nbytes} "
            f"bytes), call {record['call_ms']} ms, plain version "
            f"{record['plain_ms']} ms, outputs == plain bit for bit")
+    return record
+
+
+def tick_rows_record(torch, FT, M, workloads):
+    """The row-stage kernels' record (csrc/tick_rows.cu's memset,
+    tick_scatter_kernel and tick_rows_kernel, one `tick_rows` call) at the
+    HA fleet cell's shape: 10,000 HAs x 3 metrics, K = 2 policy slots,
+    5,000 series padded to 6,144. `ms` the three device ops' time per call
+    (`ms_by`: the profiler over ITERS calls, or queued_ms where it lost
+    rows), `kernel_us` each op's, `call_ms` tick_rows() by CUDA events
+    around 50 calls, `plain_ms` the plain version tick_rows_reference on
+    the card, `bound_ms` the operand and output bytes at
+    PEAK_BYTES_PER_S, and `max_abs_err` 0 when every output equals the
+    plain version's bit for bit (1 otherwise; required 0)."""
+    fields = workloads.build_fused_tick_inputs(0, 10000, 3, 5000, 64)
+    host = FT.pad_series(FT.FusedTickInputs.from_arrays(fields), 6144)
+    inputs = FT.FusedTickInputs.from_numpy(host, "cuda")
+    fout = M.forecast(inputs.forecast)
+    kernel = lambda: FT.tick_rows(inputs, fout)  # noqa: E731
+    plain = lambda: FT.tick_rows_reference(inputs, fout)  # noqa: E731
+
+    def leaves(out):
+        dout, cout, dist = out
+        return [*dout.to_numpy().values(), *cout.to_numpy().values(),
+                *(x.cpu().numpy() for x in dist)]
+
+    got, want = leaves(kernel()), leaves(plain())
+    err = 0.0 if all(x.tobytes() == y.tobytes()
+                     for x, y in zip(got, want)) else 1.0
+    need(err == 0.0, "the tick_rows kernels' outputs != the plain version's")
+
+    def ranged():
+        # key_averages() keeps a kernel only under a host range or op
+        with torch.profiler.record_function("tick_rows"):
+            return kernel()
+
+    FT.reset_launch_counts()
+    prof, _ = profile_window(torch, ranged, ITERS)
+    need(FT.LAUNCHES == {"tick_scatter": ITERS + 2, "tick_rows": ITERS + 2},
+         f"{ITERS + 2} tick_rows calls launched {FT.LAUNCHES}")
+    ops = {"memset": "Memset", "tick_scatter_kernel": "tick_scatter_kernel",
+           "tick_rows_kernel": "tick_rows_kernel"}
+    rows = device_rows(torch, prof)
+    kernel_us = {name: [(us, c) for us, c, key in rows if match in key]
+                 for name, match in ops.items()}
+    if all(sum(c for _, c in hits) == ITERS for hits in kernel_us.values()):
+        kernel_us = {name: sum(us for us, _ in hits) / ITERS
+                     for name, hits in kernel_us.items()}
+        ms, ms_by = sum(kernel_us.values()) / 1e3, "profiler"
+    else:
+        # the profiler does not keep every row of a ctypes launch
+        kept = {name: sum(c for _, c in hits)
+                for name, hits in kernel_us.items()}
+        kernel_us = None
+        ms, ms_by = queued_ms(torch, kernel), (
+            f"CUDA events around 50 calls queued behind a device sleep "
+            f"(the profiler kept {kept} of {ITERS} rows each)")
+    operands = [t for path, t in FT._leaves(inputs)
+                if not path.startswith(("forecast.", "poolgroup."))]
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        *operands, fout.point, fout.sigma2, fout.n_valid,
+        *(torch.as_tensor(v) for v in got)))
+    record = {
+        "name": "tick_rows",
+        "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/tick_rows.cu",
+        "replaces": ("karpenter_tpu_torch/ops/fusedtick.py::"
+                     "tick_rows_reference (PyTorch programs: the scatter, "
+                     "ops/decision.py::decide, the cost seam and "
+                     "ops/cost.py::cost_decide; the reference leaves them "
+                     "to XLA)"),
+        "shape": [10000, 3, 2, 6144],
+        "bytes": nbytes,
+        "max_abs_err": err,
+        "ms": ms,
+        "ms_by": ms_by,
+        "kernel_us": kernel_us,
+        "call_ms": time_ms(kernel, 50),
+        "plain_ms": time_ms(plain, 3),
+        "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+    report(f"tick_rows at the fleet cell's 10,000 x 3, 6,144 series: {ms} "
+           f"ms a call ({ms_by}; {kernel_us} us by op; bound "
+           f"{record['bound_ms']} ms, {nbytes} bytes), call "
+           f"{record['call_ms']} ms, plain version {record['plain_ms']} ms, "
+           f"outputs == plain bit for bit")
     return record
 
 
@@ -7084,7 +7176,7 @@ def main() -> int:
                              results["multi-tenant control plane"],
                              results["replicated control plane"],
                              results["multi-device"])
-    records.append(results["fused tick"])
+    records.extend(results["fused tick"])
     report(f"chip_smoke wall time: {time.perf_counter() - started} s "
            f"(kernel build and all nineteen phases)")
     print(f"card: {CARD['line']}")

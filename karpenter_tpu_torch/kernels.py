@@ -20,12 +20,12 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("fused_assign", "shelf_bfd", "forecast")
+SOURCES = ("fused_assign", "shelf_bfd", "forecast", "tick_rows")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -57,6 +57,14 @@ _SIGNATURES = {
         # outputs, the seasonal scratch (or null) and the stream
         "forecast_launch": ([_P] * 11 + [_I] * 5 + [_P] * 5, _I),
         "forecast_error_string": ([_I], ctypes.c_char_p),
+    },
+    "tick_rows": {
+        # 5 series operands; S, N, M; the winners grid and the stream
+        "tick_scatter_launch": ([_P] * 5 + [_I] * 3 + [_P] * 2, _I),
+        # the array of operand and output pointers, its length; N, M, K;
+        # the stream
+        "tick_rows_launch": ([_P, _I, _I, _I, _I, _P], _I),
+        "tick_rows_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
@@ -131,6 +139,12 @@ def library(name: str) -> ctypes.CDLL:
         getattr(lib, fn).restype = restype
     _LIBS[name] = lib
     return lib
+
+
+def pointer_array(pointers: Sequence[Optional[int]]) -> ctypes.Array:
+    """The pointers (ints, None for null) as a C array of void*, which a
+    c_void_p parameter takes; the caller keeps it alive past the call."""
+    return (ctypes.c_void_p * len(pointers))(*pointers)
 
 
 def check(name: str, err: int, what: str) -> None:

@@ -22,9 +22,20 @@ index wins; a cell that no gated series reaches stays (0, False). This
 is the numpy mirror's result (`fused_tick_numpy`'s `_np_scatter`) on
 every input, and the reference's jitted program's wherever cells are
 distinct, as production's series map makes them. The rule is computed
-deterministically: an amax scatter of the gated series' indices into an
-[N+1, M] grid, then a gather (a duplicate-index `index_put_` has no
-defined winner on CUDA).
+deterministically: the largest gated index of a cell, by an amax scatter
+of the gated series' indices into an [N+1, M] grid and a gather in the
+plain version (a duplicate-index `index_put_` has no defined winner on
+CUDA), by atomicMax in the kernel.
+
+The row stages (the scatter, decide, the cost seam and the cost ladder)
+are `tick_rows`: for CUDA tensors one memset and two hand-written kernels
+(csrc/tick_rows.cu: one thread a series for the scatter, one thread a
+fleet row for the rest), counted in LAUNCHES, raising on any failure; for
+CPU tensors, and only for them, the plain version `tick_rows_reference`
+(the stages' PyTorch programs, which the kernels are held against on the
+card). The kernels follow the stages' operands: an absent forecast or
+cost group is an absent part of the kernel. `decide()` and
+`cost_decide()` called alone stay PyTorch programs.
 
 `FusedTickProgram` runs `fused_tick` as one captured CUDA graph per
 operand shape class: the counterpart of `fused_tick_jit`.
@@ -41,6 +52,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import kernels
 from karpenter_tpu_torch.forecast import models as M
 from karpenter_tpu_torch.observability.tracing import default_tracer
 from karpenter_tpu_torch.ops import cost as C
@@ -58,6 +70,11 @@ from karpenter_tpu_torch.utils.operands import (
 )
 
 _I32_MAX = int(np.iinfo(np.int32).max)
+
+# kernel launches of `tick_rows` (none for CPU tensors): "tick_scatter" one
+# a call with series, "tick_rows" one a call with rows. Inside a CUDA graph
+# they count the eager warm-ups and the capture, not the replays.
+LAUNCHES = {"tick_scatter": 0, "tick_rows": 0}
 
 
 @dataclass
@@ -301,18 +318,15 @@ def _pg_overlay(pg: PoolGroupOperands, final_desired, dout, dist):
     )
 
 
-def fused_tick(inputs: FusedTickInputs) -> FusedTickOutputs:
-    """forecast -> decide -> cost -> pool groups with every seam on the
-    device, and no host synchronisation: no .item(), no boolean-mask
-    indexing, no branch on a tensor's value. Host operands are placed
-    as utils/operands.on_device says."""
-    inputs = on_device(inputs)
+def tick_rows_reference(inputs: FusedTickInputs, fout):
+    """The plain version of `tick_rows`: the scatter, decide, the cost
+    seam and cost_decide as the stages' PyTorch programs. (decide's
+    outputs, cost's outputs or None, the dist grids (point, sigma2, ok)
+    or None)."""
     dec = inputs.decision
     n, m = dec.metric_value.shape
-    fout = None
     dist = None
-    if inputs.forecast is not None:
-        fout = M.forecast(inputs.forecast)
+    if fout is not None:
         rows, cols = inputs.series_row, inputs.series_col
         dist_gate = fout.n_valid >= inputs.series_need
         blend_win = _winners(n, m, rows, cols, inputs.series_blend & dist_gate)
@@ -331,6 +345,157 @@ def fused_tick(inputs: FusedTickInputs) -> FusedTickOutputs:
     cout = None
     if inputs.slo_valid is not None:
         cout = C.cost_decide(_demand_overlay(inputs, dout, dist))
+    return dout, cout, dist
+
+
+_COST_FIELDS = (
+    "ha_min", "ha_max", "unit_cost", "slo_weight", "max_hourly_cost",
+    "slo_valid", "slo_target", "observed", "demand_base_valid",
+    "prior_point", "prior_sigma2", "prior_valid",
+)
+_SERIES_FIELDS = ("series_row", "series_col", "series_need", "series_blend")
+_COST_OUTPUTS = tuple(
+    "cost_desired" if name == "desired" else name for name in C.CostOutputs.KINDS
+)
+_DIST = (("dist_point", F32), ("dist_sigma2", F32), ("dist_ok", BOOL))
+# csrc/tick_rows.cu's Slots, in order: the kernel's operands and outputs
+SLOTS = (
+    *D.DecisionInputs.KINDS, "point", "sigma2", "winners", *_COST_FIELDS,
+    *D.DecisionOutputs.KINDS, *_COST_OUTPUTS, *(name for name, _ in _DIST),
+)
+# the slots of [N, M] grids and of [N, K] policy slots; "now" is 0-d
+_GRID_SLOTS = frozenset((
+    "metric_value", "target_value", "target_type", "metric_valid",
+    "forecast_value", "forecast_valid", "slo_target", "observed",
+    "demand_base_valid", "prior_point", "prior_sigma2", "prior_valid",
+    "dist_point", "dist_sigma2", "dist_ok",
+))
+_POLICY_SLOTS = frozenset(
+    f"{d}_p{x}" for d in ("up", "down") for x in ("type", "value", "period", "valid")
+)
+
+
+def _kernel_operands(inputs: FusedTickInputs, fout):
+    """The kernels' operands, checked, and their outputs, allocated:
+    (slot name -> tensor for every present slot, the series operands
+    (n_valid, need, blend, row, col) or None, N, M, K, S). Raises
+    ValueError on a dtype, shape or device the kernels do not take."""
+    dec = inputs.decision
+    dev = dec.metric_value.device
+    if dec.metric_value.dim() != 2 or dec.up_ptype.dim() != 2:
+        raise ValueError("tick_rows: metric_value and up_ptype must be 2-d")
+    n, m = dec.metric_value.shape
+    k = dec.up_ptype.shape[1]
+    if m < 1 or k < 1:
+        raise ValueError(f"tick_rows: {m} metrics, {k} policy slots (>= 1)")
+    forecast = fout is not None
+    cost = inputs.slo_valid is not None
+    s = fout.point.shape[0] if forecast else 0
+    wanted = dict(D.DecisionInputs.KINDS)
+    sources = {name: getattr(dec, name) for name in wanted}
+    if forecast:
+        wanted.update(point=F32, sigma2=F32)
+        sources.update(point=fout.point, sigma2=fout.sigma2)
+    if cost:
+        wanted.update((name, FusedTickInputs.KINDS[name]) for name in _COST_FIELDS)
+        sources.update((name, getattr(inputs, name)) for name in _COST_FIELDS)
+
+    def shape(name):
+        if name in ("point", "sigma2", "n_valid") or name in _SERIES_FIELDS:
+            return (s,)
+        if name == "now":
+            return ()
+        return (n, m) if name in _GRID_SLOTS else (
+            (n, k) if name in _POLICY_SLOTS else (n,))
+
+    def checked(name, t, dtype):
+        if t is None:
+            raise ValueError(f"tick_rows: {name} is missing from its stage")
+        t = t.contiguous()
+        if t.dtype != dtype or tuple(t.shape) != shape(name) or t.device != dev:
+            raise ValueError(
+                f"tick_rows: {name} wants {dtype} {shape(name)} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        return t
+
+    slots = {}
+    for name, dtype in wanted.items():
+        if name in ("forecast_value", "forecast_valid") and (
+            forecast or dec.forecast_value is None
+        ):
+            continue  # the scatter's blend, or none
+        slots[name] = checked(name, sources[name], dtype)
+    series = None
+    if forecast:
+        series = (checked("n_valid", fout.n_valid, I32),) + tuple(
+            checked(name, getattr(inputs, name), FusedTickInputs.KINDS[name])
+            for name in ("series_need", "series_blend", "series_row", "series_col")
+        )
+        slots["winners"] = torch.empty((2, n, m), dtype=I32, device=dev)
+    outputs = list(D.DecisionOutputs.KINDS.items())
+    if cost:
+        outputs += zip(_COST_OUTPUTS, C.CostOutputs.KINDS.values())
+    if forecast:
+        outputs += _DIST
+    for name, dtype in outputs:
+        slots[name] = torch.empty(shape(name), dtype=dtype, device=dev)
+    return slots, series, n, m, k, s
+
+
+def tick_rows(inputs: FusedTickInputs, fout):
+    """The fused tick's row stages on `fout`, the forecast's outputs (None
+    without the forecast stage): (decide's outputs, cost's outputs or None,
+    the dist grids (point, sigma2, ok) or None). For CUDA tensors the
+    winners memset and csrc/tick_rows.cu's two kernels, each counted in
+    LAUNCHES; for CPU tensors tick_rows_reference."""
+    dev = inputs.decision.metric_value.device
+    if dev.type == "cpu":
+        return tick_rows_reference(inputs, fout)
+    if dev.type != "cuda":
+        raise ValueError(f"tick_rows: unsupported device {dev}")
+    slots, series, n, m, k, s = _kernel_operands(inputs, fout)
+    lib = kernels.library("tick_rows")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pointers = kernels.pointer_array(
+        [slots[name].data_ptr() if name in slots else None for name in SLOTS]
+    )
+    with torch.cuda.device(dev):
+        if series is not None:
+            err = lib.tick_scatter_launch(
+                *(t.data_ptr() for t in series), s, n, m,
+                slots["winners"].data_ptr(), stream,
+            )
+            kernels.check("tick_rows", err, "tick_scatter launch")
+            LAUNCHES["tick_scatter"] += int(s > 0)
+        err = lib.tick_rows_launch(pointers, len(SLOTS), n, m, k, stream)
+    kernels.check("tick_rows", err, "tick_rows launch")
+    LAUNCHES["tick_rows"] += int(n > 0)
+    dout = D.DecisionOutputs(**{f: slots[f] for f in D.DecisionOutputs.KINDS})
+    cout = None
+    if inputs.slo_valid is not None:
+        cout = C.CostOutputs(**dict(zip(
+            C.CostOutputs.KINDS, (slots[f] for f in _COST_OUTPUTS)
+        )))
+    dist = None
+    if series is not None:
+        dist = tuple(slots[name] for name, _ in _DIST)
+    return dout, cout, dist
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def fused_tick(inputs: FusedTickInputs) -> FusedTickOutputs:
+    """forecast -> decide -> cost -> pool groups with every seam on the
+    device, and no host synchronisation: no .item(), no boolean-mask
+    indexing, no branch on a tensor's value. Host operands are placed
+    as utils/operands.on_device says."""
+    inputs = on_device(inputs)
+    fout = None if inputs.forecast is None else M.forecast(inputs.forecast)
+    dout, cout, dist = tick_rows(inputs, fout)
     pout = None
     if inputs.poolgroup is not None:
         final = cout.desired if cout is not None else dout.desired

@@ -12,6 +12,7 @@ them), made once with numpy and handed to both packages.
 import ast
 import dataclasses
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -20,7 +21,10 @@ import torch
 from karpenter_tpu.forecast import models as RM
 from karpenter_tpu.ops import decision as RD
 from karpenter_tpu.ops import fusedtick as RFT
-from karpenter_tpu_torch import workloads
+from karpenter_tpu_torch import kernels, workloads
+from karpenter_tpu_torch.forecast import models as FM
+from karpenter_tpu_torch.ops import cost as C
+from karpenter_tpu_torch.ops import decision as D
 from karpenter_tpu_torch.ops import fusedtick as FT
 
 from test_torch_decision import assert_bitwise
@@ -213,6 +217,107 @@ class TestOperandsAndProgram:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
             FT.FusedTickProgram()
+
+
+def _numpy_rows(fields):
+    """The row stages as the numpy mirror composes them: _np_scatter,
+    decide_numpy, _np_demand_overlay and cost_numpy."""
+    host = FT.FusedTickInputs.from_arrays(fields)
+    dec = host.decision
+    n, m = np.asarray(dec.metric_value).shape
+    dist = None
+    if host.forecast is not None:
+        fout = FM.forecast_numpy(host.forecast)
+        fv, fvalid, dist = FT._np_scatter(host, fout, n, m)
+        dec = dataclasses.replace(dec, forecast_value=fv, forecast_valid=fvalid)
+    dout = D.decide_numpy(dec)
+    cout = None
+    if host.slo_valid is not None:
+        cout = C.cost_numpy(FT._np_demand_overlay(host, dout, dist))
+    return dout, cout, dist
+
+
+# csrc/tick_rows.cu's pointer types
+_C_TYPES = {"float": torch.float32, "int32_t": torch.int32, "uint8_t": torch.bool}
+
+
+class TestTickRows:
+    """The plain version of the row-stage kernels, and the wrapper's side
+    of their interface (the kernels run only on a card:
+    tests/test_torch_tick_rows_cuda.py)."""
+
+    @pytest.mark.parametrize("cost", [True, False], ids=["cost", "no-cost"])
+    @pytest.mark.parametrize("forecast", [True, False], ids=["fc", "no-fc"])
+    def test_plain_version_is_the_stage_composition(self, full, forecast, cost):
+        fields = with_stages(full, forecast, cost, False)
+        port = FT.FusedTickInputs.from_numpy(fields, "cpu")
+        fout = None if port.forecast is None else FM.forecast(port.forecast)
+        FT.reset_launch_counts()
+        dout, cout, dist = FT.tick_rows(port, fout)
+        assert FT.LAUNCHES == {"tick_scatter": 0, "tick_rows": 0}
+        want_d, want_c, want_dist = _numpy_rows(fields)
+        assert_bitwise(dout, want_d, "decision")
+        assert (cout is None) == (not cost) == (want_c is None)
+        if cost:
+            assert_bitwise(cout, want_c, "cost")
+        assert (dist is None) == (not forecast)
+        for got, want in zip(dist or (), want_dist or ()):
+            assert got.numpy().tobytes() == want.tobytes()
+        plain = FT.tick_rows_reference(port, fout)
+        assert_bitwise(plain[0], want_d, "plain decision")
+
+    def test_fused_tick_on_cpu_needs_no_nvcc(self, full, monkeypatch):
+        def refuse(*_):
+            raise AssertionError("the CPU path built or loaded a kernel")
+
+        monkeypatch.setattr(kernels, "nvcc", refuse)
+        monkeypatch.setattr(kernels, "library", refuse)
+        FT.reset_launch_counts()
+        check(full, "no nvcc", jit=False)
+        assert FT.LAUNCHES == {"tick_scatter": 0, "tick_rows": 0}
+
+    def test_slots_follow_the_kernel_struct(self):
+        """SLOTS is csrc/tick_rows.cu's Slots, field for field, and each
+        slot's dtype is its pointer's type there."""
+        source = (kernels.CSRC / "tick_rows.cu").read_text()
+        body = source[source.index("struct Slots {"):source.index("};")]
+        fields = re.findall(r"^\s+(?:const )?(\w+)\* (\w+);", body, re.MULTILINE)
+        assert tuple(name for _, name in fields) == FT.SLOTS
+        kinds = {
+            **D.DecisionInputs.KINDS, **FT.FusedTickInputs.KINDS,
+            **D.DecisionOutputs.KINDS, **dict(FT._DIST),
+            **dict(zip(FT._COST_OUTPUTS, C.CostOutputs.KINDS.values())),
+            "point": torch.float32, "sigma2": torch.float32,
+            "winners": torch.int32,
+        }
+        for ctype, name in fields:
+            assert _C_TYPES[ctype] == kinds[name], name
+
+    def test_kernel_operands_are_checked(self, full):
+        port = FT.FusedTickInputs.from_numpy(full, "cpu")
+        fout = FM.forecast(port.forecast)
+        slots, series, n, m, k, s = FT._kernel_operands(port, fout)
+        assert (n, m, k, s) == (N, M, 2, S)
+        assert slots["winners"].shape == (2, N, M)
+        assert slots["dist_ok"].dtype == torch.bool
+        assert slots["cost_desired"].shape == (N,)
+        assert "forecast_value" not in slots and len(series) == 5
+        bare = dataclasses.replace(port, forecast=None, slo_valid=None)
+        slots, series, *_ = FT._kernel_operands(bare, None)
+        assert series is None
+        assert not {"winners", "point", "ha_min", "cost_desired"} & set(slots)
+        for change, match in (
+            (dict(observed=port.observed[:-1]), "observed"),
+            (dict(unit_cost=port.unit_cost.double()), "unit_cost"),
+            (dict(prior_valid=None), "prior_valid"),
+            (dict(series_col=port.series_col.to("meta")), "series_col"),
+        ):
+            with pytest.raises(ValueError, match=match):
+                FT._kernel_operands(dataclasses.replace(port, **change), fout)
+        meta = dataclasses.replace(port, decision=dataclasses.replace(
+            port.decision, metric_value=port.decision.metric_value.to("meta")))
+        with pytest.raises(ValueError, match="unsupported device"):
+            FT.tick_rows(meta, None)
 
 
 NEW_MODULES = [

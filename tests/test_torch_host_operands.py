@@ -306,10 +306,9 @@ class TestFusedTickHostOperands:
         with monkeypatch.context() as patch:  # the old failure
             patch.setattr(FT, "on_device", lambda inputs: inputs,
                           raising=False)
+            # the row stages read the device of a numpy leaf: a str
             with pytest.raises(
-                (TypeError, AttributeError),
-                match="'>=' not supported|has no attribute 'clamp'"
-                      "|must be Tensor, not numpy.ndarray",
+                AttributeError, match="'str' object has no attribute 'type'"
             ):
                 FT.fused_tick(host)
         assert_bitwise(FT.fused_tick(host),
@@ -335,7 +334,9 @@ class TestFusedTickHostOperands:
         with monkeypatch.context() as patch:  # the old failure
             patch.setattr(FT, "on_device", lambda inputs: inputs,
                           raising=False)
-            with pytest.raises(AttributeError, match="no attribute 'clamp'"):
+            with pytest.raises(
+                AttributeError, match="'str' object has no attribute 'type'"
+            ):
                 port._tick(*broken)
         chained = world(port)
         fused = world(port, FT.fused_tick)
